@@ -6,10 +6,13 @@ Phases, each of which must pass (nothing is caught):
  1. the card's name and power limit, the torch and CUDA versions;
  2. build both kernels from minio_tpu_torch/csrc with nvcc for sm_90a and
     print ptxas's register/shared-memory report;
- 3. hold each kernel against its plain PyTorch version on the card at the
-    main path's shapes, with exact equality, tolerance 0 (integer
-    arithmetic; the plain GF version's float32 matmul is exact with TF32
-    off);
+ 3. hold each kernel against its plain PyTorch version on the card, with
+    exact equality, tolerance 0 (integer arithmetic; the plain GF
+    version's float32 matmul is exact with TF32 off): kernel A at the main
+    path's shapes, at wide geometries (40+40, 128+128, 200+56) and at
+    S = 1, 2, 3 mod 16; kernel B at chunk starts 0..15 mod 16, on framed
+    buffers at pitch 32 + L for the main shard length and short lengths,
+    and its verify entry on good and corrupted frames;
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object with shards 0, 5, 12 and 15 lost: PUT,
     degraded GET (whole and ranged), heal, re-verify. The kernel launch
@@ -17,8 +20,10 @@ Phases, each of which must pass (nothing is caught):
     PUT, GET and heal phases must launch both kernels;
  4b. a traced (torch.profiler) run of the same path at 64 MiB + 12,345 B:
     device busy share and device time by kernel;
- 5. time each kernel at the main shapes with CUDA events and print one
-    JSON line {"kernels": [...]};
+ 5. time each kernel at the main shapes with CUDA events (kernel B cold
+    at the PUT shape [128, 87382] and L2-warm at the GET shape
+    [8, 87382], in ns per packet too) and print one JSON line
+    {"kernels": [...]};
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -43,7 +48,7 @@ K, M, BLOCK = 12, 4, 1 << 20
 SHARD = -(-BLOCK // K)  # 87,382
 BATCH = 8
 LOST = (0, 5, 12, 15)
-HASH_LENGTHS = (0, 1, 17, 31, 32, 4096 + 22)
+HASH_LENGTHS = (0, 1, 17, 31, 32, 33, 63, 4096 + 22)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 
@@ -78,7 +83,7 @@ def check_kernels(rng) -> dict:
     from minio_tpu_torch.entry import entry
     from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
-    errs = {"gf_apply": 0, "highwayhash256": 0}
+    errs = {"gf_apply": 0, "highwayhash256": 0, "hh256_verify": 0}
     fn, (bitmat, blocks) = entry("cuda")  # 12+4 encode, [8, 12, 87382]
     cases = [("encode 12+4", bitmat, blocks)]
     present = [i for i in range(K + M) if i not in LOST]
@@ -86,10 +91,19 @@ def check_kernels(rng) -> dict:
         gf.reconstruct_matrix(K, M, present, list(LOST))), "cuda")
     cases.append(("reconstruct 12+4 lost 0,5,12,15", rec,
                   rand((BATCH, K, SHARD), rng)))
-    for k, m in ((16, 16), (2, 2)):
+    # Wide geometries minio_tpu accepts, and S = 1, 2, 3 mod 16.
+    for k, m, s in ((16, 16, 333), (2, 2, 333), (40, 40, 1000),
+                    (128, 128, 257), (200, 56, 515), (K, M, 4097),
+                    (K, M, 4098), (K, M, 4099)):
         bm = gf.to_device_bitmat(gf.bit_matrix(gf.parity_matrix(k, m)),
                                  "cuda")
-        cases.append((f"encode {k}+{m} S=333", bm, rand((2, k, 333), rng)))
+        cases.append((f"encode {k}+{m} S={s}", bm, rand((2, k, s), rng)))
+    lost40 = list(range(0, 80, 2))
+    rec40 = gf.reconstruct_matrix(
+        40, 40, [i for i in range(80) if i not in lost40], lost40)
+    cases.append(("reconstruct 40+40 lost 40",
+                  gf.to_device_bitmat(gf.bit_matrix(rec40), "cuda"),
+                  rand((2, 40, 1000), rng)))
     for name, bm, x in cases:
         got = rs_cuda.apply_gf_matrix_cuda(bm, x)
         want = rs._apply_bits_plain(bm, x)
@@ -101,16 +115,43 @@ def check_kernels(rng) -> dict:
     if not torch.equal(got_entry, rs._apply_bits_plain(bitmat, blocks)):
         raise AssertionError("entry() output differs from the plain version")
 
-    shapes = [(2, K + M, SHARD)] + [(16, n) for n in HASH_LENGTHS]
-    for shape in shapes:
-        x = rand(shape, rng)
-        flat = x.reshape(int(np.prod(shape[:-1])), shape[-1])
-        got = hh._hash256_cuda(flat.contiguous(), hh.MAGIC_KEY)
-        want = hh._hash256_plain(flat, hh.MAGIC_KEY)
+    def hash_case(name, buf, offset, pitch, n, length):
+        got = hh.hash256_pitched(buf, offset, pitch, n, length)
+        want = hh._hash256_plain(hh._rows(buf, offset, pitch, n, length),
+                                 hh.MAGIC_KEY)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        log(f"highwayhash256 {shape}: max_abs_err {err}")
+        log(f"highwayhash256 {name}: max_abs_err {err}")
         errs["highwayhash256"] = max(errs["highwayhash256"], err)
+        return want
+
+    # Chunk starts at every offset mod 16 (20 rows: two blocks of 16).
+    for off in range(16):
+        n, ln = 20, 4096 + 22
+        hash_case(f"[{n}, {ln}] from offset {off}",
+                  rand((off + n * ln,), rng), off, ln, n, ln)
+    # Framed buffers [digest || chunk]* at pitch 32 + L from an odd
+    # address, then the verify entry on good and corrupted frames; the
+    # plain verify is run where it takes seconds (L <= 4,118).
+    for n, ln in ([(2 * (K + M), SHARD)]
+                  + [(20, ln) for ln in HASH_LENGTHS]):
+        pitch = 32 + ln
+        framed = rand((3 + n * pitch,), rng)[3:]
+        want = hash_case(f"framed [{n}, {ln}] pitch {pitch}", framed, 32,
+                         pitch, n, ln)
+        hh._rows(framed, 0, pitch, n, 32).copy_(want)
+        for bad in ((), (0,), (5, n - 1), (n - 1,)):
+            f = framed.clone()
+            for i in bad:
+                f[i * pitch + (32 + ln // 2 if ln else 5)] ^= 0x41
+            expect = bad[0] if bad else -1
+            got = hh.verify_frames(f, n, ln)
+            plain = hh.verify_frames(f.cpu(), n, ln) if ln <= 4118 else expect
+            err = abs(got - expect) + abs(plain - expect)
+            log(f"hh256_verify framed [{n}, {ln}] bad {bad}: kernel {got}, "
+                f"plain {plain if ln <= 4118 else 'not run'}, "
+                f"max_abs_err {err}")
+            errs["hh256_verify"] = max(errs["hh256_verify"], err)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -197,45 +238,56 @@ def trace_main_path(size: int = (64 << 20) + 12_345) -> None:
         log(f"trace:   {ms:10.3f} ms  {count:6d}x  {key[:90]}")
 
 
-def time_cuda(fn, inputs, reps: int) -> float:
-    """Mean ms of fn over `reps` calls, cycling through `inputs` (their
-    total exceeds the 50 MB L2, so each call finds its input cold)."""
-    for i in range(3):
-        fn(inputs[i % len(inputs)])
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for i in range(reps):
-        fn(inputs[i % len(inputs)])
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5: kernel, plain and bound times at the main shapes."""
     from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
+    from minio_tpu_torch.utils.timing import time_calls, time_graph
 
     saved = (rs_cuda.LAUNCHES, hh.LAUNCHES)
     bitmat = gf.to_device_bitmat(gf.bit_matrix(gf.parity_matrix(K, M)),
                                  "cuda")
     enc_in = [rand((BATCH, K, SHARD), rng) for _ in range(8)]  # 8 x 11 MB
-    gf_ms = time_cuda(lambda x: rs_cuda.apply_gf_matrix_cuda(bitmat, x),
-                      enc_in, 200)
-    gf_plain_ms = time_cuda(lambda x: rs._apply_bits_plain(bitmat, x),
+    def gf_fn(x):
+        return rs_cuda.apply_gf_matrix_cuda(bitmat, x)
+
+    gf_ms = time_graph(gf_fn, enc_in, 200)
+    gf_call_ms = time_calls(gf_fn, enc_in, 200)
+    gf_plain_ms = time_calls(lambda x: rs._apply_bits_plain(bitmat, x),
                             enc_in, 10)
     gf_bytes = BATCH * (K + M) * SHARD + bitmat.numel()
     gf_ops = 2 * (8 * M) * (8 * K) * BATCH * SHARD  # the GF(2) product
     gf_bound = 1e3 * max(gf_bytes / HBM_BYTES_PER_S, gf_ops / INT8_OPS_PER_S)
+    log(f"gf_apply [{BATCH}, {K}, {SHARD}] cold: {gf_ms:.5f} ms a launch "
+        f"({gf_call_ms:.5f} ms a call from Python), bound {gf_bound:.5f} ms "
+        f"({100 * gf_bound / gf_ms:.1f}% of bound)")
 
+    packets = SHARD // 32
+
+    def hash_fn(x):
+        return hh._hash256_cuda(x, hh.MAGIC_KEY)
+
+    # Cold: the PUT shape, cycling through inputs beyond the 50 MB L2.
     hash_in = [rand((BATCH * (K + M), SHARD), rng) for _ in range(6)]
-    hh_ms = time_cuda(lambda x: hh._hash256_cuda(x, hh.MAGIC_KEY), hash_in,
-                      20)
-    hh_plain_ms = time_cuda(lambda x: hh._hash256_plain(x, hh.MAGIC_KEY),
+    hh_ms = time_graph(hash_fn, hash_in, 24)
+    hh_plain_ms = time_calls(lambda x: hh._hash256_plain(x, hh.MAGIC_KEY),
                             hash_in[:1], 1)
     hh_bytes = BATCH * (K + M) * (SHARD + 32)
     hh_bound = 1e3 * hh_bytes / HBM_BYTES_PER_S
+    # Warm: the GET shape, one reader fetch of BATCH chunks just written
+    # (it stays in L2), hashed in place as frames; then the verify entry
+    # as the reader calls it, int64 readback included.
+    fetch = rand((BATCH * (32 + SHARD),), rng)
+    rows = hh._rows(fetch, 32, 32 + SHARD, BATCH, SHARD)
+    hh._rows(fetch, 0, 32 + SHARD, BATCH, 32).copy_(hash_fn(rows))
+    warm_ms = time_graph(hash_fn, [rows], 200)
+    verify_ms = time_calls(lambda x: hh.verify_frames(x, BATCH, SHARD),
+                          [fetch], 200)
+    warm_bound = 1e3 * BATCH * (SHARD + 32) / HBM_BYTES_PER_S
+    log(f"highwayhash256 [{BATCH * (K + M)}, {SHARD}] cold: {hh_ms:.5f} ms, "
+        f"{1e6 * hh_ms / packets:.2f} ns/packet; [{BATCH}, {SHARD}] warm: "
+        f"{warm_ms:.5f} ms, {1e6 * warm_ms / packets:.2f} ns/packet; verify "
+        f"of {BATCH} frames warm, a call from Python with its int64 "
+        f"readback: {verify_ms:.5f} ms")
     rs_cuda.LAUNCHES, hh.LAUNCHES = saved  # timing launches do not count
     return [
         {"name": "gf_apply", "route": "cuda",
@@ -244,7 +296,7 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "also_replaces": "minio_tpu/ops/rs.py:29",
          "checked": True, "launches": launches["gf_apply"],
          "max_abs_err": errs["gf_apply"], "ms": gf_ms,
-         "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
+         "call_ms": gf_call_ms, "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
          "bound_by": "bytes" if gf_bytes / HBM_BYTES_PER_S
          >= gf_ops / INT8_OPS_PER_S else "operations",
          "library_ms": None, "shape": [BATCH, K, SHARD]},
@@ -252,10 +304,15 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "source": "minio_tpu_torch/csrc/highwayhash.cu",
          "replaces": "minio_tpu/ops/highwayhash_jax.py:279",
          "checked": True, "launches": launches["highwayhash256"],
-         "max_abs_err": errs["highwayhash256"], "ms": hh_ms,
-         "plain_ms": hh_plain_ms, "bound_ms": hh_bound,
+         "max_abs_err": max(errs["highwayhash256"], errs["hh256_verify"]),
+         "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound,
          "bound_by": "bytes", "library_ms": None,
-         "shape": [BATCH * (K + M), SHARD]},
+         "shape": [BATCH * (K + M), SHARD],
+         "ns_per_packet": 1e6 * hh_ms / packets,
+         "warm_ms": warm_ms, "warm_shape": [BATCH, SHARD],
+         "warm_bound_ms": warm_bound,
+         "warm_ns_per_packet": 1e6 * warm_ms / packets,
+         "verify_warm_ms": verify_ms},
     ]
 
 

@@ -3,10 +3,10 @@ streaming half of minio_tpu/erasure/bitrot.py (the reference's
 cmd/bitrot-streaming.go): each shard file is [H(chunk) || chunk]* with
 32-byte HighwayHash-256 digests under MinIO's key.
 
-Every digest is computed by `hash256_batch` on the writer's or reader's
-device (kernel B on the card). `read_chunks` verifies a whole fetch with
-one launch over its full-size chunks and hashes a short last chunk at its
-true length, never padded.
+Every digest is computed on the writer's or reader's device (kernel B on
+the card). `read_chunks` verifies a whole fetch in place, with one launch
+over its full-size chunks and one for a short last chunk at its true
+length, never padded; only the index of the first bad chunk comes back.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.highwayhash_torch import hash256_batch
+from ..ops.highwayhash_torch import hash256_batch, verify_frames
 from ..utils import ceil_frac
 from ..utils.device import resolve_device
 from ..utils.errors import ErrFileCorrupt, ErrLessData
@@ -49,30 +49,29 @@ def _digests(chunks: np.ndarray, device) -> np.ndarray:
 def _verify_frames(buf: np.ndarray, lengths: list[int], shard_size: int,
                    device) -> list[memoryview]:
     """Check the framed chunks of `buf` ([digest || chunk] per length)
-    and return a view of each chunk. The leading chunks of shard_size
-    bytes are hashed in one batch; a short last chunk on its own, at its
-    true length."""
+    and return a view of each chunk. The frames are hashed in place on
+    `device`: the leading chunks of shard_size bytes in one batch, a short
+    last chunk on its own at its true length. Each check returns only the
+    index of the first bad chunk."""
     offs, off = [], 0
     for ln in lengths:
         offs.append(off)
         off += DIGEST_SIZE + ln
-    want = np.stack([buf[o: o + DIGEST_SIZE] for o in offs])
-    got = np.empty_like(want)
-    n_full = 0  # the leading full-size chunks, at a fixed stride in buf
+    n_full = 0  # the leading full-size chunks, at a fixed pitch in buf
     while n_full < len(lengths) and lengths[n_full] == shard_size:
         n_full += 1
+    dev = torch.from_numpy(buf).to(device)
     if n_full:
-        dev = torch.from_numpy(buf).to(device)
-        view = dev.as_strided((n_full, shard_size),
-                              (DIGEST_SIZE + shard_size, 1), DIGEST_SIZE)
         device_engine.count("launches_hash")
-        got[:n_full] = hash256_batch(view.contiguous()).cpu().numpy()
+        bad = verify_frames(dev[: n_full * (DIGEST_SIZE + shard_size)],
+                            n_full, shard_size)
+        if bad >= 0:
+            raise ErrFileCorrupt(f"streaming bitrot mismatch chunk {bad}")
     for i in range(n_full, len(lengths)):
-        start = offs[i] + DIGEST_SIZE
-        got[i] = _digests(buf[start: start + lengths[i]][None], device)[0]
-    bad = np.nonzero((got != want).any(axis=1))[0]
-    if bad.size:
-        raise ErrFileCorrupt(f"streaming bitrot mismatch chunk {int(bad[0])}")
+        o, ln = offs[i], lengths[i]
+        device_engine.count("launches_hash")
+        if verify_frames(dev[o: o + DIGEST_SIZE + ln], 1, ln) >= 0:
+            raise ErrFileCorrupt(f"streaming bitrot mismatch chunk {i}")
     mv = memoryview(buf)
     return [mv[o + DIGEST_SIZE: o + DIGEST_SIZE + ln]
             for o, ln in zip(offs, lengths)]

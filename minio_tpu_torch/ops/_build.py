@@ -35,7 +35,10 @@ SIGNATURES = {
         "gf_apply_smem_bytes": [_I, _I],
     },
     "highwayhash": {
-        "hh256_launch": [_VP, _VP, _LL, _LL, _U64, _U64, _U64, _U64, _VP],
+        "hh256_launch": [_VP, _LL, _LL, _LL, _VP, _U64, _U64, _U64, _U64,
+                         _VP],
+        "hh256_verify_launch": [_VP, _LL, _LL, _LL, _VP, _LL, _VP, _U64,
+                                _U64, _U64, _U64, _VP],
     },
 }
 

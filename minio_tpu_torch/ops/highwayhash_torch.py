@@ -2,8 +2,12 @@
 minio_tpu/ops/highwayhash_jax.py.
 
 `hash256_batch(data, key)` maps uint8 [..., L] to the digests [..., 32].
-Tensors on a CUDA device go to kernel B (csrc/highwayhash.cu, one thread
-per chunk on native uint64); tensors on the CPU go to `_hash256_plain`.
+`hash256_pitched` hashes rows of a flat buffer at a row pitch, and
+`verify_frames` checks a run of bitrot frames [digest || chunk] in place
+and returns the index of the first bad chunk. Tensors on a CUDA device
+go to kernel B (csrc/highwayhash.cu: chunks staged through shared memory,
+each chunk's lanes on two threads); tensors on the CPU go to
+`_hash256_plain`.
 
 The plain version holds each u64 as two 32-bit halves in int64 tensors,
 masked after every operation, and forms the 32x32 products from 16-bit
@@ -198,27 +202,114 @@ def _hash256_plain(flat: torch.Tensor, key: bytes) -> torch.Tensor:
     return _finalize256(state)
 
 
-def _hash256_cuda(flat: torch.Tensor, key: bytes) -> torch.Tensor:
-    """Kernel B: flat uint8 [N, L] contiguous on a CUDA device -> [N, 32]."""
+def _check_rows(rows: torch.Tensor, what: str) -> int:
+    """The row pitch of a uint8 [N, L] view whose bytes are contiguous
+    within each row."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise ValueError(f"{what} needs uint8 [N, L], got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    n, length = rows.shape
+    if length > 1 and rows.stride(1) != 1:
+        raise ValueError(f"{what} needs each row's bytes contiguous")
+    pitch = rows.stride(0) if n > 1 else length
+    if pitch < length:
+        raise ValueError(f"{what} needs a row pitch >= {length}, got {pitch}")
+    return pitch
+
+
+def _hash256_cuda(rows: torch.Tensor, key: bytes) -> torch.Tensor:
+    """Kernel B: uint8 [N, L] rows at any pitch on a CUDA device ->
+    [N, 32]."""
     global LAUNCHES
-    if flat.device.type != "cuda":
-        raise ValueError(f"_hash256_cuda needs a CUDA tensor, got {flat.device}")
-    if flat.dtype != torch.uint8 or flat.dim() != 2 \
-            or not flat.is_contiguous():
-        raise ValueError("_hash256_cuda needs contiguous uint8 [N, L]")
-    n, length = flat.shape
-    out = torch.empty((n, 32), dtype=torch.uint8, device=flat.device)
+    if rows.device.type != "cuda":
+        raise ValueError(f"_hash256_cuda needs a CUDA tensor, got {rows.device}")
+    pitch = _check_rows(rows, "_hash256_cuda")
+    n, length = rows.shape
+    out = torch.empty((n, 32), dtype=torch.uint8, device=rows.device)
     if n == 0:
         return out
     lib = _build.library("highwayhash")
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
     _build.check(
-        lib.hh256_launch(flat.data_ptr(), out.data_ptr(), n, length,
+        lib.hh256_launch(rows.data_ptr(), pitch, n, length, out.data_ptr(),
                          *key_lanes(key), stream),
         "hh256_launch",
     )
     LAUNCHES += 1
     return out
+
+
+def _verify_cuda(rows: torch.Tensor, want: torch.Tensor, key: bytes) -> int:
+    """Kernel B's verify entry: the index of the first of the [N, L] rows
+    whose digest differs from its row of `want` ([N, 32], any pitch), or
+    -1. One int64 comes back to the host."""
+    global LAUNCHES
+    if rows.device.type != "cuda" or want.device != rows.device:
+        raise ValueError(f"_verify_cuda needs CUDA tensors on one device, "
+                         f"got {rows.device} and {want.device}")
+    pitch = _check_rows(rows, "_verify_cuda")
+    want_pitch = _check_rows(want, "_verify_cuda")
+    n, length = rows.shape
+    if want.shape != (n, 32):
+        raise ValueError(f"want digests [{n}, 32], got {tuple(want.shape)}")
+    if n == 0:
+        return -1
+    first_bad = torch.full((1,), n, dtype=torch.int64, device=rows.device)
+    lib = _build.library("highwayhash")
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    _build.check(
+        lib.hh256_verify_launch(rows.data_ptr(), pitch, n, length,
+                                want.data_ptr(), want_pitch,
+                                first_bad.data_ptr(), *key_lanes(key),
+                                stream),
+        "hh256_verify_launch",
+    )
+    LAUNCHES += 1
+    bad = int(first_bad.item())
+    return -1 if bad >= n else bad
+
+
+def _rows(buf: torch.Tensor, offset: int, pitch: int, n: int,
+          length: int) -> torch.Tensor:
+    """The [n, length] view of rows at buf[offset + i * pitch]."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError("want a contiguous 1-D uint8 buffer")
+    if n < 0 or length < 0 or offset < 0 or (n > 1 and pitch < length):
+        raise ValueError(f"bad rows: offset {offset}, pitch {pitch}, "
+                         f"n {n}, length {length}")
+    if n and offset + (n - 1) * pitch + length > buf.numel():
+        raise ValueError(f"{n} rows of {length} B at pitch {pitch} from "
+                         f"{offset} overrun a buffer of {buf.numel()} B")
+    return buf.as_strided((n, length), (pitch, 1),
+                          buf.storage_offset() + offset)
+
+
+def hash256_pitched(buf: torch.Tensor, offset: int, pitch: int, n: int,
+                    length: int, key: bytes = MAGIC_KEY) -> torch.Tensor:
+    """HighwayHash-256 of the n rows of `length` bytes at
+    buf[offset + i * pitch] (the counterpart of minio_tpu's native
+    hh256_hash_strided): uint8 [n, 32] on the buffer's device."""
+    rows = _rows(buf, offset, pitch, n, length)
+    if buf.device.type == "cpu":
+        return _hash256_plain(rows, key)
+    return _hash256_cuda(rows, key)
+
+
+def verify_frames(buf: torch.Tensor, n: int, length: int,
+                  key: bytes = MAGIC_KEY) -> int:
+    """buf starts with n bitrot frames [digest (32 B) || chunk (length B)];
+    the index of the first chunk whose digest differs, or -1 (the
+    counterpart of minio_tpu's native hh256_verify_frames over equal
+    chunks)."""
+    pitch = 32 + length
+    rows = _rows(buf, 32, pitch, n, length)
+    want = _rows(buf, 0, pitch, n, 32)
+    if buf.device.type != "cpu":
+        return _verify_cuda(rows, want, key)
+    if n == 0:
+        return -1
+    bad = torch.nonzero((_hash256_plain(rows, key) != want).any(dim=1))
+    return int(bad[0, 0]) if bad.numel() else -1
 
 
 def hash256_batch(data: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:

@@ -2,8 +2,12 @@
 (csrc/gf_apply.cu), the counterpart of minio_tpu/ops/rs_pallas.py.
 
 `apply_gf_matrix_cuda` takes the interleaved bit-matrix itself; the
-kernel builds its per-row masks in shared memory, so there is no
-plane-major column permutation as the Pallas kernel needs.
+kernel builds its per-row constants in shared memory, so there is no
+plane-major column permutation as the Pallas kernel needs. It takes
+every geometry minio_tpu accepts (K + R <= 256, any batch and any S):
+its shared memory is a 33,280-byte ring of shard rows plus 32 bytes a
+shard and output row of a pass (up to eight rows), 98,816 bytes at
+K = 256.
 """
 
 from __future__ import annotations
@@ -16,8 +20,7 @@ from . import _build
 # that the main path went through the kernel.
 LAUNCHES = 0
 
-_MAX_GRID_Y = 65535
-_MAX_STATIC_SMEM = 48 * 1024
+_MAX_SMEM = 232_448  # shared memory one block may use on Hopper (227 KB)
 
 
 def apply_gf_matrix_cuda(bitmat: torch.Tensor,
@@ -45,13 +48,11 @@ def apply_gf_matrix_cuda(bitmat: torch.Tensor,
         raise ValueError(f"bitmat {tuple(bitmat.shape)} does not fit "
                          f"shards {tuple(shards.shape)}")
     r = r8 // 8
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"batch {b} exceeds the kernel's grid ({_MAX_GRID_Y})")
     lib = _build.library("gf_apply")
-    if lib.gf_apply_smem_bytes(k, r) > _MAX_STATIC_SMEM:
+    if lib.gf_apply_smem_bytes(k, r) > _MAX_SMEM:  # K > 778
         raise ValueError(
-            f"geometry {k}->{r}: masks exceed {_MAX_STATIC_SMEM} bytes of "
-            "shared memory"
+            f"geometry {k}->{r}: the kernel's ring and constants exceed "
+            f"{_MAX_SMEM} bytes of shared memory"
         )
     out = torch.empty((b, r, s), dtype=torch.uint8, device=shards.device)
     if out.numel() == 0:

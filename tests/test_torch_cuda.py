@@ -37,7 +37,10 @@ def _rand(shape, seed, device):
 
 @pytest.mark.parametrize("k,m,s,b", [(12, 4, 87382, 8), (16, 16, 333, 2),
                                      (2, 2, 333, 3), (8, 4, 1, 1),
-                                     (5, 7, 4099, 2)])
+                                     (5, 7, 4099, 2), (12, 4, 4097, 3),
+                                     (12, 4, 4098, 3), (12, 4, 4099, 3),
+                                     (40, 40, 1000, 2), (128, 128, 257, 2),
+                                     (200, 56, 515, 1)])
 def test_gf_kernel_matches_plain(cuda, k, m, s, b):
     bm = gf.to_device_bitmat(gf.bit_matrix(gf.parity_matrix(k, m)), cuda)
     x = _rand((b, k, s), k * m + s, cuda)
@@ -47,12 +50,23 @@ def test_gf_kernel_matches_plain(cuda, k, m, s, b):
     assert torch.equal(got, rs._apply_bits_plain(bm, x))
 
 
-def test_gf_kernel_reconstructs(cuda):
-    k, m, lost = 12, 4, (0, 5, 12, 15)
+@pytest.mark.parametrize("k,m,lost", [(12, 4, (0, 5, 12, 15)),
+                                      (40, 40, tuple(range(0, 80, 2)))])
+def test_gf_kernel_reconstructs(cuda, k, m, lost):
     present = [i for i in range(k + m) if i not in lost]
     rec = gf.reconstruct_matrix(k, m, present, list(lost))
     bm = gf.to_device_bitmat(gf.bit_matrix(rec), cuda)
     x = _rand((4, k, 1000), 1, cuda)
+    assert torch.equal(rs_cuda.apply_gf_matrix_cuda(bm, x),
+                       rs._apply_bits_plain(bm, x))
+
+
+def test_gf_kernel_unaligned_view_and_large_batch(cuda):
+    # A contiguous view at an odd address, and more batches than one grid
+    # column holds (the kernel loops over the batch).
+    bm = gf.to_device_bitmat(gf.bit_matrix(gf.parity_matrix(4, 2)), cuda)
+    flat = _rand((3 + 70000 * 4 * 3,), 5, cuda)
+    x = flat[3:].view(70000, 4, 3)
     assert torch.equal(rs_cuda.apply_gf_matrix_cuda(bm, x),
                        rs._apply_bits_plain(bm, x))
 
@@ -74,6 +88,40 @@ def test_hash_kernel_matches_plain(cuda, length):
     got = hh.hash256_batch(x)  # CUDA tensor -> kernel B
     assert hh.LAUNCHES == before + 1
     assert torch.equal(got, hh._hash256_plain(x, hh.MAGIC_KEY))
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_hash_kernel_at_every_start_offset(cuda, offset):
+    length, n = 4096 + 22, 20  # two blocks of chunks, the second partial
+    buf = _rand((offset + n * length,), offset, cuda)
+    got = hh.hash256_pitched(buf, offset, length, n, length)
+    want = hh._hash256_plain(hh._rows(buf, offset, length, n, length),
+                             hh.MAGIC_KEY)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("length", [0, 1, 17, 31, 32, 33, 63, 4096 + 22,
+                                    87382])
+def test_hash_kernel_framed_and_verify(cuda, length):
+    # n frames [digest || chunk] at pitch 32 + length, from an odd address.
+    n, pitch = 20, 32 + length
+    buf = _rand((3 + n * pitch,), length + 1, cuda)
+    framed = buf[3:]
+    rows = hh._rows(framed, 32, pitch, n, length)
+    want = hh._hash256_plain(rows, hh.MAGIC_KEY)
+    before = hh.LAUNCHES
+    assert torch.equal(hh.hash256_pitched(framed, 32, pitch, n, length), want)
+    assert hh.LAUNCHES == before + 1
+    hh._rows(framed, 0, pitch, n, 32).copy_(want)
+    assert hh.verify_frames(framed, n, length) == -1
+    for bad in ((0,), (17, 19), (n - 1,)):
+        f = framed.clone()
+        for i in bad:
+            at = i * pitch + (32 + length // 2 if length else 5)
+            f[at] ^= 0x41
+        assert hh.verify_frames(f, n, length) == bad[0]
+        if length <= 4096 + 22:  # the plain version, on the same bytes
+            assert hh.verify_frames(f.cpu(), n, length) == bad[0]
 
 
 def test_device_engine_on_card_matches_cpu(cuda):
