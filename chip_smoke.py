@@ -8,22 +8,39 @@ Phases, each of which must pass (nothing is caught):
     print ptxas's register/shared-memory report;
  3. hold each kernel against its plain PyTorch version on the card, with
     exact equality, tolerance 0 (integer arithmetic; the plain GF
-    version's float32 matmul is exact with TF32 off): kernel A at the main
-    path's shapes, at wide geometries (40+40, 128+128, 200+56) and at
-    S = 1, 2, 3 mod 16; kernel B at chunk starts 0..15 mod 16, on framed
-    buffers at pitch 32 + L for the main shard length and short lengths,
-    and its verify entry on good and corrupted frames;
+    version's float32 matmul is exact with TF32 off): kernel A at every
+    shard length the main paths give it (a full block's and each
+    object's ragged last block's, path_shard_lengths()) for the encode
+    and each reconstruction those paths run, at wide geometries (40+40,
+    128+128, 200+56) and at S = 1, 2, 3 mod 16; kernel B on contiguous
+    rows and on framed buffers at pitch 32 + L for the same shard lengths
+    and short ones, at chunk starts 0..15 mod 16, and its verify entry on
+    good and corrupted frames;
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object with shards 0, 5, 12 and 15 lost: PUT,
     degraded GET (whole and ranged), heal, re-verify. The kernel launch
     counters are zeroed just before and read just after, and each of the
     PUT, GET and heal phases must launch both kernels;
  4b. a traced (torch.profiler) run of the same path at 64 MiB + 12,345 B:
-    device busy share and device time by kernel;
+    device busy share and device time by kernel (4d: the same for the
+    object layer of 4c);
+ 4c. the object layer: object_put_get_heal over 16 drive directories as
+    one 12+4 set (ErasureSets -> ErasureObjects -> LocalStorage with
+    xl.meta) with a 256 MiB + 12,345 B object and a 100 KiB inline one:
+    PutObject, healthy GetObject, the losses of phase 4 mapped to drives
+    through the object's distribution, degraded GetObject (whole and
+    ranged), HealObject (rebuilt part.1 and xl.meta equal to the
+    originals by SHA-256, verify_file on all 16 drives), one flipped
+    byte (GET exact, verify_file raises). Counters zeroed just before and
+    read just after; the healthy GETs and the verify_file scans must
+    launch kernel B and no kernel A, PUT, degraded and ranged GET, heal
+    and the GET past the flipped byte both. Prints {"object_layer": ...}
+    with each phase's seconds and launches;
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too) and print one JSON line
-    {"kernels": [...]};
+    {"kernels": [...]}, whose launches are those of phases 4 and 4c
+    (by path in "launches_by_path");
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -44,6 +61,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OBJECT_SIZE = (256 << 20) + 12_345
+TRACE_SIZE = (64 << 20) + 12_345
+INLINE_SIZE = 100 << 10
 K, M, BLOCK = 12, 4, 1 << 20
 SHARD = -(-BLOCK // K)  # 87,382
 BATCH = 8
@@ -78,6 +97,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
 
 
+def path_shard_lengths() -> list[int]:
+    """The shard lengths the main paths give the kernels: a full block's,
+    and the ragged last block's of each object that phases 4, 4b, 4c and
+    4d store (the inline object is one short block)."""
+    lengths = set()
+    for size in (OBJECT_SIZE, TRACE_SIZE, INLINE_SIZE):
+        if size >= BLOCK:
+            lengths.add(SHARD)
+        if size % BLOCK:
+            lengths.add(-(-(size % BLOCK) // K))
+    return sorted(lengths)
+
+
 def check_kernels(rng) -> dict:
     """Phase 3: every kernel against its plain version, exact."""
     from minio_tpu_torch.entry import entry
@@ -86,11 +118,19 @@ def check_kernels(rng) -> dict:
     errs = {"gf_apply": 0, "highwayhash256": 0, "hh256_verify": 0}
     fn, (bitmat, blocks) = entry("cuda")  # 12+4 encode, [8, 12, 87382]
     cases = [("encode 12+4", bitmat, blocks)]
-    present = [i for i in range(K + M) if i not in LOST]
-    rec = gf.to_device_bitmat(gf.bit_matrix(
-        gf.reconstruct_matrix(K, M, present, list(LOST))), "cuda")
-    cases.append(("reconstruct 12+4 lost 0,5,12,15", rec,
-                  rand((BATCH, K, SHARD), rng)))
+    # The reconstructions of the main paths: heal (shards 0, 5, 12, 15
+    # lost), the degraded GET (data shards 0 and 5 rebuilt, shard 12
+    # gone) and the GET past a flipped byte (data shard 3 rebuilt).
+    recs = [("encode 12+4", bitmat)]
+    for unavailable, targets in ((LOST, LOST), (LOST, (0, 5)), ((3,), (3,))):
+        present = [i for i in range(K + M) if i not in unavailable]
+        recs.append((f"reconstruct 12+4 {targets} from {present[:K]}",
+                     gf.to_device_bitmat(gf.bit_matrix(gf.reconstruct_matrix(
+                         K, M, present, list(targets))), "cuda")))
+    for s in path_shard_lengths():
+        for b in (1, BATCH):
+            for name, bm in recs:
+                cases.append((f"{name} S={s}", bm, rand((b, K, s), rng)))
     # Wide geometries minio_tpu accepts, and S = 1, 2, 3 mod 16.
     for k, m, s in ((16, 16, 333), (2, 2, 333), (40, 40, 1000),
                     (128, 128, 257), (200, 56, 515), (K, M, 4097),
@@ -125,31 +165,46 @@ def check_kernels(rng) -> dict:
         errs["highwayhash256"] = max(errs["highwayhash256"], err)
         return want
 
+    # The PUT's and heal's digests: contiguous rows, as hash256_batch
+    # takes them.
+    for s in path_shard_lengths():
+        x = rand((BATCH * (K + M), s), rng)
+        got = hh.hash256_batch(x)
+        want = hh._hash256_plain(x, hh.MAGIC_KEY)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        log(f"highwayhash256 hash256_batch {tuple(x.shape)}: "
+            f"max_abs_err {err}")
+        errs["highwayhash256"] = max(errs["highwayhash256"], err)
     # Chunk starts at every offset mod 16 (20 rows: two blocks of 16).
     for off in range(16):
         n, ln = 20, 4096 + 22
         hash_case(f"[{n}, {ln}] from offset {off}",
                   rand((off + n * ln,), rng), off, ln, n, ln)
     # Framed buffers [digest || chunk]* at pitch 32 + L from an odd
-    # address, then the verify entry on good and corrupted frames; the
-    # plain verify is run where it takes seconds (L <= 4,118).
-    for n, ln in ([(2 * (K + M), SHARD)]
-                  + [(20, ln) for ln in HASH_LENGTHS]):
+    # address, then the verify entry on good and corrupted frames: a
+    # reader's fetch of full chunks, and a short last chunk alone. The
+    # plain verify is run where it takes under a second (L < 87,382).
+    framed_cases = [(20, ln) for ln in HASH_LENGTHS]
+    for s in path_shard_lengths():
+        framed_cases += [(2 * (K + M), s), (1, s)]
+    for n, ln in framed_cases:
         pitch = 32 + ln
         framed = rand((3 + n * pitch,), rng)[3:]
         want = hash_case(f"framed [{n}, {ln}] pitch {pitch}", framed, 32,
                          pitch, n, ln)
         hh._rows(framed, 0, pitch, n, 32).copy_(want)
-        for bad in ((), (0,), (5, n - 1), (n - 1,)):
+        for bad in dict.fromkeys(b for b in ((), (0,), (5, n - 1), (n - 1,))
+                                 if all(i < n for i in b)):
             f = framed.clone()
             for i in bad:
                 f[i * pitch + (32 + ln // 2 if ln else 5)] ^= 0x41
             expect = bad[0] if bad else -1
             got = hh.verify_frames(f, n, ln)
-            plain = hh.verify_frames(f.cpu(), n, ln) if ln <= 4118 else expect
+            plain = hh.verify_frames(f.cpu(), n, ln) if ln < SHARD else expect
             err = abs(got - expect) + abs(plain - expect)
             log(f"hh256_verify framed [{n}, {ln}] bad {bad}: kernel {got}, "
-                f"plain {plain if ln <= 4118 else 'not run'}, "
+                f"plain {plain if ln < SHARD else 'not run'}, "
                 f"max_abs_err {err}")
             errs["hh256_verify"] = max(errs["hh256_verify"], err)
     bad = {k: v for k, v in errs.items() if v != 0}
@@ -198,15 +253,57 @@ def run_main_path() -> dict:
     return launches
 
 
-def trace_main_path(size: int = (64 << 20) + 12_345) -> None:
-    """Phase 4b: a traced put_get_heal (torch.profiler, CPU + CUDA) at a
-    quarter of the main size: device busy time by kernel name and the
-    device's busy share of the traced wall time. Tracing slows the host,
-    so these are shares, not the phase times above."""
+def run_object_layer() -> tuple[dict, dict]:
+    """Phase 4c: object_put_get_heal through the port's object layer."""
+    from minio_tpu_torch.entry import object_put_get_heal
+    from minio_tpu_torch.erasure import device_engine
+    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        rs_cuda.LAUNCHES = 0
+        highwayhash_torch.LAUNCHES = 0
+        device_engine.reset_stats()
+        res = object_put_get_heal(tmp, OBJECT_SIZE, device="cuda",
+                                  inline_size=INLINE_SIZE, seed=2)
+        launches = {"gf_apply": rs_cuda.LAUNCHES,
+                    "highwayhash256": highwayhash_torch.LAUNCHES}
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"object layer checks failed: {failed}")
+    per_phase = {}
+    for ph, c in res["counters"].items():
+        gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n}
+        want_gf = ph not in ("get", "get_inline", "verify", "bitrot_verify")
+        if hh_n <= 0 or (gf_n > 0) != want_gf:
+            raise AssertionError(
+                f"object layer {ph}: kernel A launched {gf_n} times, "
+                f"kernel B {hh_n} (want A {'> 0' if want_gf else '0'}, "
+                f"B > 0)")
+        log(f"object layer {ph}: {res['seconds'][ph]:.4f} s, launches "
+            f"A {gf_n} B {hh_n}, counters {c}")
+    line = {"object_size": res["size"], "inline_size": res["inline_size"],
+            "k": K, "m": M, "lost": res["lost"],
+            "seconds": res["seconds"], "launches": per_phase,
+            "heal_result": res["heal_result"], "checks": res["checks"]}
+    return line, launches
+
+
+def trace_path(label: str, run, size: int = TRACE_SIZE):
+    """Phases 4b and 4d: one traced run (torch.profiler, CPU + CUDA) of a
+    main path at a quarter of the main size: device busy time by kernel
+    name and the device's busy share of the traced wall time. Tracing
+    slows the host, so these are shares, not the phase times above.
+    run(tmp_dir, size) drives the path and returns whether its checks
+    held. Returns {"wall_s", "device_busy_s"}, or None when the trace
+    recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from minio_tpu_torch.entry import put_get_heal
 
     data_root = ROOT / ".smoke_data"
     data_root.mkdir(exist_ok=True)
@@ -215,13 +312,12 @@ def trace_main_path(size: int = (64 << 20) + 12_345) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = put_get_heal(tmp, size, K, M, LOST, seed=1, device="cuda",
-                               block_size=BLOCK)
+            ok = run(tmp, size)
             wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
-    if not (res["get_ok"] and res["healed_identical"]):
-        raise AssertionError("traced main path returned wrong bytes")
+    if not ok:
+        raise AssertionError(f"traced {label} returned wrong bytes")
     # Device-side events only (kernels, copies): host ops that launched
     # them report the same device time again.
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
@@ -230,16 +326,36 @@ def trace_main_path(size: int = (64 << 20) + 12_345) -> None:
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     if not rows:
-        log("trace: no device time recorded; device busy share not measured")
-        return
-    log(f"trace: {size} B object, traced wall {wall:.3f} s, device busy "
-        f"{busy_ms / 1e3:.3f} s ({100 * busy_ms / 1e3 / wall:.1f}% of wall)")
+        log(f"trace {label}: no device time recorded; device busy share "
+            "not measured")
+        return None
+    log(f"trace {label}: {size} B object, traced wall {wall:.3f} s, device "
+        f"busy {busy_ms / 1e3:.3f} s ({100 * busy_ms / 1e3 / wall:.1f}% "
+        "of wall)")
     for key, count, ms in rows[:10]:
         log(f"trace:   {ms:10.3f} ms  {count:6d}x  {key[:90]}")
+    return {"wall_s": wall, "device_busy_s": busy_ms / 1e3}
+
+
+def traced_put_get_heal(tmp, size) -> bool:
+    from minio_tpu_torch.entry import put_get_heal
+
+    res = put_get_heal(tmp, size, K, M, LOST, seed=1, device="cuda",
+                       block_size=BLOCK)
+    return res["get_ok"] and res["healed_identical"]
+
+
+def traced_object_layer(tmp, size) -> bool:
+    from minio_tpu_torch.entry import object_put_get_heal
+
+    res = object_put_get_heal(tmp, size, device="cuda",
+                              inline_size=INLINE_SIZE, seed=3)
+    return all(res["checks"].values())
 
 
 def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
-    """Phase 5: kernel, plain and bound times at the main shapes."""
+    """Phase 5: kernel, plain and bound times at the main shapes.
+    `launches` holds each kernel's launches by main path."""
     from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
     from minio_tpu_torch.utils.timing import time_calls, time_graph
 
@@ -294,7 +410,8 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
          "replaces": "minio_tpu/ops/rs_pallas.py:59",
          "also_replaces": "minio_tpu/ops/rs.py:29",
-         "checked": True, "launches": launches["gf_apply"],
+         "checked": True, "launches": sum(launches["gf_apply"].values()),
+         "launches_by_path": launches["gf_apply"],
          "max_abs_err": errs["gf_apply"], "ms": gf_ms,
          "call_ms": gf_call_ms, "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
          "bound_by": "bytes" if gf_bytes / HBM_BYTES_PER_S
@@ -303,7 +420,9 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
         {"name": "highwayhash256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/highwayhash.cu",
          "replaces": "minio_tpu/ops/highwayhash_jax.py:279",
-         "checked": True, "launches": launches["highwayhash256"],
+         "checked": True,
+         "launches": sum(launches["highwayhash256"].values()),
+         "launches_by_path": launches["highwayhash256"],
          "max_abs_err": max(errs["highwayhash256"], errs["hh256_verify"]),
          "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound,
          "bound_by": "bytes", "library_ms": None,
@@ -338,9 +457,17 @@ def main() -> int:
     rng = np.random.default_rng(1234)
     errs = check_kernels(rng)
     launches = run_main_path()
-    trace_main_path()
-    kernels = time_kernels(rng, launches, errs)
+    trace_path("put_get_heal", traced_put_get_heal)
+    t0 = time.perf_counter()
+    object_line, object_launches = run_object_layer()
+    log(f"object layer phase {time.perf_counter() - t0:.1f} s")
+    object_line["trace"] = trace_path("object layer", traced_object_layer)
+    by_path = {name: {"put_get_heal": launches[name],
+                      "object_layer": object_launches[name]}
+               for name in launches}
+    kernels = time_kernels(rng, by_path, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"object_layer": object_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

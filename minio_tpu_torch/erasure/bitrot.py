@@ -3,13 +3,18 @@ streaming half of minio_tpu/erasure/bitrot.py (the reference's
 cmd/bitrot-streaming.go): each shard file is [H(chunk) || chunk]* with
 32-byte HighwayHash-256 digests under MinIO's key.
 
-Every digest is computed on the writer's or reader's device (kernel B on
-the card). `read_chunks` verifies a whole fetch in place, with one launch
-over its full-size chunks and one for a short last chunk at its true
-length, never padded; only the index of the first bad chunk comes back.
+HighwayHash256S is the one bitrot algorithm the port has
+(`BitrotAlgorithm`); an object stamped with another one is refused, never
+read unchecked. Every digest is computed on the writer's or reader's
+device (kernel B on the card). `read_chunks` verifies a whole fetch in
+place, with one launch over its full-size chunks and one for a short last
+chunk at its true length, never padded; only the index of the first bad
+chunk comes back.
 """
 
 from __future__ import annotations
+
+from enum import Enum
 
 import numpy as np
 import torch
@@ -21,6 +26,25 @@ from ..utils.errors import ErrFileCorrupt, ErrLessData
 from . import device_engine
 
 DIGEST_SIZE = 32
+
+
+class BitrotAlgorithm(Enum):
+    """Bitrot algorithms by the names xl.meta stores (cmd/bitrot.go).
+    minio_tpu also reads sha256, blake2b and whole-file highwayhash256;
+    the port does not have them yet."""
+
+    HIGHWAYHASH256S = "highwayhash256S"
+
+    @classmethod
+    def default(cls) -> "BitrotAlgorithm":
+        return cls.HIGHWAYHASH256S
+
+    @classmethod
+    def from_string(cls, s: str) -> "BitrotAlgorithm":
+        for a in cls:
+            if a.value == s:
+                return a
+        raise ValueError(f"unsupported bitrot algorithm {s!r}")
 
 
 def bitrot_shard_file_size(size: int, shard_size: int) -> int:

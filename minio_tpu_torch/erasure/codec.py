@@ -9,9 +9,12 @@ host engine to hand small work to.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from ..utils import ceil_frac
+from ..utils.device import resolve_device
 from ..utils.errors import (
     ErrInvShardNum,
     ErrMaxShardNum,
@@ -21,6 +24,21 @@ from ..utils.errors import (
     ErrTooFewShards,
 )
 from . import device_engine, registry
+
+
+def cached_erasure(data_blocks: int, parity_blocks: int, block_size: int,
+                   codec: str = registry.DEFAULT_CODEC,
+                   device="cuda") -> "Erasure":
+    """The Erasure of one (geometry, codec, device), shared by every PUT,
+    GET and heal of an erasure set, so its device matrices are made once
+    (minio_tpu's cached_erasure, keyed by device too)."""
+    return _cached_erasure(data_blocks, parity_blocks, block_size, codec,
+                           resolve_device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_erasure(data_blocks, parity_blocks, block_size, codec, device):
+    return Erasure(data_blocks, parity_blocks, block_size, codec, device)
 
 
 class Erasure:

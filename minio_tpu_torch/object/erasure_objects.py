@@ -1,0 +1,682 @@
+"""ErasureObjects: one erasure set, object operations over k+m disks with
+quorum semantics. The port's copy of minio_tpu/object/erasure_objects.py
+(MinIO's erasureObjects, cmd/erasure-object.go), cut to PutObject,
+GetObject, DeleteObject and HealObject, on the port's erasure streams
+and kernels.
+
+PUT: order the disks by the object's hash order, stage bitrot-framed
+shards under .mtpu.sys/tmp (or in memory for an inline object), encode
+(kernel A for parity, kernel B for the digests), then commit by rename
+under write quorum. GET: agree on xl.meta by quorum, read k of n shards,
+verify every frame (kernel B) and rebuild missing data shards (kernel A);
+a shard that failed queues the object for heal. Heal: rebuild the shards
+of the disks whose xl.meta or part files are missing or the wrong size,
+and commit them the way a PUT does.
+
+The fan-out over disks (metadata reads, commits, deletes) runs file I/O
+in a thread pool; the streams, and with them every kernel launch and
+device copy, run on the calling thread.
+"""
+
+from __future__ import annotations
+
+import io
+import threading
+import time
+from contextlib import ExitStack, contextmanager
+
+from ..erasure import registry
+from ..erasure.bitrot import (
+    BitrotAlgorithm,
+    StreamingBitrotReader,
+    StreamingBitrotWriter,
+    bitrot_shard_file_size,
+)
+from ..erasure.codec import cached_erasure
+from ..erasure.streaming import decode_stream, encode_stream, heal_stream
+from ..storage.fileinfo import ChecksumInfo, ErasureInfo, FileInfo, new_uuid
+from ..storage.local import SYSTEM_META_BUCKET, small_file_threshold
+from ..utils.device import resolve_device
+from ..utils.errors import (
+    OBJECT_OP_IGNORED_ERRS,
+    ErrBadDigest,
+    ErrBucketNotFound,
+    ErrDiskNotFound,
+    ErrErasureReadQuorum,
+    ErrFileNotFound,
+    ErrFileVersionNotFound,
+    ErrInvalidArgument,
+    ErrLessData,
+    ErrMethodNotAllowed,
+    ErrObjectNotFound,
+    ErrOperationTimedOut,
+    ErrVersionNotFound,
+    ErrVolumeExists,
+    ErrVolumeNotFound,
+    StorageError,
+    reduce_read_quorum_errs,
+    reduce_write_quorum_errs,
+)
+from ..utils.nslock import NamespaceLock
+from .metadata import (
+    common_mod_time,
+    fanout,
+    find_file_info_in_quorum,
+    hash_order,
+    object_quorum_from_meta,
+    read_all_file_info,
+    shuffle_disks,
+    shuffle_disks_and_parts_metadata,
+)
+from .types import ObjectInfo, ObjectOptions, TeeMD5Reader
+
+BLOCK_SIZE_V2 = 1 << 20  # erasure block size of new objects (blockSizeV2)
+
+_BITROT = BitrotAlgorithm.HIGHWAYHASH256S
+
+
+def _close_sinks(sinks) -> None:
+    """Close every open sink or reader, whatever each raises."""
+    for s in sinks.values() if isinstance(sinks, dict) else sinks:
+        if s is not None:
+            try:
+                s.close()
+            except OSError:
+                pass
+
+
+class ErasureObjects:
+    """One erasure set of len(disks) shards. `device` runs the set's
+    kernels; it defaults to the card and raises at construction when
+    there is none."""
+
+    # Bounded lock waits: a lock cycle becomes a retriable error, never a
+    # wedged thread.
+    NS_LOCK_TIMEOUT_S = 120.0
+
+    def __init__(self, disks: list, default_parity: int | None = None,
+                 set_index: int = 0, pool_index: int = 0, device="cuda"):
+        if len(disks) < 2:
+            raise ErrInvalidArgument("erasure set needs >= 2 disks")
+        self.device = resolve_device(device)
+        self.disks = list(disks)
+        self.set_drive_count = len(disks)
+        self.default_parity = (default_parity if default_parity is not None
+                               else len(disks) // 2)
+        self.set_index = set_index
+        self.pool_index = pool_index
+        # Objects a read or a partial write found in need of heal
+        # (MinIO's MRF queue); drain_mrf hands them to a healer.
+        self._mrf: list[tuple[str, str, str]] = []
+        self._mrf_lock = threading.Lock()
+        self._ns_lock = NamespaceLock()
+
+    # ------------------------------------------------------------------
+    # helpers
+
+    @contextmanager
+    def _locked(self, bucket: str, object_: str, writer: bool):
+        lock = self._ns_lock.write if writer else self._ns_lock.read
+        with ExitStack() as stack:
+            try:
+                stack.enter_context(lock(f"{bucket}/{object_}",
+                                         timeout=self.NS_LOCK_TIMEOUT_S))
+            except TimeoutError as exc:
+                raise ErrOperationTimedOut(f"{bucket}/{object_}") from exc
+            yield
+
+    def _object_erasure(self, k: int, m: int, block_size: int,
+                        codec: str = ""):
+        """The set's shared Erasure for a geometry; "" is the dense codec
+        of metadata from before codec ids."""
+        return cached_erasure(k, m, block_size,
+                              codec or registry.DEFAULT_CODEC, self.device)
+
+    @staticmethod
+    def _tmp_path(tmp_id: str) -> str:
+        return f"tmp/{tmp_id}"
+
+    def _cleanup_tmp(self, disks: list, tmp_id: str) -> None:
+        for disk in disks:
+            if disk is None:
+                continue
+            try:
+                disk.delete(SYSTEM_META_BUCKET, self._tmp_path(tmp_id),
+                            recursive=True)
+            except (StorageError, OSError):
+                pass  # nothing staged there, or the disk is gone
+
+    def queue_mrf(self, bucket: str, object_: str, version_id: str = ""):
+        with self._mrf_lock:
+            self._mrf.append((bucket, object_, version_id))
+
+    def drain_mrf(self) -> list[tuple[str, str, str]]:
+        with self._mrf_lock:
+            out, self._mrf = self._mrf, []
+        return out
+
+    def _disk_quorum_fanout(self, op, ignore: type) -> None:
+        """Run op(disk) on every disk, an error of class `ignore` counting
+        as success, and raise the write-quorum error, if any, of the
+        rest (majority quorum, as bucket operations use)."""
+        disks = self.disks
+        errs: list = [None] * len(disks)
+
+        def do(i):
+            try:
+                if disks[i] is None:
+                    raise ErrDiskNotFound(f"disk {i}")
+                op(disks[i])
+            except ignore:
+                pass
+            except (StorageError, OSError) as exc:
+                errs[i] = exc
+
+        fanout(do, len(disks))
+        err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
+                                       len(disks) // 2 + 1)
+        if err is not None:
+            raise err
+
+    # ------------------------------------------------------------------
+    # buckets (cmd/erasure-bucket.go)
+
+    def make_bucket(self, bucket: str) -> None:
+        self._disk_quorum_fanout(lambda d: d.make_vol(bucket),
+                                 ErrVolumeExists)
+
+    def delete_bucket(self, bucket: str, force: bool = False) -> None:
+        self._disk_quorum_fanout(
+            lambda d: d.delete_vol(bucket, force_delete=force),
+            ErrVolumeNotFound)
+
+    def bucket_exists(self, bucket: str) -> bool:
+        ok = 0
+        for d in self.disks:
+            if d is None:
+                continue
+            try:
+                d.stat_vol(bucket)
+                ok += 1
+            except (StorageError, OSError):
+                continue
+        return ok >= len(self.disks) // 2
+
+    # ------------------------------------------------------------------
+    # put (putObject, cmd/erasure-object.go)
+
+    def put_object(self, bucket: str, object_: str, reader, size: int,
+                   opts: ObjectOptions | None = None) -> ObjectInfo:
+        opts = opts or ObjectOptions()
+        if opts.no_lock:
+            return self._put_object(bucket, object_, reader, size, opts)
+        # One writer of an object at a time, so commits of two PUTs never
+        # interleave across disks.
+        with self._locked(bucket, object_, writer=True):
+            return self._put_object(bucket, object_, reader, size, opts)
+
+    def _put_object(self, bucket: str, object_: str, reader, size: int,
+                    opts: ObjectOptions) -> ObjectInfo:
+        n = self.set_drive_count
+        parity = self.default_parity
+        if opts.parity is not None:
+            if not 0 < opts.parity <= n // 2:
+                raise ErrInvalidArgument(
+                    f"parity {opts.parity} invalid for {n} drives")
+            parity = opts.parity
+        data_blocks = n - parity
+        write_quorum = data_blocks + (1 if data_blocks == parity else 0)
+        codec_id = registry.DEFAULT_CODEC  # the port's one codec
+        wire_algo = registry.get(codec_id).wire_algorithm
+        block_size = BLOCK_SIZE_V2
+        erasure = self._object_erasure(data_blocks, parity, block_size,
+                                       codec_id)
+        distribution = hash_order(f"{bucket}/{object_}", n)
+        disks_by_shard = shuffle_disks(self.disks, distribution)
+
+        shard_file_size = erasure.shard_file_size(size) if size >= 0 else -1
+        inline = 0 <= shard_file_size <= small_file_threshold()
+        tmp_id = new_uuid()
+        data_dir = new_uuid()
+        tee = TeeMD5Reader(reader)
+        phys_shard = (bitrot_shard_file_size(shard_file_size,
+                                             erasure.shard_size())
+                      if shard_file_size >= 0 else -1)
+
+        writers: list = [None] * n
+        sinks: list = [None] * n
+        for i, disk in enumerate(disks_by_shard):
+            if disk is None:
+                continue
+            try:
+                sinks[i] = io.BytesIO() if inline else disk.create_file_writer(
+                    SYSTEM_META_BUCKET, f"{self._tmp_path(tmp_id)}/part.1",
+                    size=phys_shard)
+            except (StorageError, OSError):
+                continue  # offline at open time: its shard heals later
+            writers[i] = StreamingBitrotWriter(sinks[i], device=self.device)
+
+        def abort():
+            _close_sinks(sinks)
+            if not inline:  # inline PUTs stage nothing on disk
+                self._cleanup_tmp(disks_by_shard, tmp_id)
+
+        try:
+            total = encode_stream(erasure, tee, writers, write_quorum)
+        except BaseException:
+            abort()
+            raise
+        if size >= 0 and total != size:
+            abort()
+            raise ErrLessData(f"read {total} bytes, expected {size}")
+        size = total
+        if not inline:
+            for i, s in enumerate(sinks):
+                if s is None:
+                    continue
+                try:
+                    s.close()
+                except OSError:
+                    writers[i] = None  # not durable: this disk misses it
+
+        mod_time_ns = opts.mod_time_ns or time.time_ns()
+        version_id = opts.version_id or (new_uuid() if opts.versioned else "")
+        etag = tee.md5_hex()
+        if opts.want_md5_hex and etag != opts.want_md5_hex:
+            # Checked before the commit: a bad digest leaves nothing.
+            if not inline:
+                self._cleanup_tmp(disks_by_shard, tmp_id)
+            raise ErrBadDigest(
+                f"content md5 {etag} != declared {opts.want_md5_hex}")
+        metadata = dict(opts.user_defined)
+        metadata["etag"] = etag
+        metadata.setdefault("content-type", "application/octet-stream")
+
+        def erasure_info(index: int) -> ErasureInfo:
+            return ErasureInfo(
+                algorithm=wire_algo, data_blocks=data_blocks,
+                parity_blocks=parity, block_size=block_size, index=index,
+                distribution=list(distribution),
+                checksums=[ChecksumInfo(1, _BITROT.value)] if index else [],
+                codec=codec_id)
+
+        errs: list = [None] * n
+
+        def commit(i):
+            disk = disks_by_shard[i]
+            try:
+                if disk is None or writers[i] is None:
+                    raise ErrDiskNotFound(f"disk {i}")
+                fi = FileInfo(volume=bucket, name=object_,
+                              version_id=version_id,
+                              data_dir="" if inline else data_dir,
+                              mod_time_ns=mod_time_ns, size=size,
+                              metadata=dict(metadata),
+                              erasure=erasure_info(i + 1))
+                fi.add_part(1, size, size)
+                if inline:
+                    # The shard bytes ride inside xl.meta: one journal
+                    # write, no staged file, no rename.
+                    fi.data = {1: sinks[i].getvalue()}
+                    disk.write_metadata(bucket, object_, fi)
+                else:
+                    disk.rename_data(SYSTEM_META_BUCKET,
+                                     self._tmp_path(tmp_id), fi, bucket,
+                                     object_)
+            except (StorageError, OSError) as exc:
+                errs[i] = exc
+
+        fanout(commit, n)
+        err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
+                                       write_quorum)
+        if err is not None:
+            # Undo the commits that landed: a sub-quorum PUT must leave
+            # no readable version on the minority (undoRename).
+            undo = FileInfo(volume=bucket, name=object_,
+                            version_id=version_id)
+            for i, e in enumerate(errs):
+                if e is None and disks_by_shard[i] is not None:
+                    try:
+                        disks_by_shard[i].delete_version(bucket, object_,
+                                                         undo)
+                    except (StorageError, OSError):
+                        pass
+            if not inline:
+                self._cleanup_tmp(disks_by_shard, tmp_id)
+            raise err
+        if any(e is not None for e in errs):
+            self.queue_mrf(bucket, object_, version_id)  # partial write
+
+        fi = FileInfo(volume=bucket, name=object_, version_id=version_id,
+                      mod_time_ns=mod_time_ns, size=size, metadata=metadata,
+                      erasure=erasure_info(0), num_versions=1)
+        return ObjectInfo.from_file_info(fi, bucket, object_, opts.versioned)
+
+    # ------------------------------------------------------------------
+    # get (getObjectWithFileInfo, cmd/erasure-object.go)
+
+    def _read_quorum_file_info(self, bucket: str, object_: str,
+                               version_id: str, read_data: bool = False):
+        fis, errs = read_all_file_info(self.disks, bucket, object_,
+                                       version_id, read_data)
+        if all(fi is None for fi in fis):
+            err = reduce_read_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS, 1)
+            raise self._to_object_err(err, bucket, object_, version_id)
+        try:
+            read_quorum, _ = object_quorum_from_meta(fis, errs,
+                                                     self.default_parity)
+        except ErrErasureReadQuorum:
+            raise self._to_object_err(ErrErasureReadQuorum(), bucket,
+                                      object_, version_id) from None
+        err = reduce_read_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
+                                      read_quorum)
+        if err is not None:
+            raise self._to_object_err(err, bucket, object_, version_id)
+        mt, dd = common_mod_time(fis)
+        fi = find_file_info_in_quorum(fis, mt, dd, read_quorum)
+        return fi, fis, errs
+
+    @staticmethod
+    def _to_object_err(err, bucket, object_, version_id=""):
+        if isinstance(err, ErrFileNotFound):
+            return ErrObjectNotFound(f"{bucket}/{object_}")
+        if isinstance(err, ErrFileVersionNotFound):
+            return ErrVersionNotFound(f"{bucket}/{object_} ({version_id})")
+        if isinstance(err, ErrVolumeNotFound):
+            return ErrBucketNotFound(bucket)
+        return err if err is not None else ErrErasureReadQuorum()
+
+    @staticmethod
+    def _refuse_delete_marker(fi: FileInfo, bucket: str, object_: str,
+                              opts: ObjectOptions) -> None:
+        if fi.deleted:
+            if not opts.version_id:
+                raise ErrObjectNotFound(f"{bucket}/{object_}")
+            raise ErrMethodNotAllowed("delete marker")
+
+    def get_object_info(self, bucket: str, object_: str,
+                        opts: ObjectOptions | None = None) -> ObjectInfo:
+        opts = opts or ObjectOptions()
+        fi, _, _ = self._read_quorum_file_info(bucket, object_,
+                                               opts.version_id)
+        self._refuse_delete_marker(fi, bucket, object_, opts)
+        return ObjectInfo.from_file_info(
+            fi, bucket, object_, opts.versioned or bool(opts.version_id))
+
+    def get_object(self, bucket: str, object_: str, writer,
+                   offset: int = 0, length: int = -1,
+                   opts: ObjectOptions | None = None) -> ObjectInfo:
+        """Write bytes [offset, offset+length) of the object (length -1:
+        to its end) to `writer`."""
+        opts = opts or ObjectOptions()
+        if opts.no_lock:
+            return self._get_object(bucket, object_, writer, offset,
+                                    length, opts)
+        # A concurrent PUT or heal must not swap data dirs mid-stream.
+        with self._locked(bucket, object_, writer=False):
+            return self._get_object(bucket, object_, writer, offset,
+                                    length, opts)
+
+    def _get_object(self, bucket: str, object_: str, writer, offset: int,
+                    length: int, opts: ObjectOptions) -> ObjectInfo:
+        fi, fis, _ = self._read_quorum_file_info(
+            bucket, object_, opts.version_id, read_data=True)
+        self._refuse_delete_marker(fi, bucket, object_, opts)
+        if length == -1:
+            length = fi.size - offset
+        if offset < 0 or length < 0 or offset + length > fi.size:
+            raise ErrInvalidArgument("invalid range")
+        oi = ObjectInfo.from_file_info(fi, bucket, object_, opts.versioned)
+        if length == 0 or not fi.parts:
+            return oi
+        erasure = self._object_erasure(
+            fi.erasure.data_blocks, fi.erasure.parity_blocks,
+            fi.erasure.block_size, fi.erasure.codec)
+        heal_hint = self._decode_range(bucket, object_, fi, fis, erasure,
+                                       writer, offset, length)
+        if heal_hint is not None:
+            self.queue_mrf(bucket, object_, fi.version_id)
+        return oi
+
+    def _decode_range(self, bucket: str, object_: str, fi: FileInfo,
+                      fis: list, erasure, writer, offset: int,
+                      length: int):
+        """Decode object bytes [offset, offset+length) part by part;
+        returns the first heal hint a part's stream gave, if any."""
+        disks_by_shard, metas_by_shard = shuffle_disks_and_parts_metadata(
+            self.disks, fis, fi)
+        part_index, part_offset = fi.to_object_part_index(offset)
+        remaining = length
+        heal_hint = None
+        for part in fi.parts[part_index:]:
+            if remaining <= 0:
+                break
+            part_length = min(part.size - part_offset, remaining)
+            till_offset = erasure.shard_file_offset(part_offset, part_length,
+                                                    part.size)
+            readers = [
+                None if disk is None or meta is None else self._shard_reader(
+                    disk, meta, bucket, object_, fi, part.number,
+                    till_offset, erasure.shard_size())
+                for disk, meta in zip(disks_by_shard, metas_by_shard)]
+            try:
+                _, hint = decode_stream(erasure, writer, readers,
+                                        part_offset, part_length, part.size)
+            finally:
+                _close_sinks(readers)
+            if hint is not None and heal_hint is None:
+                heal_hint = hint
+            remaining -= part_length
+            part_offset = 0
+        return heal_hint
+
+    def _shard_reader(self, disk, meta: FileInfo, bucket: str, object_: str,
+                      fi: FileInfo, part_number: int, till_offset: int,
+                      shard_size: int) -> StreamingBitrotReader:
+        BitrotAlgorithm.from_string(
+            meta.erasure.get_checksum_info(part_number).algorithm)
+        inline = meta.data.get(part_number)
+        if inline is not None:
+            def open_stream(off, ln, buf=inline):
+                return io.BytesIO(buf[off: off + ln])
+        else:
+            path = f"{object_}/{fi.data_dir}/part.{part_number}"
+
+            def open_stream(off, ln, d=disk, p=path):
+                return d.read_file_stream(bucket, p, off, ln)
+        return StreamingBitrotReader(open_stream, till_offset, shard_size,
+                                     device=self.device)
+
+    # ------------------------------------------------------------------
+    # delete (DeleteObject, cmd/erasure-object.go)
+
+    def delete_object(self, bucket: str, object_: str,
+                      opts: ObjectOptions | None = None) -> ObjectInfo:
+        opts = opts or ObjectOptions()
+        if opts.no_lock:
+            return self._delete_object(bucket, object_, opts)
+        with self._locked(bucket, object_, writer=True):
+            return self._delete_object(bucket, object_, opts)
+
+    def _delete_object(self, bucket: str, object_: str,
+                       opts: ObjectOptions) -> ObjectInfo:
+        n = self.set_drive_count
+        write_quorum = n // 2 + 1
+        errs: list = [None] * n
+
+        def on_every_disk(op):
+            def do(i):
+                try:
+                    if self.disks[i] is None:
+                        raise ErrDiskNotFound(f"disk {i}")
+                    op(self.disks[i])
+                except (StorageError, OSError) as exc:
+                    errs[i] = exc
+            fanout(do, n)
+            return reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
+                                            write_quorum)
+
+        if opts.versioned and not opts.version_id:
+            # A versioned delete without a version writes a delete marker.
+            marker = FileInfo(volume=bucket, name=object_,
+                              version_id=new_uuid(), deleted=True,
+                              mod_time_ns=opts.mod_time_ns or time.time_ns())
+            err = on_every_disk(
+                lambda d: d.write_metadata(bucket, object_, marker))
+            if err is not None:
+                raise err
+            if any(e is not None for e in errs):
+                self.queue_mrf(bucket, object_, marker.version_id)
+            return ObjectInfo(bucket=bucket, name=object_,
+                              version_id=marker.version_id,
+                              delete_marker=True)
+
+        fi = FileInfo(volume=bucket, name=object_,
+                      version_id=opts.version_id)
+        err = on_every_disk(lambda d: d.delete_version(bucket, object_, fi))
+        if err is not None:
+            raise self._to_object_err(err, bucket, object_, opts.version_id)
+        if any(not isinstance(e, (type(None), ErrFileNotFound,
+                                  ErrFileVersionNotFound)) for e in errs):
+            # A disk that missed the delete still holds the version.
+            self.queue_mrf(bucket, object_, opts.version_id)
+        return ObjectInfo(bucket=bucket, name=object_,
+                          version_id=opts.version_id)
+
+    # ------------------------------------------------------------------
+    # heal (healObject, cmd/erasure-healing.go)
+
+    def heal_object(self, bucket: str, object_: str, version_id: str = "",
+                    remove_dangling: bool = False) -> dict:
+        """Rebuild the shards of the disks whose copy of the version is
+        missing, stale or the wrong size. Returns {"healed": [endpoints
+        rewritten], "dangling": whether too few shards were left}."""
+        # Heal rewrites shards and metadata: no PUT or delete meanwhile.
+        with self._locked(bucket, object_, writer=True):
+            return self._heal_object(bucket, object_, version_id,
+                                     remove_dangling)
+
+    def _heal_object(self, bucket: str, object_: str, version_id: str,
+                     remove_dangling: bool) -> dict:
+        fis, errs = read_all_file_info(self.disks, bucket, object_,
+                                       version_id, read_data=True)
+        valid = [fi for fi in fis if fi is not None]
+        if not valid:
+            raise self._to_object_err(
+                reduce_read_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS, 1),
+                bucket, object_, version_id)
+        mt, dd = common_mod_time(fis)
+        ref_fi = next(fi for fi in valid
+                      if fi.mod_time_ns == mt and fi.data_dir == dd)
+        data_blocks = ref_fi.erasure.data_blocks
+
+        # A disk is available when its version agrees and its part files
+        # exist at their framed size (disksWithAllParts); a flipped byte
+        # is found by GET and verify_file, not here.
+        available = [False] * len(self.disks)
+        for i, fi in enumerate(fis):
+            if fi is None or self.disks[i] is None:
+                continue
+            if (fi.mod_time_ns != mt or fi.data_dir != dd
+                    or fi.deleted != ref_fi.deleted):
+                continue
+            try:
+                if not fi.deleted:
+                    self.disks[i].check_parts(bucket, object_, fi)
+            except (StorageError, ValueError, OSError):
+                continue
+            available[i] = True
+
+        n_avail = sum(available)
+        if n_avail < data_blocks and not ref_fi.deleted:
+            if remove_dangling:
+                try:
+                    self.delete_object(bucket, object_, ObjectOptions(
+                        version_id=version_id, no_lock=True))
+                except (ErrObjectNotFound, ErrVersionNotFound):
+                    pass
+                return {"healed": [], "dangling": True}
+            raise ErrErasureReadQuorum(
+                f"only {n_avail} of {data_blocks} shards available")
+
+        stale = [i for i, ok in enumerate(available)
+                 if not ok and self.disks[i] is not None]
+        if not stale:
+            return {"healed": [], "dangling": False}
+
+        distribution = ref_fi.erasure.distribution
+        disks_by_shard = shuffle_disks(self.disks, distribution)
+        avail_by_shard = shuffle_disks(
+            [d if ok else None for d, ok in zip(self.disks, available)],
+            distribution)
+        metas_by_shard = shuffle_disks(
+            [fi if ok else None for fi, ok in zip(fis, available)],
+            distribution)
+        stale_shards = [s for s in range(len(disks_by_shard))
+                        if avail_by_shard[s] is None
+                        and disks_by_shard[s] is not None]
+
+        tmp_id = new_uuid()
+        inline = bool(ref_fi.data)
+        healed_inline: dict[int, dict[int, bytes]] = {s: {}
+                                                      for s in stale_shards}
+        if not ref_fi.deleted:
+            # Rebuild with the codec and block size the object was
+            # written with.
+            erasure = self._object_erasure(
+                data_blocks, ref_fi.erasure.parity_blocks,
+                ref_fi.erasure.block_size, ref_fi.erasure.codec)
+            for part in ref_fi.parts:
+                phys_shard = bitrot_shard_file_size(
+                    erasure.shard_file_size(part.size), erasure.shard_size())
+                till = erasure.shard_file_offset(0, part.size, part.size)
+                readers = [
+                    None if avail_by_shard[s] is None else self._shard_reader(
+                        avail_by_shard[s], metas_by_shard[s], bucket,
+                        object_, ref_fi, part.number, till,
+                        erasure.shard_size())
+                    for s in range(len(disks_by_shard))]
+                writers: list = [None] * len(disks_by_shard)
+                sinks: dict[int, object] = {}
+                try:
+                    for s in stale_shards:
+                        sinks[s] = io.BytesIO() if inline else \
+                            disks_by_shard[s].create_file_writer(
+                                SYSTEM_META_BUCKET,
+                                f"{self._tmp_path(tmp_id)}/part.{part.number}",
+                                size=phys_shard)
+                        writers[s] = StreamingBitrotWriter(
+                            sinks[s], device=self.device)
+                    heal_stream(erasure, writers, readers, part.size)
+                except BaseException:
+                    _close_sinks(sinks)
+                    if not inline:
+                        self._cleanup_tmp(disks_by_shard, tmp_id)
+                    raise
+                finally:
+                    _close_sinks(readers)
+                for s in stale_shards:
+                    if inline:
+                        healed_inline[s][part.number] = sinks[s].getvalue()
+                    else:
+                        sinks[s].close()
+
+        # Commit the rebuilt shards and metadata on the stale disks.
+        healed = []
+        for s in stale_shards:
+            disk = disks_by_shard[s]
+            fi = FileInfo.from_dict(ref_fi.to_dict())
+            fi.volume, fi.name = bucket, object_
+            fi.erasure.index = s + 1
+            fi.data = healed_inline[s] if inline else {}
+            try:
+                if inline or ref_fi.deleted:
+                    disk.write_metadata(bucket, object_, fi)
+                else:
+                    disk.rename_data(SYSTEM_META_BUCKET,
+                                     self._tmp_path(tmp_id), fi, bucket,
+                                     object_)
+            except (StorageError, OSError):
+                continue  # best effort per disk; the next heal retries
+            healed.append(disk.endpoint())
+        return {"healed": healed, "dangling": False}

@@ -208,4 +208,5 @@ def to_device_bitmat(np_bits: np.ndarray, device) -> torch.Tensor:
         raise ValueError(f"bit-matrix must be integer, got {arr.dtype}")
     if not np.isin(arr, (0, 1)).all():
         raise ValueError("bit-matrix entries must be 0 or 1")
-    return torch.tensor(arr, dtype=torch.int8).to(device)
+    # A one-row matrix comes out of bit_matrix with column-major strides.
+    return torch.tensor(np.ascontiguousarray(arr), dtype=torch.int8).to(device)

@@ -1,0 +1,118 @@
+"""StorageAPI: the per-disk storage interface the object layer calls,
+the port's copy of minio_tpu/storage/interface.py (MinIO's StorageAPI,
+cmd/storage-interface.go), cut to the calls the port's object layer
+makes. A remote disk would plug in behind the same surface.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass, field
+
+from .fileinfo import FileInfo
+
+
+@dataclass
+class VolInfo:
+    name: str
+    created_ns: int
+
+
+@dataclass
+class DiskInfo:
+    """Subset of MinIO's DiskInfo (cmd/storage-datatypes.go)."""
+
+    total: int = 0
+    free: int = 0
+    used: int = 0
+    endpoint: str = ""
+    mount_path: str = ""
+    id: str = ""
+
+
+@dataclass
+class FileInfoVersions:
+    """All versions of one object on one disk."""
+
+    volume: str
+    name: str
+    versions: list[FileInfo] = field(default_factory=list)
+
+
+class StorageAPI(abc.ABC):
+    """Per-disk storage interface."""
+
+    # --- identity ---
+
+    @abc.abstractmethod
+    def endpoint(self) -> str: ...
+
+    @abc.abstractmethod
+    def get_disk_id(self) -> str: ...
+
+    @abc.abstractmethod
+    def set_disk_id(self, disk_id: str) -> None: ...
+
+    @abc.abstractmethod
+    def disk_info(self) -> DiskInfo: ...
+
+    # --- volumes ---
+
+    @abc.abstractmethod
+    def make_vol(self, volume: str) -> None: ...
+
+    @abc.abstractmethod
+    def list_vols(self) -> list[VolInfo]: ...
+
+    @abc.abstractmethod
+    def stat_vol(self, volume: str) -> VolInfo: ...
+
+    @abc.abstractmethod
+    def delete_vol(self, volume: str, force_delete: bool = False) -> None: ...
+
+    # --- metadata ---
+
+    @abc.abstractmethod
+    def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None: ...
+
+    @abc.abstractmethod
+    def read_version(self, volume: str, path: str, version_id: str = "",
+                     read_data: bool = False) -> FileInfo: ...
+
+    @abc.abstractmethod
+    def delete_version(self, volume: str, path: str, fi: FileInfo) -> None: ...
+
+    @abc.abstractmethod
+    def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
+                    dst_volume: str, dst_path: str) -> None: ...
+
+    # --- files ---
+
+    @abc.abstractmethod
+    def create_file_writer(self, volume: str, path: str, size: int = -1):
+        """A writable sink for streamed shard writes; the caller closes
+        it."""
+
+    @abc.abstractmethod
+    def read_file_stream(self, volume: str, path: str, offset: int,
+                         length: int):
+        """A readable (read / readinto) for [offset, offset+length) of a
+        file; the caller closes it."""
+
+    @abc.abstractmethod
+    def check_parts(self, volume: str, path: str, fi: FileInfo) -> None: ...
+
+    @abc.abstractmethod
+    def verify_file(self, volume: str, path: str, fi: FileInfo) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, volume: str, path: str,
+               recursive: bool = False) -> None: ...
+
+    # --- small blobs (WriteAll / ReadAll) ---
+
+    @abc.abstractmethod
+    def write_all(self, volume: str, path: str, data: bytes) -> None: ...
+
+    @abc.abstractmethod
+    def read_all(self, volume: str, path: str) -> bytes: ...

@@ -1,8 +1,9 @@
-"""Error types raised by the erasure data plane.
+"""Error types raised by the erasure data plane, the drive storage and
+the object layer.
 
-The class names match minio_tpu.utils.errors (itself the reference's
-taxonomy, cmd/typed-errors.go and cmd/storage-errors.go) so callers that
-classify by name see the same errors from either package.
+The class names and their hierarchy match minio_tpu.utils.errors (itself
+the reference's taxonomy, cmd/typed-errors.go and cmd/storage-errors.go)
+so callers that classify by name see the same errors from either package.
 """
 
 from __future__ import annotations
@@ -20,8 +21,36 @@ class ErrFileNotFound(StorageError):
     """File not found on disk (errFileNotFound): triggers missing-part heal."""
 
 
+class ErrFileVersionNotFound(StorageError):
+    """Requested version not found (errFileVersionNotFound)."""
+
+
 class ErrFileCorrupt(StorageError):
     """Bitrot verification failed (errFileCorrupt): triggers bitrot heal."""
+
+
+class ErrFileAccessDenied(StorageError):
+    """Access denied on the path (errFileAccessDenied)."""
+
+
+class ErrVolumeNotFound(StorageError):
+    """Volume (bucket directory) not found (errVolumeNotFound)."""
+
+
+class ErrVolumeExists(StorageError):
+    """Volume already exists (errVolumeExists)."""
+
+
+class ErrVolumeNotEmpty(StorageError):
+    """Volume not empty on delete (errVolumeNotEmpty)."""
+
+
+class ErrCorruptedFormat(StorageError):
+    """format.json or xl.meta unusable (errCorruptedFormat)."""
+
+
+class ErrUnformattedDisk(StorageError):
+    """Fresh disk without format.json (errUnformattedDisk)."""
 
 
 class ErrErasureReadQuorum(StorageError):
@@ -38,6 +67,31 @@ class ErrLessData(StorageError):
 
 class ErrInvalidArgument(StorageError):
     """Invalid arguments provided (errInvalidArgument)."""
+
+
+class ErrMethodNotAllowed(StorageError):
+    """Operation not allowed, e.g. a GET of a delete marker
+    (errMethodNotAllowed)."""
+
+
+class ErrObjectNotFound(StorageError):
+    """Object does not exist (ObjectNotFound)."""
+
+
+class ErrVersionNotFound(StorageError):
+    """Object version does not exist (VersionNotFound)."""
+
+
+class ErrBucketNotFound(StorageError):
+    """Bucket does not exist (BucketNotFound)."""
+
+
+class ErrBadDigest(StorageError):
+    """Content MD5 differs from the one the client declared (BadDigest)."""
+
+
+class ErrOperationTimedOut(StorageError):
+    """Namespace-lock acquisition timed out (OperationTimedOut)."""
 
 
 class RSError(Exception):
@@ -68,9 +122,9 @@ class ErrReconstructRequired(RSError):
     """A data shard is missing; reconstruction needed before join."""
 
 
-# Errors skipped by quorum reduction: the disk is gone, which says
-# nothing about the object (objectOpIgnoredErrs).
-OBJECT_OP_IGNORED_ERRS = (ErrDiskNotFound,)
+# Errors skipped by quorum reduction: the disk is gone or unformatted,
+# which says nothing about the object (objectOpIgnoredErrs).
+OBJECT_OP_IGNORED_ERRS = (ErrDiskNotFound, ErrUnformattedDisk)
 
 
 def reduce_errs(errs, ignored_errs=()):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from minio_tpu_torch.entry import put_get_heal
+from minio_tpu_torch.entry import object_put_get_heal, put_get_heal
 from minio_tpu_torch.erasure import device_engine
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
@@ -50,7 +50,7 @@ def test_gf_kernel_matches_plain(cuda, k, m, s, b):
     assert torch.equal(got, rs._apply_bits_plain(bm, x))
 
 
-@pytest.mark.parametrize("k,m,lost", [(12, 4, (0, 5, 12, 15)),
+@pytest.mark.parametrize("k,m,lost", [(12, 4, (0, 5, 12, 15)), (12, 4, (3,)),
                                       (40, 40, tuple(range(0, 80, 2)))])
 def test_gf_kernel_reconstructs(cuda, k, m, lost):
     present = [i for i in range(k + m) if i not in lost]
@@ -142,3 +142,19 @@ def test_put_get_heal_small_on_card(cuda, tmp_path):
         c = res["counters"][phase]
         assert c["kernel_gf_launches"] > 0 and c["kernel_hash_launches"] > 0
     assert len(res["bytes"]) == 3 * (1 << 20) + 777
+
+
+def test_object_put_get_heal_on_card(cuda, tmp_path):
+    """The object layer at 12+4 and 1 MiB blocks on the card: PutObject,
+    healthy and degraded GetObject, HealObject, bitrot, with the losses
+    of chip_smoke.py; exact bytes, and both kernels launched wherever a
+    stream decodes, rebuilds or writes."""
+    res = object_put_get_heal(tmp_path, 3 * (1 << 20) + 777, device=cuda,
+                              inline_size=100 << 10)
+    assert all(res["checks"].values()), res["checks"]
+    for phase, c in res["counters"].items():
+        assert c["kernel_hash_launches"] > 0, phase
+        if phase in ("get", "get_inline", "verify", "bitrot_verify"):
+            assert c["kernel_gf_launches"] == 0, phase
+        else:
+            assert c["kernel_gf_launches"] > 0, phase

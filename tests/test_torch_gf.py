@@ -46,6 +46,17 @@ def test_to_device_bitmat_takes_jax_package_matrices(k, m):
     assert np.array_equal(t.numpy(), np_bits)
 
 
+@pytest.mark.parametrize("lost", [(3,), (0, 5)])
+def test_to_device_bitmat_is_contiguous_for_few_rows(lost):
+    """A one-row bit-matrix comes out of bit_matrix with column-major
+    strides; the kernel's wrapper takes only contiguous tensors."""
+    present = [i for i in range(16) if i not in lost]
+    np_bits = jgf.bit_matrix(jgf.reconstruct_matrix(12, 4, present,
+                                                    list(lost)))
+    t = gf.to_device_bitmat(np_bits, "cpu")
+    assert t.is_contiguous() and np.array_equal(t.numpy(), np_bits)
+
+
 @pytest.mark.parametrize("bad", [
     np.zeros((8, 12), dtype=np.int8),          # columns not a multiple of 8
     np.zeros((7, 16), dtype=np.int8),          # rows not a multiple of 8

@@ -1,7 +1,8 @@
 """minio_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports jax or anything of minio_tpu, and an entry point
-asked for the card on a host without one raises instead of running on
-the CPU."""
+chip_smoke.py, imports jax or anything of minio_tpu, or any third-party
+package but torch and numpy (the card machine has no msgpack, for one),
+and an entry point asked for the card on a host without one raises
+instead of running on the CPU."""
 
 import ast
 import io
@@ -20,6 +21,12 @@ PORT_FILES = sorted((REPO / "minio_tpu_torch").rglob("*.py")) + [
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in ("jax", "jaxlib", "minio_tpu")
+
+
+def _third_party(module: str) -> bool:
+    top = module.split(".")[0]
+    return top not in sys.stdlib_module_names and top not in (
+        "torch", "numpy", "minio_tpu_torch", "__future__")
 
 
 def _imports(path: Path) -> list[str]:
@@ -43,9 +50,17 @@ def test_no_jax_or_minio_tpu_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_third_party_imports_but_torch_and_numpy(path):
+    bad = [n for n in _imports(path) if _third_party(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
 def test_fresh_interpreter_loads_neither():
     code = (
         "import sys, minio_tpu_torch.entry, minio_tpu_torch.erasure.streaming\n"
+        "import minio_tpu_torch.object.sets, minio_tpu_torch.storage.local\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'minio_tpu')]\n"
         "assert not bad, bad\n"
@@ -58,10 +73,13 @@ def test_fresh_interpreter_loads_neither():
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the calls would run on it")
-    from minio_tpu_torch.entry import entry, put_get_heal
+    from minio_tpu_torch.entry import entry, object_put_get_heal, put_get_heal
     from minio_tpu_torch.erasure import device_engine
     from minio_tpu_torch.erasure.bitrot import StreamingBitrotWriter
-    from minio_tpu_torch.erasure.codec import Erasure
+    from minio_tpu_torch.erasure.codec import Erasure, cached_erasure
+    from minio_tpu_torch.object.erasure_objects import ErasureObjects
+    from minio_tpu_torch.object.sets import ErasureSets
+    from minio_tpu_torch.storage.local import LocalStorage
     from minio_tpu_torch.utils.device import resolve_device
 
     calls = [
@@ -71,6 +89,11 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
         lambda: device_engine.for_geometry(12, 4),
         lambda: StreamingBitrotWriter(io.BytesIO()),
         lambda: put_get_heal(tmp_path, 1000),
+        lambda: cached_erasure(12, 4, 1 << 20),
+        lambda: LocalStorage(str(tmp_path / "d0")),
+        lambda: ErasureObjects([None] * 16),
+        lambda: ErasureSets([None] * 16, 16),
+        lambda: object_put_get_heal(tmp_path, 1000),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
