@@ -11,11 +11,11 @@ Phases, each of which must pass (nothing is caught):
     version's float32 matmul is exact with TF32 off): kernel A at every
     shard length the main paths give it (a full block's and each
     object's ragged last block's, path_shard_lengths()) for the encode
-    and each reconstruction those paths run, at wide geometries (40+40,
-    128+128, 200+56) and at S = 1, 2, 3 mod 16; kernel B on contiguous
-    rows and on framed buffers at pitch 32 + L for the same shard lengths
-    and short ones, at chunk starts 0..15 mod 16, and its verify entry on
-    good and corrupted frames;
+    and each reconstruction those paths run (path_reconstructions()), at
+    wide geometries (40+40, 128+128, 200+56) and at S = 1, 2, 3 mod 16;
+    kernel B on contiguous rows and on framed buffers at pitch 32 + L for
+    the same shard lengths and short ones, at chunk starts 0..15 mod 16,
+    and its verify entry on good and corrupted frames;
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object with shards 0, 5, 12 and 15 lost: PUT,
     degraded GET (whole and ranged), heal, re-verify. The kernel launch
@@ -36,10 +36,26 @@ Phases, each of which must pass (nothing is caught):
     launch kernel B and no kernel A, PUT, degraded and ranged GET, heal
     and the GET past the flipped byte both. Prints {"object_layer": ...}
     with each phase's seconds and launches;
+ 4e. the S3 plane over HTTP on localhost: s3_put_get_heal starts the
+    port's Server (boot self-tests on the card, 16 drive directories,
+    one 12+4 set, 1 MiB blocks) and, signing with the port's
+    api/sign.py, PUTs a 256 MiB + 12,345 B object aws-chunked, uploads
+    8 x 16 MiB + 12,345 B in parts, PUTs 256 small objects (1 KiB,
+    4 KiB + 1, 33 KiB, 100 KiB) under 4 prefixes, lists them with
+    ListObjectsV2 in pages of 100 with and without a delimiter, GETs the
+    big object whole and ranged, then 4 GETs at once (bytes only), loses
+    every object on drives 0, 5, 12 and 15, GETs both big objects
+    degraded and runs an admin heal of the bucket to its end (every
+    rebuilt part.N and xl.meta equal to the original by SHA-256).
+    Counters zeroed just before and read just after; each serial phase
+    must launch what it runs (both kernels to write, rebuild or decode
+    degraded; kernel B alone for a healthy GET; none to list). Prints
+    {"s3_plane": ...} with each serial phase's seconds and launches; 4f
+    traces it at 64 MiB + 12,345 B;
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too) and print one JSON line
-    {"kernels": [...]}, whose launches are those of phases 4 and 4c
+    {"kernels": [...]}, whose launches are those of phases 4, 4c and 4e
     (by path in "launches_by_path");
  6. print the device JSON as the last line.
 
@@ -63,6 +79,11 @@ ROOT = Path(__file__).resolve().parent
 OBJECT_SIZE = (256 << 20) + 12_345
 TRACE_SIZE = (64 << 20) + 12_345
 INLINE_SIZE = 100 << 10
+# Phase 4e: multipart parts (minio-go's 16 MiB part size) and the small
+# objects' sizes.
+MP_PART, MP_PARTS, MP_LAST = 16 << 20, 8, 12_345
+SMALL_SIZES = (1 << 10, (4 << 10) + 1, 33 << 10, 100 << 10)
+SMALL_COUNT = 256
 K, M, BLOCK = 12, 4, 1 << 20
 SHARD = -(-BLOCK // K)  # 87,382
 BATCH = 8
@@ -99,15 +120,39 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def path_shard_lengths() -> list[int]:
     """The shard lengths the main paths give the kernels: a full block's,
-    and the ragged last block's of each object that phases 4, 4b, 4c and
-    4d store (the inline object is one short block)."""
+    and the ragged last block's of each object or part that phases 4,
+    4b, 4c, 4d, 4e and 4f store (an inline or small object is one short
+    block)."""
     lengths = set()
-    for size in (OBJECT_SIZE, TRACE_SIZE, INLINE_SIZE):
+    for size in (OBJECT_SIZE, TRACE_SIZE, INLINE_SIZE, MP_PART, MP_LAST,
+                 *SMALL_SIZES):
         if size >= BLOCK:
             lengths.add(SHARD)
         if size % BLOCK:
             lengths.add(-(-(size % BLOCK) // K))
     return sorted(lengths)
+
+
+def path_reconstructions() -> list[tuple[tuple, tuple]]:
+    """(unavailable shards, rebuilt shards) of every reconstruction the
+    main paths run: phase 4's and 4c's heal (shards 0, 5, 12, 15 lost),
+    degraded GET (data shards 0 and 5 rebuilt, shard 12 gone) and GET
+    past a flipped byte (data shard 3 rebuilt); and phase 4e's, whose
+    lost shards are those that drives 0, 5, 12 and 15 hold for each
+    object, through its distribution: the heal rebuilds them all, a
+    degraded GET the data shards among them."""
+    from minio_tpu_torch.entry import S3_BUCKET, S3_WIPED, s3_object_names
+    from minio_tpu_torch.object.metadata import hash_order
+
+    recs = {(LOST, LOST), (LOST, (0, 5)), ((3,), (3,))}
+    for n, name in enumerate(s3_object_names(SMALL_COUNT)):
+        dist = hash_order(f"{S3_BUCKET}/{name}", K + M)
+        lost = tuple(sorted(dist[d] - 1 for d in S3_WIPED))
+        recs.add((lost, lost))
+        data_lost = tuple(s for s in lost if s < K)
+        if n < 2 and data_lost:
+            recs.add((lost, data_lost))
+    return sorted(recs)
 
 
 def check_kernels(rng) -> dict:
@@ -118,19 +163,26 @@ def check_kernels(rng) -> dict:
     errs = {"gf_apply": 0, "highwayhash256": 0, "hh256_verify": 0}
     fn, (bitmat, blocks) = entry("cuda")  # 12+4 encode, [8, 12, 87382]
     cases = [("encode 12+4", bitmat, blocks)]
-    # The reconstructions of the main paths: heal (shards 0, 5, 12, 15
-    # lost), the degraded GET (data shards 0 and 5 rebuilt, shard 12
-    # gone) and the GET past a flipped byte (data shard 3 rebuilt).
+    # The encode and every reconstruction of the main paths.
     recs = [("encode 12+4", bitmat)]
-    for unavailable, targets in ((LOST, LOST), (LOST, (0, 5)), ((3,), (3,))):
+    for unavailable, targets in path_reconstructions():
         present = [i for i in range(K + M) if i not in unavailable]
         recs.append((f"reconstruct 12+4 {targets} from {present[:K]}",
                      gf.to_device_bitmat(gf.bit_matrix(gf.reconstruct_matrix(
                          K, M, present, list(targets))), "cuda")))
-    for s in path_shard_lengths():
-        for b in (1, BATCH):
-            for name, bm in recs:
-                cases.append((f"{name} S={s}", bm, rand((b, K, s), rng)))
+    # One line a matrix: every path shard length at B = 1 and 8.
+    shapes = [(b, K, s) for s in path_shard_lengths() for b in (1, BATCH)]
+    for name, bm in recs:
+        err = 0
+        for shape in shapes:
+            x = rand(shape, rng)
+            got = rs_cuda.apply_gf_matrix_cuda(bm, x)
+            want = rs._apply_bits_plain(bm, x)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+        log(f"gf_apply {name} at [B, {K}, S] for B in (1, {BATCH}), S in "
+            f"{path_shard_lengths()}: max_abs_err {err}")
+        errs["gf_apply"] = max(errs["gf_apply"], err)
     # Wide geometries minio_tpu accepts, and S = 1, 2, 3 mod 16.
     for k, m, s in ((16, 16, 333), (2, 2, 333), (40, 40, 1000),
                     (128, 128, 257), (200, 56, 515), (K, M, 4097),
@@ -214,23 +266,35 @@ def check_kernels(rng) -> dict:
     return errs
 
 
+def reset_counts() -> None:
+    """Zero every launch counter, just before a main path runs."""
+    from minio_tpu_torch.erasure import device_engine
+    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
+
+    rs_cuda.LAUNCHES.reset()
+    highwayhash_torch.LAUNCHES.reset()
+    device_engine.reset_stats()
+
+
+def read_counts() -> dict:
+    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
+
+    return {"gf_apply": rs_cuda.LAUNCHES.value,
+            "highwayhash256": highwayhash_torch.LAUNCHES.value}
+
+
 def run_main_path() -> dict:
     """Phase 4: put_get_heal through the port's entry point."""
     from minio_tpu_torch.entry import put_get_heal
-    from minio_tpu_torch.erasure import device_engine
-    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
 
     data_root = ROOT / ".smoke_data"
     data_root.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(dir=data_root)
     try:
-        rs_cuda.LAUNCHES = 0
-        highwayhash_torch.LAUNCHES = 0
-        device_engine.reset_stats()
+        reset_counts()
         res = put_get_heal(tmp, OBJECT_SIZE, K, M, LOST, seed=0,
                            device="cuda", block_size=BLOCK)
-        launches = {"gf_apply": rs_cuda.LAUNCHES,
-                    "highwayhash256": highwayhash_torch.LAUNCHES}
+        launches = read_counts()
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     payload = np.random.default_rng(0).bytes(OBJECT_SIZE)
@@ -256,20 +320,15 @@ def run_main_path() -> dict:
 def run_object_layer() -> tuple[dict, dict]:
     """Phase 4c: object_put_get_heal through the port's object layer."""
     from minio_tpu_torch.entry import object_put_get_heal
-    from minio_tpu_torch.erasure import device_engine
-    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
 
     data_root = ROOT / ".smoke_data"
     data_root.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(dir=data_root)
     try:
-        rs_cuda.LAUNCHES = 0
-        highwayhash_torch.LAUNCHES = 0
-        device_engine.reset_stats()
+        reset_counts()
         res = object_put_get_heal(tmp, OBJECT_SIZE, device="cuda",
                                   inline_size=INLINE_SIZE, seed=2)
-        launches = {"gf_apply": rs_cuda.LAUNCHES,
-                    "highwayhash256": highwayhash_torch.LAUNCHES}
+        launches = read_counts()
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     failed = [k for k, ok in res["checks"].items() if ok is not True]
@@ -291,6 +350,62 @@ def run_object_layer() -> tuple[dict, dict]:
             "k": K, "m": M, "lost": res["lost"],
             "seconds": res["seconds"], "launches": per_phase,
             "heal_result": res["heal_result"], "checks": res["checks"]}
+    return line, launches
+
+
+# Phase 4e's serial phases, and whether each launches kernel A (kernel B
+# launches in all but the listings and MakeBucket).
+S3_PHASES = {"make_bucket": None, "put": True, "multipart": True,
+             "put_small": True, "list": None, "list_delimiter": None,
+             "get": False, "range_get": False, "degraded_get": True,
+             "degraded_get_multipart": True, "heal": True}
+
+
+def run_s3_plane() -> tuple[dict, dict]:
+    """Phase 4e: s3_put_get_heal, the S3 plane over HTTP on localhost."""
+    from minio_tpu_torch.entry import s3_put_get_heal
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_put_get_heal(tmp, OBJECT_SIZE, device="cuda",
+                              part_size=MP_PART, parts=MP_PARTS,
+                              last_part=MP_LAST, small_count=SMALL_COUNT,
+                              small_sizes=SMALL_SIZES, page=100,
+                              concurrent=4, seed=4)
+        launches = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"S3 plane checks failed: {failed}")
+    per_phase = {}
+    for ph, want_gf in S3_PHASES.items():
+        c = res["counters"][ph]
+        gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n}
+        if want_gf is None:
+            ok, want = gf_n == hh_n == 0, "none"
+        else:
+            ok = hh_n > 0 and (gf_n > 0) == want_gf
+            want = f"A {'> 0' if want_gf else '0'}, B > 0"
+        if not ok:
+            raise AssertionError(f"S3 plane {ph}: kernel A launched {gf_n} "
+                                 f"times, kernel B {hh_n} (want {want})")
+        log(f"s3 plane {ph}: {res['seconds'][ph]:.4f} s, launches A {gf_n} "
+            f"B {hh_n}")
+    log(f"s3 plane concurrent GETs (4, bytes checked): "
+        f"{res['concurrent_get_seconds']:.4f} s")
+    line = {"object_size": res["size"],
+            "multipart_size": res["multipart_size"], "parts": res["parts"],
+            "small_objects": res["small_count"], "k": K, "m": M,
+            "wiped_drives": res["wiped_drives"],
+            "seconds": res["seconds"], "launches": per_phase,
+            "concurrent_get_seconds": res["concurrent_get_seconds"],
+            "list_pages": res["list_pages"], "heal": res["heal"],
+            "healed_files": res["healed_files"], "checks": res["checks"]}
     return line, launches
 
 
@@ -353,13 +468,21 @@ def traced_object_layer(tmp, size) -> bool:
     return all(res["checks"].values())
 
 
+def traced_s3_plane(tmp, size) -> bool:
+    from minio_tpu_torch.entry import s3_put_get_heal
+
+    res = s3_put_get_heal(tmp, size, device="cuda", part_size=MP_PART,
+                          parts=2, last_part=MP_LAST, small_count=16,
+                          small_sizes=SMALL_SIZES, concurrent=0, seed=5)
+    return all(res["checks"].values())
+
+
 def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5: kernel, plain and bound times at the main shapes.
     `launches` holds each kernel's launches by main path."""
     from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
     from minio_tpu_torch.utils.timing import time_calls, time_graph
 
-    saved = (rs_cuda.LAUNCHES, hh.LAUNCHES)
     bitmat = gf.to_device_bitmat(gf.bit_matrix(gf.parity_matrix(K, M)),
                                  "cuda")
     enc_in = [rand((BATCH, K, SHARD), rng) for _ in range(8)]  # 8 x 11 MB
@@ -404,7 +527,6 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
         f"{warm_ms:.5f} ms, {1e6 * warm_ms / packets:.2f} ns/packet; verify "
         f"of {BATCH} frames warm, a call from Python with its int64 "
         f"readback: {verify_ms:.5f} ms")
-    rs_cuda.LAUNCHES, hh.LAUNCHES = saved  # timing launches do not count
     return [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -462,12 +584,18 @@ def main() -> int:
     object_line, object_launches = run_object_layer()
     log(f"object layer phase {time.perf_counter() - t0:.1f} s")
     object_line["trace"] = trace_path("object layer", traced_object_layer)
+    t0 = time.perf_counter()
+    s3_line, s3_launches = run_s3_plane()
+    log(f"S3 plane phase {time.perf_counter() - t0:.1f} s")
+    s3_line["trace"] = trace_path("s3 plane", traced_s3_plane)
     by_path = {name: {"put_get_heal": launches[name],
-                      "object_layer": object_launches[name]}
+                      "object_layer": object_launches[name],
+                      "s3_plane": s3_launches[name]}
                for name in launches}
     kernels = time_kernels(rng, by_path, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"object_layer": object_line}), flush=True)
+    print(json.dumps({"s3_plane": s3_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""minio_tpu_torch: the erasure data plane of minio_tpu on PyTorch and CUDA.
+"""minio_tpu_torch: minio_tpu on PyTorch and CUDA: the erasure data plane,
+the object layer and drive storage above it, and the S3 server
+(``python -m minio_tpu_torch server /data{1...16}``).
 
 The GF(2^8) Reed-Solomon apply and the HighwayHash-256 bitrot digests run
 as hand-written CUDA kernels (``csrc/``) on an NVIDIA Hopper card. Every

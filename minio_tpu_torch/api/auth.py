@@ -1,0 +1,123 @@
+"""Request authentication and authorization, the port's copy of
+minio_tpu/api/auth.py (MinIO's cmd/auth-handler.go checkRequestAuthType):
+classify the auth type (anonymous, SigV2, SigV4, presigned, streaming),
+verify the signature against the IAM credentials, and allow the action.
+
+Only the root credential exists and bucket policies are not ported yet:
+the root may do every action, and an anonymous request is refused with
+AccessDenied, as minio_tpu answers for a bucket without a policy.
+"""
+
+from __future__ import annotations
+
+from ..iam.store import IAMSys
+from . import sign
+from .errors import S3Error
+
+AUTH_ANONYMOUS = "anonymous"
+AUTH_SIGNED_V4 = "signed-v4"
+AUTH_SIGNED_V2 = "signed-v2"
+AUTH_PRESIGNED_V4 = "presigned-v4"
+AUTH_PRESIGNED_V2 = "presigned-v2"
+AUTH_STREAMING = "streaming-v4"
+AUTH_JWT = "jwt"
+
+
+def auth_type(headers: dict, query: dict) -> str:
+    """Classify the request's auth mechanism (cmd/auth-handler.go:66)."""
+    auth = headers.get("Authorization", headers.get("authorization", ""))
+    sha = headers.get(
+        "X-Amz-Content-Sha256", headers.get("x-amz-content-sha256", "")
+    )
+    if auth.startswith(sign.SIGN_V4_ALGORITHM):
+        if sha == sign.STREAMING_CONTENT_SHA256:
+            return AUTH_STREAMING
+        return AUTH_SIGNED_V4
+    if auth.startswith("AWS "):
+        return AUTH_SIGNED_V2
+    if auth.startswith("Bearer "):
+        return AUTH_JWT
+    if "X-Amz-Credential" in query:
+        return AUTH_PRESIGNED_V4
+    if "AWSAccessKeyId" in query:
+        return AUTH_PRESIGNED_V2
+    return AUTH_ANONYMOUS
+
+
+class AuthResult:
+    def __init__(self, access_key: str = "", auth: str = AUTH_ANONYMOUS,
+                 cred=None, content_sha256: str = ""):
+        self.access_key = access_key
+        self.auth = auth
+        self.cred = cred
+        # Declared payload hash (bound by the signature): the server
+        # checks the body against it as the handler reads it.
+        self.content_sha256 = content_sha256
+
+    @property
+    def is_anonymous(self) -> bool:
+        return self.auth == AUTH_ANONYMOUS
+
+
+def authenticate(iam: IAMSys, method: str, path: str,
+                 query: list[tuple[str, str]], headers: dict) -> AuthResult:
+    """Verify the request's signature. Raises S3Error on failure."""
+    qdict = dict(query)
+    at = auth_type(headers, qdict)
+    if at == AUTH_ANONYMOUS:
+        return AuthResult()
+    if at == AUTH_JWT:
+        raise S3Error("AccessDenied", "JWT auth is for the admin/web plane")
+
+    def secret_for(access_key: str) -> str:
+        cred = iam.get_credentials(access_key)
+        if cred is None:
+            raise S3Error("InvalidAccessKeyId", access_key)
+        return cred.secret_key
+
+    try:
+        if at in (AUTH_SIGNED_V4, AUTH_STREAMING):
+            auth_hdr = headers.get(
+                "Authorization", headers.get("authorization", "")
+            )
+            cred_scope, _, _ = sign.parse_v4_auth_header(auth_hdr)
+            secret = secret_for(cred_scope.access_key)
+            sign.verify_v4_header(secret, method, path, query, headers)
+            lower = {k.lower(): v for k, v in headers.items()}
+            return AuthResult(
+                cred_scope.access_key, at,
+                iam.get_credentials(cred_scope.access_key),
+                content_sha256=lower.get("x-amz-content-sha256", ""),
+            )
+        if at == AUTH_PRESIGNED_V4:
+            cred_scope = sign.V4Credential(qdict.get("X-Amz-Credential", ""))
+            secret = secret_for(cred_scope.access_key)
+            sign.verify_v4_presigned(secret, method, path, query, headers)
+            return AuthResult(
+                cred_scope.access_key, at,
+                iam.get_credentials(cred_scope.access_key),
+                content_sha256=qdict.get("X-Amz-Content-Sha256", ""),
+            )
+        if at == AUTH_SIGNED_V2:
+            auth_hdr = headers.get(
+                "Authorization", headers.get("authorization", "")
+            )
+            access_key = auth_hdr[4:].split(":", 1)[0]
+            secret = secret_for(access_key)
+            sign.verify_v2_header(secret, method, path, query, headers)
+            return AuthResult(access_key, at, iam.get_credentials(access_key))
+        if at == AUTH_PRESIGNED_V2:
+            raise S3Error("NotImplemented", "presigned V2")
+    except sign.SignError as exc:
+        raise S3Error(exc.code, str(exc)) from exc
+    raise S3Error("SignatureVersionNotSupported")
+
+
+def authorize(iam: IAMSys, result: AuthResult, action: str) -> None:
+    """Allow or deny an S3 action: the root may do every action; an
+    anonymous request has no bucket policy to fall back on."""
+    if result.is_anonymous:
+        raise S3Error("AccessDenied", f"anonymous {action}")
+    if iam.is_allowed(result.access_key):
+        return
+    raise S3Error("AccessDenied", f"{result.access_key} {action}")

@@ -1,0 +1,486 @@
+"""The S3 HTTP front end, the port's copy of the S3Server of
+minio_tpu/api/server.py (MinIO's cmd/http/server.go, the globalHandlers
+filters of cmd/routers.go and the router of cmd/api-router.go) as one
+dispatch pipeline over a threaded HTTP server: each request is parsed,
+checked (reserved metadata and header sizes, SSE-C over plain HTTP, the
+body cap, reserved buckets, object names, upload ids), routed,
+authenticated and authorized, and its body is wrapped in the verifier
+its signature asks for (aws-chunked decoding, or x-amz-content-sha256),
+before the handler runs.
+
+The routes of the slice are the bucket calls, ListObjects v1 and v2,
+Put/Get/Head/DeleteObject, the multipart calls and the admin heal; every
+other route answers NotImplemented.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import re
+import sys
+import threading
+import urllib.parse
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..iam.store import IAMSys
+from ..utils.device import resolve_device
+from . import sign
+from .admin import ADMIN_PREFIX, AdminHandlers
+from .auth import AUTH_STREAMING, authenticate, authorize
+from .errors import API_ERRORS, S3Error, error_xml
+from .handlers import Response, S3ApiHandlers, valid_object_name
+
+# Buckets the S3 data plane never serves: the internal metadata buckets
+# and the "minio" route namespace (isMinioReservedBucket).
+_RESERVED_BUCKETS = {"minio", ".minio.sys", ".mtpu.sys"}
+
+# Upload ids are UUIDs the server made; anything else is corrupt or a
+# path-traversal attempt (the id names a directory on every disk).
+_SAFE_UPLOAD_ID = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}")
+
+_EMPTY_SHA256 = hashlib.sha256(b"").hexdigest()
+
+# S3 action names of the routes (pkg/iam/policy/action.go).
+_ACTIONS = {
+    "list_buckets": "s3:ListAllMyBuckets",
+    "make_bucket": "s3:CreateBucket",
+    "head_bucket": "s3:ListBucket",
+    "delete_bucket": "s3:DeleteBucket",
+    "get_bucket_location": "s3:GetBucketLocation",
+    "list_objects_v1": "s3:ListBucket",
+    "list_objects_v2": "s3:ListBucket",
+    "put_object": "s3:PutObject",
+    "get_object": "s3:GetObject",
+    "head_object": "s3:GetObject",
+    "delete_object": "s3:DeleteObject",
+    "new_multipart_upload": "s3:PutObject",
+    "put_object_part": "s3:PutObject",
+    "complete_multipart_upload": "s3:PutObject",
+    "abort_multipart_upload": "s3:AbortMultipartUpload",
+    "list_object_parts": "s3:ListMultipartUploadParts",
+    "list_multipart_uploads": "s3:ListBucketMultipartUploads",
+}
+
+# S3 header limits (setRequestHeaderSizeLimitHandler): 8 KiB of headers,
+# 2 KiB of user metadata.
+_MAX_HEADER_SIZE = 8 * 1024
+_MAX_USER_META_SIZE = 2 * 1024
+_USER_META_PREFIXES = ("x-amz-meta-", "x-minio-meta-", "x-mtpu-meta-")
+
+# 5 TiB of object plus 64 MiB of form-data headroom (requestMaxBodySize).
+_MAX_REQUEST_BODY = 5 * 1024 ** 4 + 64 * 1024 ** 2
+
+_SSEC_PREFIXES = ("x-amz-server-side-encryption-customer-",
+                  "x-amz-copy-source-server-side-encryption-customer-")
+
+
+def _check_reserved_bucket(bucket: str) -> None:
+    if bucket in _RESERVED_BUCKETS or bucket.startswith("."):
+        raise S3Error("AccessDenied", f"reserved bucket {bucket!r}")
+
+
+class LimitedReader:
+    """Reads capped at Content-Length: the socket stays open after the
+    body, so an unbounded read would wait for the next request."""
+
+    def __init__(self, raw, limit: int):
+        self._raw = raw
+        self._left = limit
+
+    def read(self, n: int = -1) -> bytes:
+        if self._left <= 0:
+            return b""
+        if n is None or n < 0 or n > self._left:
+            n = self._left
+        buf = self._raw.read(n)
+        self._left -= len(buf)
+        return buf
+
+
+class Sha256VerifyReader:
+    """The body checked against the signed x-amz-content-sha256 as it
+    streams (pkg/hash/reader.go): at its end a mismatch raises, so the
+    object layer aborts before its commit."""
+
+    def __init__(self, raw, want_hex: str, total: int):
+        self._raw = raw
+        self._want = want_hex.lower()
+        self._left = total
+        self._h = hashlib.sha256()
+
+    def read(self, n: int = -1) -> bytes:
+        buf = self._raw.read(n)
+        if buf:
+            self._h.update(buf)
+            self._left -= len(buf)
+        if (not buf or self._left <= 0) and self._want is not None:
+            got = self._h.hexdigest()
+            want, self._want = self._want, None  # checked once
+            if got != want:
+                raise S3Error("XAmzContentSHA256Mismatch", got)
+        return buf
+
+
+class _BodyCounter:
+    """The innermost body wrapper, counting the wire bytes read: an error
+    response closes the connection only when unread body bytes would
+    desynchronise it (see _write)."""
+
+    __slots__ = ("_src", "consumed")
+
+    def __init__(self, src):
+        self._src = src
+        self.consumed = 0
+
+    def read(self, n: int = -1) -> bytes:
+        buf = self._src.read(n)
+        self.consumed += len(buf)
+        return buf
+
+
+class RequestContext:
+    """A parsed request, as the handlers take it."""
+
+    def __init__(self, method: str, path: str,
+                 query: list[tuple[str, str]], headers: dict,
+                 body_reader, content_length: int | None):
+        self.method = method
+        self.path = path
+        self.query = query
+        self.qdict = dict(query)
+        self.headers = {k.lower(): v for k, v in headers.items()}
+        self.raw_headers = dict(headers)
+        self._body_counter = _BodyCounter(body_reader)
+        self.body_reader = self._body_counter
+        self.content_length = content_length
+        # An aws-chunked body's content_length becomes its decoded
+        # length; the wire length is what the counter is held to.
+        self.wire_length = content_length
+        self._body: bytes | None = None
+        self.request_id = uuid.uuid4().hex[:16].upper()
+        parts = path.lstrip("/").split("/", 1)
+        self.bucket = parts[0] if parts[0] else ""
+        self.object = parts[1] if len(parts) > 1 else ""
+
+    @property
+    def body(self) -> bytes:
+        if self._body is None:
+            n = self.content_length if self.content_length is not None \
+                else -1
+            self._body = self.body_reader.read(n) if n != 0 else b""
+        return self._body
+
+
+# Bucket and object subresources by method: minio_tpu serves most (ACLs,
+# policies, bucket configurations, tagging, retention), rejects the rest
+# (rejectUnsupportedAPIs, cmd/api-router.go:87-176). The port serves
+# none of them.
+_BUCKET_SUBS = {
+    "GET": ("cors", "website", "accelerate", "requestPayment", "logging",
+            "policyStatus", "acl", "policy", "versioning", "tagging",
+            "lifecycle", "encryption", "object-lock", "replication",
+            "notification", "versions", "events", "metrics",
+            "publicAccessBlock", "ownershipControls", "intelligent-tiering",
+            "analytics"),
+    "PUT": ("acl", "policy", "versioning", "tagging", "lifecycle",
+            "encryption", "object-lock", "replication", "notification",
+            "cors", "metrics", "website", "logging", "accelerate",
+            "requestPayment", "publicAccessBlock", "ownershipControls",
+            "intelligent-tiering", "analytics"),
+    "DELETE": ("policy", "website", "tagging", "lifecycle", "encryption",
+               "replication", "cors", "metrics", "logging", "accelerate",
+               "requestPayment", "acl", "publicAccessBlock",
+               "ownershipControls", "intelligent-tiering", "analytics"),
+    "HEAD": ("acl",),
+}
+_OBJECT_SUBS = {
+    "GET": ("retention", "legal-hold", "tagging", "acl", "torrent"),
+    "PUT": ("retention", "legal-hold", "tagging", "acl", "torrent"),
+    "DELETE": ("tagging", "acl", "torrent"),
+}
+
+
+def route(ctx: RequestContext) -> str:
+    """(method, bucket/object, query) -> the handler's name, minio_tpu's
+    decision tree (cmd/api-router.go:143-455). A subresource route gets a
+    name no handler has, and the server answers it NotImplemented."""
+    m, q = ctx.method, ctx.qdict
+    if not ctx.bucket:
+        if m == "GET":
+            return "list_buckets"
+        raise S3Error("MethodNotAllowed", "service endpoint")
+    if not ctx.object:
+        if m == "GET" and "location" in q:
+            return "get_bucket_location"
+        for sub in _BUCKET_SUBS.get(m, ()):
+            if sub in q:
+                return f"{m.lower()}_bucket_{sub}"
+        if m == "GET":
+            if "uploads" in q:
+                return "list_multipart_uploads"
+            if q.get("list-type") == "2":
+                return "list_objects_v2"
+            return "list_objects_v1"
+        if m == "PUT":
+            return "make_bucket"
+        if m == "HEAD":
+            return "head_bucket"
+        if m == "DELETE":
+            return "delete_bucket"
+        if m == "POST":
+            if "delete" in q:
+                return "delete_multiple_objects"
+            if ctx.headers.get("content-type", "").startswith(
+                    "multipart/form-data"):
+                return "post_policy_object"
+        raise S3Error("MethodNotAllowed", f"{m} bucket")
+    if m == "GET" and "uploadId" in q:
+        return "list_object_parts"
+    if m == "PUT" and "partNumber" in q and "uploadId" in q:
+        return "put_object_part"
+    if m == "DELETE" and "uploadId" in q:
+        return "abort_multipart_upload"
+    for sub in _OBJECT_SUBS.get(m, ()):
+        if sub in q:
+            return f"{m.lower()}_object_{sub}"
+    if m in ("GET", "HEAD", "PUT", "DELETE"):
+        return f"{m.lower()}_object"
+    if m == "POST":
+        if "uploads" in q:
+            return "new_multipart_upload"
+        if "uploadId" in q:
+            return "complete_multipart_upload"
+        if "select" in q and q.get("select-type") == "2":
+            return "select_object_content"
+        if "restore" in q:
+            return "restore_object"
+        raise S3Error("MethodNotAllowed", f"POST {ctx.object}")
+    raise S3Error("MethodNotAllowed", m)
+
+
+def _reserved_metadata_check(ctx: RequestContext) -> None:
+    """Refuse client-sent internal metadata and oversized headers
+    (filterReservedMetadata and the header size limits)."""
+    size = usersize = 0
+    for k, v in ctx.headers.items():
+        if k.startswith(("x-mtpu-internal-", "x-minio-internal-")):
+            raise S3Error("AccessDenied", "reserved metadata prefix")
+        length = len(k) + len(v)
+        size += length
+        if k.startswith(_USER_META_PREFIXES):
+            usersize += length
+        if usersize > _MAX_USER_META_SIZE or size > _MAX_HEADER_SIZE:
+            raise S3Error("MetadataTooLarge", "headers exceed S3 limits")
+
+
+class S3Server:
+    """An ObjectLayer bound to a listening threaded HTTP server. `device`
+    is the device of the object layer's kernels: it defaults to the card,
+    raises when there is none, and must be the object layer's."""
+
+    def __init__(self, object_layer, iam: IAMSys, bucket_meta,
+                 host: str = "127.0.0.1", port: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        if object_layer.device != self.device:
+            raise ValueError(f"the object layer runs on "
+                             f"{object_layer.device}, not {self.device}")
+        self.handlers = S3ApiHandlers(object_layer, bucket_meta)
+        # Requests in flight, which a heal sequence yields to.
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self.admin = AdminHandlers(object_layer, iam, lambda: self._inflight)
+        self.iam = iam
+        outer = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                pass
+
+            def _dispatch(self):
+                outer._handle(self)
+
+            do_GET = do_PUT = do_POST = do_DELETE = do_HEAD = _dispatch
+            do_OPTIONS = _dispatch
+
+        class _Server(ThreadingHTTPServer):
+            def handle_error(self, request, client_address):
+                # A client that hangs up mid-response is routine.
+                if isinstance(sys.exc_info()[1], (ConnectionResetError,
+                                                  BrokenPipeError,
+                                                  TimeoutError)):
+                    return
+                super().handle_error(request, client_address)
+
+        self.httpd = _Server((host, port), _Handler)
+        self.port = self.httpd.server_address[1]
+        self.host = host
+        self._thread: threading.Thread | None = None
+
+    # --- lifecycle ---
+
+    def start(self) -> "S3Server":
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)
+
+    @property
+    def endpoint(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    # --- request pipeline ---
+
+    def _handle(self, h: BaseHTTPRequestHandler) -> None:
+        parsed = urllib.parse.urlsplit(h.path)
+        query = urllib.parse.parse_qsl(parsed.query, keep_blank_values=True)
+        cl_hdr = h.headers.get("Content-Length")
+        content_length = int(cl_hdr) if cl_hdr is not None else None
+        body_reader = (LimitedReader(h.rfile, content_length)
+                       if content_length is not None else io.BytesIO(b""))
+        ctx = RequestContext(h.command, urllib.parse.unquote(parsed.path),
+                             query, dict(h.headers), body_reader,
+                             content_length)
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            self._respond(h, ctx)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def _respond(self, h: BaseHTTPRequestHandler,
+                 ctx: RequestContext) -> None:
+        try:
+            resp = self._process(ctx)
+        except S3Error as exc:
+            resp = Response(
+                exc.api.status, {"Content-Type": "application/xml"},
+                error_xml(exc.api, ctx.path, ctx.request_id, exc.detail))
+        except Exception as exc:  # noqa: BLE001 - answered InternalError
+            api = API_ERRORS["InternalError"]
+            resp = Response(api.status, {"Content-Type": "application/xml"},
+                            error_xml(api, ctx.path, ctx.request_id,
+                                      str(exc)))
+        self._write(h, ctx, resp)
+
+    def _process(self, ctx: RequestContext) -> Response:
+        if ctx.method == "OPTIONS":
+            raise S3Error("NotImplemented", "CORS preflight")
+        _reserved_metadata_check(ctx)
+        # SSE-C over plain HTTP would put the customer's key on the wire
+        # (setSSETLSHandler); the port serves no TLS.
+        if any(k.startswith(_SSEC_PREFIXES) for k in ctx.headers):
+            raise S3Error("InsecureSSECustomerRequest", "")
+        if ctx.content_length and ctx.content_length > _MAX_REQUEST_BODY:
+            raise S3Error("EntityTooLarge", "request body too large")
+        if ctx.path.startswith(ADMIN_PREFIX):
+            name = self.admin.route(ctx)
+            auth_result = authenticate(self.iam, ctx.method, ctx.path,
+                                       ctx.query, ctx.raw_headers)
+            if auth_result.auth == AUTH_STREAMING:
+                raise S3Error("NotImplemented", "streaming admin request")
+            self.admin.authorize(auth_result)
+            return getattr(self.admin, name)(ctx)
+        if ctx.path == "/crossdomain.xml" or ctx.path.startswith("/minio/"):
+            # Health, metrics, console and the rest of the minio route
+            # namespace.
+            raise S3Error("NotImplemented", ctx.path)
+        if ctx.method == "POST" and not ctx.bucket:
+            raise S3Error("NotImplemented", "STS")
+        # One guard for every data-plane route: internal buckets are
+        # unreachable, and no handler sees a "." or ".." segment.
+        if ctx.bucket:
+            _check_reserved_bucket(ctx.bucket)
+        if ctx.object and not valid_object_name(ctx.object):
+            raise S3Error("InvalidArgument",
+                          f"invalid object name {ctx.object!r}")
+        upload_id = ctx.qdict.get("uploadId")
+        if upload_id is not None and not _SAFE_UPLOAD_ID.fullmatch(upload_id):
+            raise S3Error("NoSuchUpload", upload_id[:64])
+        name = route(ctx)
+        if name == "post_policy_object":
+            # Signed by a form policy, not SigV4: not ported.
+            raise S3Error("NotImplemented", name)
+        auth_result = authenticate(self.iam, ctx.method, ctx.path, ctx.query,
+                                   ctx.raw_headers)
+        authorize(self.iam, auth_result, _ACTIONS.get(name, "s3:*"))
+        if name not in _ACTIONS:
+            raise S3Error("NotImplemented", name)
+        if auth_result.auth == AUTH_STREAMING:
+            self._wrap_streaming_body(ctx)
+        elif auth_result.content_sha256 not in ("", sign.UNSIGNED_PAYLOAD):
+            if ctx.content_length:
+                ctx.body_reader = Sha256VerifyReader(
+                    ctx.body_reader, auth_result.content_sha256,
+                    ctx.content_length)
+            elif auth_result.content_sha256.lower() != _EMPTY_SHA256:
+                # No body, but the signature promised one.
+                raise S3Error("XAmzContentSHA256Mismatch",
+                              "empty body, non-empty hash")
+        return getattr(self.handlers, name)(ctx)
+
+    def _wrap_streaming_body(self, ctx: RequestContext) -> None:
+        """The body becomes the verifying aws-chunked decoder, of the
+        length x-amz-decoded-content-length declares."""
+        cred_scope, _, seed_sig = sign.parse_v4_auth_header(
+            ctx.headers.get("authorization", ""))
+        secret = self.iam.get_credentials(cred_scope.access_key).secret_key
+        decoded_len = ctx.headers.get("x-amz-decoded-content-length")
+        if decoded_len is None:
+            raise S3Error("MissingContentLength",
+                          "x-amz-decoded-content-length")
+        ctx.body_reader = sign.ChunkedReader(
+            ctx.body_reader, secret, cred_scope,
+            ctx.headers.get("x-amz-date", ""), seed_sig)
+        ctx.content_length = int(decoded_len)
+
+    def _write(self, h: BaseHTTPRequestHandler, ctx: RequestContext,
+               resp: Response) -> None:
+        try:
+            if (resp.status >= 400 and ctx.wire_length
+                    and ctx._body_counter.consumed < ctx.wire_length):
+                # Unread body bytes of a refused request would parse as
+                # the next request line: close instead.
+                h.close_connection = True
+            h.send_response(resp.status)
+            headers = dict(resp.headers)
+            if h.close_connection:
+                headers.setdefault("Connection", "close")
+            # Security headers (addSecurityHeaders), CORS, request id.
+            headers.setdefault("X-Content-Type-Options", "nosniff")
+            headers.setdefault("X-Xss-Protection", "1; mode=block")
+            headers.setdefault("Content-Security-Policy",
+                               "block-all-mixed-content")
+            headers.setdefault("Server", "MinIO-TPU")
+            headers.setdefault("Access-Control-Allow-Origin", "*")
+            headers["x-amz-request-id"] = ctx.request_id
+            streaming = resp.body_stream is not None and ctx.method != "HEAD"
+            if streaming and "Content-Length" not in headers:
+                raise RuntimeError("streaming response needs Content-Length")
+            if "Content-Length" not in headers or ctx.method == "HEAD":
+                headers["Content-Length"] = headers.get(
+                    "Content-Length", str(len(resp.body)))
+            for k, v in headers.items():
+                h.send_header(k, v)
+            h.end_headers()
+            if streaming:
+                try:
+                    resp.body_stream(h.wfile)
+                except Exception:  # noqa: BLE001 - the status is sent
+                    # The body falls short of its Content-Length: close,
+                    # so the client cannot take the stump for the object.
+                    h.close_connection = True
+            elif resp.body and ctx.method != "HEAD":
+                h.wfile.write(resp.body)
+        except (BrokenPipeError, ConnectionResetError):
+            pass

@@ -5,14 +5,20 @@ batch of 8 x 1 MiB blocks. `put_get_heal()` drives the erasure data plane
 end to end on shard files: PUT, degraded GET (full and ranged), heal.
 `object_put_get_heal()` drives the same through the object layer and the
 drive storage: PutObject, GetObject healthy and degraded, HealObject and
-a bitrot check on 16 drive directories at 12+4.
+a bitrot check on 16 drive directories at 12+4. `s3_put_get_heal()`
+drives the S3 server over HTTP on localhost: signed PUTs (aws-chunked,
+multipart, small objects), listing, GETs, lost drives, degraded GETs and
+an admin heal.
 """
 
 from __future__ import annotations
 
 import hashlib
 import io
+import json
+import re
 import shutil
+import threading
 import time
 from pathlib import Path
 
@@ -31,10 +37,12 @@ from .erasure.streaming import (
     encode_stream,
     heal_stream,
 )
+from .api.client import S3Client
 from .object import erasure_objects
 from .object.sets import ErasureSets
 from .ops import gf, highwayhash_torch, rs_cuda
 from .ops.rs import apply_gf_matrix
+from .server import Server
 from .storage.local import LocalStorage
 from .utils import ceil_frac
 from .utils.device import resolve_device
@@ -57,8 +65,8 @@ def entry(device="cuda"):
 def counters() -> dict:
     """Device-engine STATS plus the kernels' own launch counts."""
     snap = device_engine.stats_snapshot()
-    snap["kernel_gf_launches"] = rs_cuda.LAUNCHES
-    snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES
+    snap["kernel_gf_launches"] = rs_cuda.LAUNCHES.value
+    snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES.value
     return snap
 
 
@@ -308,5 +316,222 @@ def object_put_get_heal(root, size: int, device="cuda",
         return False
 
     checks["bitrot_detected"] = phase("bitrot_verify", verify_bad)
+    out["checks"] = checks
+    return out
+
+
+S3_BUCKET = "smoke"
+S3_WIPED = (0, 5, 12, 15)  # drives of the set whose objects are all lost
+S3_ACCESS, S3_SECRET = "smoke-admin", "smoke-admin-secret"
+SMALL_SIZES = (1 << 10, (4 << 10) + 1, 33 << 10, 100 << 10)
+
+
+def s3_object_names(small_count: int) -> list[str]:
+    """The keys s3_put_get_heal writes: the aws-chunked object, the
+    multipart one, then `small_count` small ones under four prefixes."""
+    return ["big/chunked.bin", "big/multipart.bin"] + [
+        f"small-{i % 4}/obj-{i:04d}" for i in range(small_count)]
+
+
+def _heal_bucket(client: S3Client, bucket: str,
+                 timeout_s: float = 600.0) -> dict:
+    """Start an admin heal of `bucket` and poll it to its end."""
+    path = f"/minio/admin/v3/heal/{bucket}"
+    status, _, body = client.request("POST", path)
+    if status != 200:
+        raise AssertionError(f"admin heal: {status} {body[:200]!r}")
+    token = json.loads(body)["clientToken"]
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        status, _, body = client.request("POST", path,
+                                         [("clientToken", token)])
+        state = json.loads(body)
+        if status != 200 or state["Summary"] != "running":
+            return state
+        time.sleep(0.01)
+    raise TimeoutError(f"heal of {bucket} still running after {timeout_s} s")
+
+
+def _listed(client: S3Client, bucket: str, page: int,
+            delimiter: str = "") -> tuple[list, list, int]:
+    """Every key and common prefix of a ListObjectsV2 walk in pages of
+    `page`, and the number of pages."""
+    keys, prefixes, token, pages = [], [], "", 0
+    while True:
+        q = [("list-type", "2"), ("max-keys", str(page))]
+        if delimiter:
+            q.append(("delimiter", delimiter))
+        if token:
+            q.append(("continuation-token", token))
+        status, _, body = client.request("GET", f"/{bucket}", q)
+        if status != 200:
+            raise AssertionError(f"list: {status} {body[:200]!r}")
+        pages += 1
+        keys += [k.decode() for k in re.findall(rb"<Key>(.*?)</Key>", body)]
+        prefixes += [p.decode() for p in re.findall(
+            rb"<CommonPrefixes><Prefix>(.*?)</Prefix>", body)]
+        m = re.search(rb"<NextContinuationToken>(.*?)<", body)
+        if not m:
+            return keys, prefixes, pages
+        token = m.group(1).decode()
+
+
+def s3_put_get_heal(root, size: int, device="cuda",
+                    part_size: int = 16 << 20, parts: int = 8,
+                    last_part: int = 12_345, small_count: int = 256,
+                    small_sizes=SMALL_SIZES, page: int = 100,
+                    concurrent: int = 4, seed: int = 0) -> dict:
+    """Drive the S3 plane over HTTP on localhost: a Server over 16 fresh
+    drive directories under `root` (one 12+4 set), a client signing with
+    the port's api/sign.py, and in order:
+
+    1. MakeBucket; an aws-chunked PutObject of a seeded `size`-byte
+       object; a multipart upload of `parts` parts of `part_size` bytes
+       and a last one of `last_part`; `small_count` small objects, sizes
+       cycling over `small_sizes`, under four prefixes;
+    2. ListObjectsV2 in pages of `page`, without a delimiter and with
+       "/";
+    3. a whole GET and a ranged GET of the big object, then `concurrent`
+       GETs at once of both big objects (bytes checked; their launches
+       are not counted apart);
+    4. every object of the bucket lost on drives 0, 5, 12 and 15, and
+       degraded GETs of both big objects;
+    5. an admin heal of the bucket, polled to its end, then every file
+       of the lost drives against the SHA-256 of its original.
+
+    Returns each serial phase's seconds and counter deltas
+    (`counters()`), the concurrent GETs' seconds, the heal's final
+    status, and the checks, each True when it held."""
+    dev = resolve_device(device)
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    payload = rng.bytes(size)
+    mp_sizes = [part_size] * parts + ([last_part] if last_part else [])
+    mp_payload = rng.bytes(sum(mp_sizes))
+    big, mp, *small_names = s3_object_names(small_count)
+    smalls = {name: rng.bytes(small_sizes[i % len(small_sizes)])
+              for i, name in enumerate(small_names)}
+    out: dict = {"size": size, "multipart_size": len(mp_payload),
+                 "parts": len(mp_sizes), "small_count": small_count,
+                 "k": 12, "m": 4, "wiped_drives": list(S3_WIPED),
+                 "seconds": {}, "counters": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    server = Server([str(root / "d{1...16}")], port=0,
+                    root_user=S3_ACCESS, root_password=S3_SECRET,
+                    default_parity=4, device=dev).start()
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+        b = f"/{S3_BUCKET}"
+        checks["make_bucket_ok"] = phase(
+            "make_bucket", lambda: c.request("PUT", b))[0] == 200
+
+        status, headers, _ = phase("put", lambda: c.put_chunked(
+            f"{b}/{big}", payload))
+        checks["put_ok"] = (status == 200 and headers.get("ETag") ==
+                            f'"{hashlib.md5(payload).hexdigest()}"')
+
+        def multipart():
+            status, _, body = c.request("POST", f"{b}/{mp}", [("uploads", "")])
+            upload = re.search(rb"<UploadId>(.*?)<", body).group(1).decode()
+            etags, off = [], 0
+            for n, ln in enumerate(mp_sizes, 1):
+                status, h, _ = c.request(
+                    "PUT", f"{b}/{mp}", [("partNumber", str(n)),
+                                         ("uploadId", upload)],
+                    body=mp_payload[off:off + ln])
+                if status != 200:
+                    return None
+                etags.append(h["ETag"])
+                off += ln
+            xml = "<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+                for n, e in enumerate(etags, 1)) + \
+                "</CompleteMultipartUpload>"
+            status, _, body = c.request("POST", f"{b}/{mp}",
+                                        [("uploadId", upload)],
+                                        body=xml.encode())
+            return status, body
+
+        md5s = b"".join(hashlib.md5(mp_payload[o:o + ln]).digest()
+                        for o, ln in zip(np.cumsum([0] + mp_sizes[:-1]),
+                                         mp_sizes))
+        want_etag = f"{hashlib.md5(md5s).hexdigest()}-{len(mp_sizes)}"
+        done = phase("multipart", multipart)
+        checks["multipart_ok"] = (done is not None and done[0] == 200 and
+                                  f'"{want_etag}"'.encode() in done[1])
+
+        def put_smalls() -> bool:
+            return all(c.request("PUT", f"{b}/{k}", body=v)[0] == 200
+                       for k, v in smalls.items())
+
+        checks["small_ok"] = phase("put_small", put_smalls)
+
+        keys, prefixes, pages = phase("list", lambda: _listed(c, S3_BUCKET,
+                                                              page))
+        checks["list_ok"] = keys == sorted([big, mp, *smalls])
+        out["list_pages"] = pages
+        keys, prefixes, _ = phase("list_delimiter", lambda: _listed(
+            c, S3_BUCKET, page, "/"))
+        checks["list_delimiter_ok"] = (keys == [] and prefixes == sorted(
+            {"big/"} | {k.split("/")[0] + "/" for k in smalls}))
+
+        status, _, got = phase("get", lambda: c.request("GET", f"{b}/{big}"))
+        checks["get_ok"] = status == 200 and got == payload
+        block = erasure_objects.BLOCK_SIZE_V2
+        r_off = min(size - 1, 3 * block + 12345)
+        r_len = min(size - r_off, 5 * block + 777)
+        status, _, got = phase("range_get", lambda: c.request(
+            "GET", f"{b}/{big}",
+            headers={"Range": f"bytes={r_off}-{r_off + r_len - 1}"}))
+        checks["range_ok"] = (status == 206 and
+                              got == payload[r_off:r_off + r_len])
+
+        results: list = [None] * concurrent
+        wants = [(big, payload), (mp, mp_payload)]
+
+        def get_one(i):
+            name, want = wants[i % 2]
+            status, _, body = c.request("GET", f"{b}/{name}")
+            results[i] = status == 200 and body == want
+
+        threads = [threading.Thread(target=get_one, args=(i,))
+                   for i in range(concurrent)]
+        _sync(dev)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        _sync(dev)
+        out["concurrent_get_seconds"] = time.perf_counter() - t0
+        checks["concurrent_get_ok"] = all(results)
+
+        # Every object of the bucket lost on the wiped drives.
+        wiped = [root / f"d{i + 1}" / S3_BUCKET for i in S3_WIPED]
+        originals = {p: hashlib.sha256(p.read_bytes()).hexdigest()
+                     for d in wiped for p in d.rglob("*") if p.is_file()}
+        for d in wiped:
+            for entry in d.iterdir():
+                shutil.rmtree(entry)
+        status, _, got = phase("degraded_get", lambda: c.request(
+            "GET", f"{b}/{big}"))
+        checks["degraded_get_ok"] = status == 200 and got == payload
+        status, _, got = phase("degraded_get_multipart", lambda: c.request(
+            "GET", f"{b}/{mp}"))
+        checks["degraded_multipart_ok"] = status == 200 and got == mp_payload
+
+        state = phase("heal", lambda: _heal_bucket(c, S3_BUCKET))
+        out["heal"] = {k: state[k] for k in ("Summary", "NumScanned",
+                                             "NumHealed", "NumFailed")}
+        checks["heal_ok"] = (state["Summary"] == "finished" and
+                             state["NumFailed"] == 0 and
+                             state["NumHealed"] == 2 + small_count)
+        checks["healed_identical"] = bool(originals) and all(
+            p.is_file() and hashlib.sha256(p.read_bytes()).hexdigest() == h
+            for p, h in originals.items())
+        out["healed_files"] = len(originals)
+    finally:
+        server.stop()
     out["checks"] = checks
     return out

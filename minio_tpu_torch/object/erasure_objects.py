@@ -1,8 +1,9 @@
 """ErasureObjects: one erasure set, object operations over k+m disks with
 quorum semantics. The port's copy of minio_tpu/object/erasure_objects.py
 (MinIO's erasureObjects, cmd/erasure-object.go), cut to PutObject,
-GetObject, DeleteObject and HealObject, on the port's erasure streams
-and kernels.
+GetObject, DeleteObject, HealObject, the bucket calls, the raw listing
+walk and (from object/multipart.py) the multipart calls, on the port's
+erasure streams and kernels.
 
 PUT: order the disks by the object's hash order, stage bitrot-framed
 shards under .mtpu.sys/tmp (or in memory for an inline object), encode
@@ -20,6 +21,7 @@ device copy, run on the calling thread.
 
 from __future__ import annotations
 
+import heapq
 import io
 import threading
 import time
@@ -50,6 +52,7 @@ from ..utils.errors import (
     ErrMethodNotAllowed,
     ErrObjectNotFound,
     ErrOperationTimedOut,
+    ErrPreconditionFailed,
     ErrVersionNotFound,
     ErrVolumeExists,
     ErrVolumeNotFound,
@@ -68,6 +71,7 @@ from .metadata import (
     shuffle_disks,
     shuffle_disks_and_parts_metadata,
 )
+from .multipart import MultipartMixin
 from .types import ObjectInfo, ObjectOptions, TeeMD5Reader
 
 BLOCK_SIZE_V2 = 1 << 20  # erasure block size of new objects (blockSizeV2)
@@ -85,7 +89,7 @@ def _close_sinks(sinks) -> None:
                 pass
 
 
-class ErasureObjects:
+class ErasureObjects(MultipartMixin):
     """One erasure set of len(disks) shards. `device` runs the set's
     kernels; it defaults to the card and raises at construction when
     there is none."""
@@ -125,6 +129,11 @@ class ErasureObjects:
                 raise ErrOperationTimedOut(f"{bucket}/{object_}") from exc
             yield
 
+    @staticmethod
+    def _block_size() -> int:
+        """The erasure block size of new objects."""
+        return BLOCK_SIZE_V2
+
     def _object_erasure(self, k: int, m: int, block_size: int,
                         codec: str = ""):
         """The set's shared Erasure for a geometry; "" is the dense codec
@@ -155,26 +164,32 @@ class ErasureObjects:
             out, self._mrf = self._mrf, []
         return out
 
-    def _disk_quorum_fanout(self, op, ignore: type) -> None:
-        """Run op(disk) on every disk, an error of class `ignore` counting
-        as success, and raise the write-quorum error, if any, of the
-        rest (majority quorum, as bucket operations use)."""
-        disks = self.disks
+    def _on_every_disk(self, op, disks: list | None = None) -> list:
+        """Run op(i, disk) for every disk (the set's, or `disks` in shard
+        order) in parallel; the error of each (ErrDiskNotFound for a
+        missing disk), None where it succeeded."""
+        disks = self.disks if disks is None else disks
         errs: list = [None] * len(disks)
 
         def do(i):
             try:
                 if disks[i] is None:
                     raise ErrDiskNotFound(f"disk {i}")
-                op(disks[i])
-            except ignore:
-                pass
+                op(i, disks[i])
             except (StorageError, OSError) as exc:
                 errs[i] = exc
 
         fanout(do, len(disks))
+        return errs
+
+    def _disk_quorum_fanout(self, op, ignore: type) -> None:
+        """Run op(disk) on every disk, an error of class `ignore` counting
+        as success, and raise the write-quorum error, if any, of the
+        rest (majority quorum, as bucket operations use)."""
+        errs = [None if isinstance(e, ignore) else e
+                for e in self._on_every_disk(lambda _, d: op(d))]
         err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
-                                       len(disks) // 2 + 1)
+                                       len(self.disks) // 2 + 1)
         if err is not None:
             raise err
 
@@ -202,6 +217,55 @@ class ErasureObjects:
                 continue
         return ok >= len(self.disks) // 2
 
+    def heal_bucket(self, bucket: str) -> dict:
+        """Make the bucket's volume on the disks that lack it
+        (healBucket, cmd/erasure-healing.go:57)."""
+        healed = []
+        for disk in self.disks:
+            if disk is None:
+                continue
+            try:
+                disk.stat_vol(bucket)
+            except ErrVolumeNotFound:
+                try:
+                    disk.make_vol(bucket)
+                    healed.append(disk.endpoint())
+                except (StorageError, OSError):
+                    continue
+            except (StorageError, OSError):
+                continue
+        return {"healed": healed}
+
+    # ------------------------------------------------------------------
+    # listing (listPathRaw, cmd/metacache-set.go:816-973)
+
+    def list_objects_raw(self, bucket: str, prefix: str = ""):
+        """The sorted, de-duplicated stream of (name, xl.meta bytes) over
+        the set's disks: a k-way merge of each disk's sorted walk, which
+        starts at the prefix's deepest directory, so a listing costs the
+        entries it consumes, not the bucket's size."""
+        base_dir = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
+
+        def disk_stream(disk):
+            try:
+                for name, meta in disk.walk_dir(bucket, base_dir=base_dir,
+                                                forward_to=prefix):
+                    if prefix and not name.startswith(prefix):
+                        if name > prefix:
+                            return  # sorted: nothing later matches
+                        continue
+                    yield name, meta
+            except (StorageError, OSError):
+                return  # an offline disk drops out of the merge
+
+        streams = [disk_stream(d) for d in self.disks if d is not None]
+        last = None
+        for name, meta in heapq.merge(*streams, key=lambda t: t[0]):
+            if name == last:
+                continue
+            last = name
+            yield name, meta
+
     # ------------------------------------------------------------------
     # put (putObject, cmd/erasure-object.go)
 
@@ -228,7 +292,7 @@ class ErasureObjects:
         write_quorum = data_blocks + (1 if data_blocks == parity else 0)
         codec_id = registry.DEFAULT_CODEC  # the port's one codec
         wire_algo = registry.get(codec_id).wire_algorithm
-        block_size = BLOCK_SIZE_V2
+        block_size = self._block_size()
         erasure = self._object_erasure(data_blocks, parity, block_size,
                                        codec_id)
         distribution = hash_order(f"{bucket}/{object_}", n)
@@ -422,6 +486,11 @@ class ErasureObjects:
         fi, fis, _ = self._read_quorum_file_info(
             bucket, object_, opts.version_id, read_data=True)
         self._refuse_delete_marker(fi, bucket, object_, opts)
+        if (opts.expected_etag
+                and fi.metadata.get("etag", "") != opts.expected_etag):
+            # Replaced since the caller sent its headers: no byte of
+            # another object goes out under the advertised ETag.
+            raise ErrPreconditionFailed(f"{bucket}/{object_}: etag changed")
         if length == -1:
             length = fi.size - offset
         if offset < 0 or length < 0 or offset + length > fi.size:
@@ -500,29 +569,16 @@ class ErasureObjects:
 
     def _delete_object(self, bucket: str, object_: str,
                        opts: ObjectOptions) -> ObjectInfo:
-        n = self.set_drive_count
-        write_quorum = n // 2 + 1
-        errs: list = [None] * n
-
-        def on_every_disk(op):
-            def do(i):
-                try:
-                    if self.disks[i] is None:
-                        raise ErrDiskNotFound(f"disk {i}")
-                    op(self.disks[i])
-                except (StorageError, OSError) as exc:
-                    errs[i] = exc
-            fanout(do, n)
-            return reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
-                                            write_quorum)
-
+        write_quorum = self.set_drive_count // 2 + 1
         if opts.versioned and not opts.version_id:
             # A versioned delete without a version writes a delete marker.
             marker = FileInfo(volume=bucket, name=object_,
                               version_id=new_uuid(), deleted=True,
                               mod_time_ns=opts.mod_time_ns or time.time_ns())
-            err = on_every_disk(
-                lambda d: d.write_metadata(bucket, object_, marker))
+            errs = self._on_every_disk(
+                lambda _, d: d.write_metadata(bucket, object_, marker))
+            err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
+                                           write_quorum)
             if err is not None:
                 raise err
             if any(e is not None for e in errs):
@@ -533,7 +589,10 @@ class ErasureObjects:
 
         fi = FileInfo(volume=bucket, name=object_,
                       version_id=opts.version_id)
-        err = on_every_disk(lambda d: d.delete_version(bucket, object_, fi))
+        errs = self._on_every_disk(
+            lambda _, d: d.delete_version(bucket, object_, fi))
+        err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
+                                       write_quorum)
         if err is not None:
             raise self._to_object_err(err, bucket, object_, opts.version_id)
         if any(not isinstance(e, (type(None), ErrFileNotFound,

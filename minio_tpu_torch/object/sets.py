@@ -2,13 +2,14 @@
 placing each object on a set by SipHash(object) % N keyed on the
 deployment id, and keeping format.json on every disk. The port's copy of
 minio_tpu/object/sets.py (MinIO's cmd/erasure-sets.go and
-cmd/format-erasure.go), with the object calls of the port's
-ErasureObjects.
+cmd/format-erasure.go), with the object, multipart, heal and listing
+calls of the port's ErasureObjects.
 """
 
 from __future__ import annotations
 
 import hashlib
+import heapq
 import json
 import uuid
 
@@ -206,3 +207,42 @@ class ErasureSets:
                     remove_dangling=False):
         return self.get_hashed_set(object_).heal_object(
             bucket, object_, version_id, remove_dangling)
+
+    def heal_bucket(self, bucket):
+        return [s.heal_bucket(bucket) for s in self.sets]
+
+    def list_objects_raw(self, bucket: str, prefix: str = ""):
+        """Merge the sets' sorted streams (k-way merge by name)."""
+        iters = [s.list_objects_raw(bucket, prefix) for s in self.sets]
+        return heapq.merge(*iters, key=lambda t: t[0])
+
+    # --- multipart: each call goes to the object's set ---
+
+    def new_multipart_upload(self, bucket, object_, opts=None):
+        return self.get_hashed_set(object_).new_multipart_upload(
+            bucket, object_, opts)
+
+    def put_object_part(self, bucket, object_, upload_id, part_number,
+                        reader, size, opts=None):
+        return self.get_hashed_set(object_).put_object_part(
+            bucket, object_, upload_id, part_number, reader, size, opts)
+
+    def list_object_parts(self, bucket, object_, upload_id, part_marker=0,
+                          max_parts=1000):
+        return self.get_hashed_set(object_).list_object_parts(
+            bucket, object_, upload_id, part_marker, max_parts)
+
+    def list_multipart_uploads(self, bucket, prefix=""):
+        out = []
+        for s in self.sets:
+            out.extend(s.list_multipart_uploads(bucket, prefix))
+        return out
+
+    def abort_multipart_upload(self, bucket, object_, upload_id):
+        return self.get_hashed_set(object_).abort_multipart_upload(
+            bucket, object_, upload_id)
+
+    def complete_multipart_upload(self, bucket, object_, upload_id, parts,
+                                  opts=None):
+        return self.get_hashed_set(object_).complete_multipart_upload(
+            bucket, object_, upload_id, parts, opts)

@@ -1,6 +1,7 @@
 """Object-layer API types, the port's copy of the part of
-minio_tpu/object/types.py that PutObject, GetObject, DeleteObject and
-HealObject use (MinIO's cmd/object-api-datatypes.go).
+minio_tpu/object/types.py that PutObject, GetObject, DeleteObject,
+HealObject, ListObjects and the multipart calls use (MinIO's
+cmd/object-api-datatypes.go).
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ class ObjectOptions:
     want_md5_hex: str = ""
     # Parity from the storage class; None = the set's default.
     parity: int | None = None
+    # GET: the ETag the response headers advertised; a locked read that
+    # finds another object fails with no byte written.
+    expected_etag: str = ""
 
 
 @dataclass
@@ -71,6 +75,37 @@ class ObjectInfo:
 
 
 @dataclass
+class ListObjectsInfo:
+    is_truncated: bool = False
+    next_marker: str = ""
+    objects: list[ObjectInfo] = field(default_factory=list)
+    prefixes: list[str] = field(default_factory=list)
+
+
+@dataclass
+class MultipartInfo:
+    bucket: str = ""
+    object: str = ""
+    upload_id: str = ""
+    user_defined: dict = field(default_factory=dict)
+
+
+@dataclass
+class PartInfo:
+    part_number: int = 0
+    etag: str = ""
+    size: int = 0
+    actual_size: int = 0
+    mod_time_ns: int = 0
+
+
+@dataclass
+class CompletePart:
+    part_number: int
+    etag: str
+
+
+@dataclass
 class BucketInfo:
     name: str
     created_ns: int
@@ -83,6 +118,13 @@ def compute_etag(data_md5: bytes | None, parts: int = 0) -> str:
     if parts:
         return data_md5.hex() + f"-{parts}"
     return data_md5.hex()
+
+
+def compute_parts_etag(part_md5s: list[bytes]) -> str:
+    """The S3 ETag of a multipart object: the MD5 of the concatenated
+    raw 16-byte part digests, suffixed -N for N parts (N = 1 included)."""
+    return (hashlib.md5(b"".join(part_md5s)).hexdigest()
+            + f"-{len(part_md5s)}")
 
 
 class TeeMD5Reader:

@@ -49,6 +49,28 @@ _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
 
 
+class LaunchCounter:
+    """Kernel launches made by this process, counted by the kernel's
+    wrapper where it launches and nowhere else. Request threads of the
+    S3 server launch at once, so the count takes a lock."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self._n += n
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self, value: int = 0) -> None:
+        with self._lock:
+            self._n = value
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -24,7 +24,7 @@ from . import _build
 from .highwayhash import _INIT0, _INIT1, MAGIC_KEY, key_lanes
 
 # Kernel launches made by this process (see rs_cuda.LAUNCHES).
-LAUNCHES = 0
+LAUNCHES = _build.LaunchCounter()
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -220,7 +220,6 @@ def _check_rows(rows: torch.Tensor, what: str) -> int:
 def _hash256_cuda(rows: torch.Tensor, key: bytes) -> torch.Tensor:
     """Kernel B: uint8 [N, L] rows at any pitch on a CUDA device ->
     [N, 32]."""
-    global LAUNCHES
     if rows.device.type != "cuda":
         raise ValueError(f"_hash256_cuda needs a CUDA tensor, got {rows.device}")
     pitch = _check_rows(rows, "_hash256_cuda")
@@ -235,7 +234,7 @@ def _hash256_cuda(rows: torch.Tensor, key: bytes) -> torch.Tensor:
                          *key_lanes(key), stream),
         "hh256_launch",
     )
-    LAUNCHES += 1
+    LAUNCHES.add()
     return out
 
 
@@ -243,7 +242,6 @@ def _verify_cuda(rows: torch.Tensor, want: torch.Tensor, key: bytes) -> int:
     """Kernel B's verify entry: the index of the first of the [N, L] rows
     whose digest differs from its row of `want` ([N, 32], any pitch), or
     -1. One int64 comes back to the host."""
-    global LAUNCHES
     if rows.device.type != "cuda" or want.device != rows.device:
         raise ValueError(f"_verify_cuda needs CUDA tensors on one device, "
                          f"got {rows.device} and {want.device}")
@@ -264,7 +262,7 @@ def _verify_cuda(rows: torch.Tensor, want: torch.Tensor, key: bytes) -> int:
                                 stream),
         "hh256_verify_launch",
     )
-    LAUNCHES += 1
+    LAUNCHES.add()
     bad = int(first_bad.item())
     return -1 if bad >= n else bad
 

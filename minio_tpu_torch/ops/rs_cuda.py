@@ -18,7 +18,7 @@ from . import _build
 
 # Kernel launches made by this process: the smoke run reads it to show
 # that the main path went through the kernel.
-LAUNCHES = 0
+LAUNCHES = _build.LaunchCounter()
 
 _MAX_SMEM = 232_448  # shared memory one block may use on Hopper (227 KB)
 
@@ -28,7 +28,6 @@ def apply_gf_matrix_cuda(bitmat: torch.Tensor,
     """bitmat int8 [8R, 8K] with entries 0/1, shards uint8 [B, K, S], both
     contiguous on one CUDA device -> uint8 [B, R, S] on that device,
     computed by kernel A on the current stream."""
-    global LAUNCHES
     if bitmat.device.type != "cuda" or shards.device != bitmat.device:
         raise ValueError(
             f"apply_gf_matrix_cuda needs both tensors on one CUDA device, "
@@ -63,5 +62,5 @@ def apply_gf_matrix_cuda(bitmat: torch.Tensor,
                             out.data_ptr(), b, k, r, s, stream),
         "gf_apply_launch",
     )
-    LAUNCHES += 1
+    LAUNCHES.add()
     return out

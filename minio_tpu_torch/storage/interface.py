@@ -70,6 +70,17 @@ class StorageAPI(abc.ABC):
     @abc.abstractmethod
     def delete_vol(self, volume: str, force_delete: bool = False) -> None: ...
 
+    # --- listing ---
+
+    @abc.abstractmethod
+    def list_dir(self, volume: str, dir_path: str,
+                 count: int = -1) -> list[str]: ...
+
+    @abc.abstractmethod
+    def walk_dir(self, volume: str, base_dir: str = "",
+                 recursive: bool = True, forward_to: str = ""):
+        """Yield (object_path, xl.meta bytes) in lexical order."""
+
     # --- metadata ---
 
     @abc.abstractmethod
@@ -87,6 +98,10 @@ class StorageAPI(abc.ABC):
                     dst_volume: str, dst_path: str) -> None: ...
 
     # --- files ---
+
+    @abc.abstractmethod
+    def rename_file(self, src_volume: str, src_path: str, dst_volume: str,
+                    dst_path: str) -> None: ...
 
     @abc.abstractmethod
     def create_file_writer(self, volume: str, path: str, size: int = -1):

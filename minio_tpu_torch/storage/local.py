@@ -185,6 +185,62 @@ class LocalStorage(StorageAPI):
                 continue  # raced cleanup: left for the next boot
         return purged
 
+    # --- listing ---
+
+    def list_dir(self, volume: str, dir_path: str,
+                 count: int = -1) -> list[str]:
+        """The sorted entries of a directory, directories with a
+        trailing "/" (ListDir)."""
+        self._require_online()
+        p = (self._file_path(volume, dir_path) if dir_path
+             else self._vol_path(volume))
+        if not os.path.isdir(self._vol_path(volume)):
+            raise ErrVolumeNotFound(volume)
+        if not os.path.isdir(p):
+            raise ErrFileNotFound(dir_path)
+        entries = []
+        for name in sorted(os.listdir(p)):
+            full = os.path.join(p, name)
+            entries.append(name + "/" if os.path.isdir(full) else name)
+            if 0 < count <= len(entries):
+                break
+        return entries
+
+    def walk_dir(self, volume: str, base_dir: str = "",
+                 recursive: bool = True, forward_to: str = ""):
+        """Yield (object_path, xl.meta bytes) in lexical order, the local
+        producer behind listing (WalkDir, cmd/metacache-walk.go): a
+        directory holding xl.meta is an object, any other is walked into
+        (or, not recursive, yielded as "dir/" with no bytes). Entries
+        before `forward_to` are skipped."""
+        self._require_online()
+        vol = self._vol_path(volume)
+        if not os.path.isdir(vol):
+            raise ErrVolumeNotFound(volume)
+
+        def walk(rel: str):
+            p = os.path.join(vol, *rel.split("/")) if rel else vol
+            try:
+                names = sorted(os.listdir(p))
+            except FileNotFoundError:
+                return
+            if XL_META_FILE in names:
+                with open(os.path.join(p, XL_META_FILE), "rb") as f:
+                    yield rel, f.read()
+                return
+            for name in names:
+                child = f"{rel}/{name}" if rel else name
+                if os.path.isdir(os.path.join(p, name)):
+                    if recursive:
+                        yield from walk(child)
+                    else:
+                        yield child + "/", b""
+
+        for item in walk(base_dir.strip("/")):
+            if forward_to and item[0] < forward_to:
+                continue
+            yield item
+
     # --- metadata ---
 
     def _read_meta(self, volume: str, path: str) -> XLMeta:
@@ -283,6 +339,18 @@ class LocalStorage(StorageAPI):
             self._add_version(dst_volume, dst_path, fi)
 
     # --- files ---
+
+    def rename_file(self, src_volume: str, src_path: str, dst_volume: str,
+                    dst_path: str) -> None:
+        """Move one file into place (RenameFile): a multipart part's
+        staged shard becomes part.N."""
+        self._require_online()
+        src = self._file_path(src_volume, src_path)
+        dst = self._file_path(dst_volume, dst_path)
+        if not os.path.exists(src):
+            raise ErrFileNotFound(f"{src_volume}/{src_path}")
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        os.replace(src, dst)
 
     def create_file_writer(self, volume: str, path: str, size: int = -1):
         self._require_online()

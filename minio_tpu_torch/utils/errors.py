@@ -94,6 +94,20 @@ class ErrOperationTimedOut(StorageError):
     """Namespace-lock acquisition timed out (OperationTimedOut)."""
 
 
+class ErrPreconditionFailed(StorageError):
+    """The object is not the one the caller's precondition names
+    (PreconditionFailed)."""
+
+
+class ErrInvalidUploadID(StorageError):
+    """No multipart upload of that id (InvalidUploadID)."""
+
+
+class ErrInvalidPart(StorageError):
+    """A multipart part is missing, out of order or has another ETag
+    (InvalidPart)."""
+
+
 class RSError(Exception):
     """Base class for Reed-Solomon codec errors (klauspost/reedsolomon)."""
 

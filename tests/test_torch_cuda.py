@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from minio_tpu_torch.entry import object_put_get_heal, put_get_heal
+from minio_tpu_torch.entry import (object_put_get_heal, put_get_heal,
+                                   s3_put_get_heal)
 from minio_tpu_torch.erasure import device_engine
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
@@ -44,9 +45,9 @@ def _rand(shape, seed, device):
 def test_gf_kernel_matches_plain(cuda, k, m, s, b):
     bm = gf.to_device_bitmat(gf.bit_matrix(gf.parity_matrix(k, m)), cuda)
     x = _rand((b, k, s), k * m + s, cuda)
-    before = rs_cuda.LAUNCHES
+    before = rs_cuda.LAUNCHES.value
     got = rs.apply_gf_matrix(bm, x)  # CUDA tensors -> kernel A
-    assert rs_cuda.LAUNCHES == before + 1
+    assert rs_cuda.LAUNCHES.value == before + 1
     assert torch.equal(got, rs._apply_bits_plain(bm, x))
 
 
@@ -84,9 +85,9 @@ def test_gf_kernel_refuses_what_it_cannot_take(cuda):
                                     4096 + 22, 87382])
 def test_hash_kernel_matches_plain(cuda, length):
     x = _rand((8, length), length, cuda)
-    before = hh.LAUNCHES
+    before = hh.LAUNCHES.value
     got = hh.hash256_batch(x)  # CUDA tensor -> kernel B
-    assert hh.LAUNCHES == before + 1
+    assert hh.LAUNCHES.value == before + 1
     assert torch.equal(got, hh._hash256_plain(x, hh.MAGIC_KEY))
 
 
@@ -109,9 +110,9 @@ def test_hash_kernel_framed_and_verify(cuda, length):
     framed = buf[3:]
     rows = hh._rows(framed, 32, pitch, n, length)
     want = hh._hash256_plain(rows, hh.MAGIC_KEY)
-    before = hh.LAUNCHES
+    before = hh.LAUNCHES.value
     assert torch.equal(hh.hash256_pitched(framed, 32, pitch, n, length), want)
-    assert hh.LAUNCHES == before + 1
+    assert hh.LAUNCHES.value == before + 1
     hh._rows(framed, 0, pitch, n, 32).copy_(want)
     assert hh.verify_frames(framed, n, length) == -1
     for bad in ((0,), (17, 19), (n - 1,)):
@@ -158,3 +159,24 @@ def test_object_put_get_heal_on_card(cuda, tmp_path):
             assert c["kernel_gf_launches"] == 0, phase
         else:
             assert c["kernel_gf_launches"] > 0, phase
+
+
+def test_s3_put_get_heal_on_card(cuda, tmp_path):
+    """The S3 plane over HTTP at 12+4 and 1 MiB blocks on the card: the
+    server's boot self-tests, aws-chunked and multipart PUTs, small
+    objects, listing, GETs, lost drives, degraded GETs and an admin heal;
+    exact bytes, and the kernels launched wherever a phase writes,
+    rebuilds or decodes degraded data."""
+    res = s3_put_get_heal(tmp_path, 3 * (1 << 20) + 777, device=cuda,
+                          part_size=2 << 20, parts=2, last_part=12_345,
+                          small_count=8, page=3, concurrent=2)
+    assert all(res["checks"].values()), res["checks"]
+    for phase in ("put", "multipart", "put_small", "degraded_get",
+                  "degraded_get_multipart", "heal"):
+        c = res["counters"][phase]
+        assert c["kernel_gf_launches"] > 0, phase
+        assert c["kernel_hash_launches"] > 0, phase
+    for phase in ("get", "range_get"):
+        c = res["counters"][phase]
+        assert c["kernel_gf_launches"] == 0, phase
+        assert c["kernel_hash_launches"] > 0, phase

@@ -61,6 +61,7 @@ def test_fresh_interpreter_loads_neither():
     code = (
         "import sys, minio_tpu_torch.entry, minio_tpu_torch.erasure.streaming\n"
         "import minio_tpu_torch.object.sets, minio_tpu_torch.storage.local\n"
+        "import minio_tpu_torch.server, minio_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'minio_tpu')]\n"
         "assert not bad, bad\n"
