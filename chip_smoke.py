@@ -15,12 +15,19 @@ Phases, each of which must pass (nothing is caught):
     wide geometries (40+40, 128+128, 200+56) and at S = 1, 2, 3 mod 16;
     kernel B on contiguous rows and on framed buffers at pitch 32 + L for
     the same shard lengths and short ones, at chunk starts 0..15 mod 16,
-    and its verify entry on good and corrupted frames;
+    its verify entry on good and corrupted frames, and its grouped verify
+    entry at every path shard length (fetches of 8 frames from 12 and
+    from 16 readers in one launch, a short last chunk in a second, bad
+    first and last chunks in several groups);
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
-    256 MiB + 12,345 B object with shards 0, 5, 12 and 15 lost: PUT,
+    256 MiB + 12,345 B object, on the pipelined drivers (this host has
+    more than one core): PUT, healthy GET, shards 0, 5, 12 and 15 lost,
     degraded GET (whole and ranged), heal, re-verify. The kernel launch
     counters are zeroed just before and read just after, and each of the
-    PUT, GET and heal phases must launch both kernels;
+    PUT, degraded GET and heal phases must launch both kernels; every
+    reader fetch with full-size chunks makes one grouped verify launch,
+    no read is hedged, and the PUT's and GETs' copies to the card are
+    pinned;
  4b. a traced (torch.profiler) run of the same path at 64 MiB + 12,345 B:
     device busy share and device time by kernel (4d: the same for the
     object layer of 4c);
@@ -51,10 +58,21 @@ Phases, each of which must pass (nothing is caught):
     must launch what it runs (both kernels to write, rebuild or decode
     degraded; kernel B alone for a healthy GET; none to list). Prints
     {"s3_plane": ...} with each serial phase's seconds and launches; 4f
-    traces it at 64 MiB + 12,345 B;
+    traces it at 64 MiB + 12,345 B. No read of 4c or 4e is hedged;
+ 4g. serial against pipelined drivers: phase 4's path three times through
+    each (utils.fanout.SINGLE_CORE set True, then False, in turns): shard
+    files byte-identical between the two, GET bytes exact, and each
+    phase's seconds as min of 3 with the spread; one traced run of each
+    at 64 MiB + 12,345 B for its device-idle share and its copies to the
+    card by kind (pageable or pinned); kernel B's verify launches per
+    reader fetch, hedged reads, and each pipeline stage's busy, starved
+    and stalled seconds. Prints {"pipelined": ...}, with the collector
+    passes over 20 ms of phases 4 to 4g and the hedge windows restarted
+    in each (garbage is collected before each run, the heap not frozen);
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
-    [8, 87382], in ns per packet too) and print one JSON line
+    [8, 87382], in ns per packet too, and its grouped verify at a fetch
+    of 12 readers x 8 frames) and print one JSON line
     {"kernels": [...]}, whose launches are those of phases 4, 4c and 4e
     (by path in "launches_by_path");
  6. print the device JSON as the last line.
@@ -64,6 +82,7 @@ It exits non-zero without a result when no CUDA card is available.
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import subprocess
@@ -155,12 +174,59 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     return sorted(recs)
 
 
+def grouped_verify_case(rng, groups: int, n: int, s: int) -> int:
+    """Kernel B's grouped verify entry against its plain version on
+    `groups` fetches of n frames of s bytes and one short last frame
+    each; returns the max abs difference of the first-bad answers."""
+    from minio_tpu_torch.ops import highwayhash_torch as hh
+
+    tail = max(1, s // 3)
+    group = n * (32 + s) + 32 + tail
+    buf = rand((1 + groups * group,), rng)[1:]
+    # Digests from kernel B's hash entry, held to the plain hash at these
+    # lengths above.
+    for g in range(groups):
+        o = g * group
+        hh._rows(buf, o, 32 + s, n, 32).copy_(
+            hh.hash256_pitched(buf, o + 32, 32 + s, n, s))
+        o += n * (32 + s)
+        hh._rows(buf, o, 32, 1, 32).copy_(
+            hh.hash256_pitched(buf, o + 32, 32, 1, tail))
+    bad = dict.fromkeys([(1, 0), (5, n - 1), (11, 0), (11, n - 1), (7, n),
+                         (groups - 1, 0), (groups - 1, n),
+                         (groups - 2, n - 1)])
+    for g, i in bad:
+        buf[g * group + i * (32 + s) + 40] ^= 0x41
+    # Where the flips are: a group's first bad full-size frame (n if
+    # none), and 0 or 1 for its short last frame.
+    expect = [torch.tensor([min([i for gg, i in bad if gg == g and i < n],
+                                default=n) for g in range(groups)]),
+              torch.tensor([0 if (g, n) in bad else 1
+                            for g in range(groups)])]
+    got = [hh.verify_frames_grouped(buf, groups, group, n, s),
+           hh.verify_frames_grouped(buf, groups, group, 1, tail,
+                                    offset=n * (32 + s))]
+    torch.cuda.synchronize()
+    host = buf.cpu()
+    plain = [hh.verify_frames_grouped(host, groups, group, n, s),
+             hh.verify_frames_grouped(host, groups, group, 1, tail,
+                                      offset=n * (32 + s))]
+    err = max(max(max_abs_err(a.cpu(), b), max_abs_err(b, e))
+              for a, b, e in zip(got, plain, expect))
+    log(f"hh256_verify_grouped {groups} groups x {n} frames of {s} B and "
+        f"one of {tail} B: kernel {got[0].tolist()} / {got[1].tolist()}, "
+        f"plain {plain[0].tolist()} / {plain[1].tolist()}, "
+        f"max_abs_err {err}")
+    return err
+
+
 def check_kernels(rng) -> dict:
     """Phase 3: every kernel against its plain version, exact."""
     from minio_tpu_torch.entry import entry
     from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
-    errs = {"gf_apply": 0, "highwayhash256": 0, "hh256_verify": 0}
+    errs = {"gf_apply": 0, "highwayhash256": 0, "hh256_verify": 0,
+            "hh256_verify_grouped": 0}
     fn, (bitmat, blocks) = entry("cuda")  # 12+4 encode, [8, 12, 87382]
     cases = [("encode 12+4", bitmat, blocks)]
     # The encode and every reconstruction of the main paths.
@@ -259,11 +325,46 @@ def check_kernels(rng) -> dict:
                 f"plain {plain if ln < SHARD else 'not run'}, "
                 f"max_abs_err {err}")
             errs["hh256_verify"] = max(errs["hh256_verify"], err)
+    # The grouped verify as the reader calls it: a fetch of BATCH frames
+    # from each of K readers (a healthy fetch) or of K + M (the lo..hi
+    # span a degraded fetch can verify) at a group pitch, bad chunks first
+    # and last in several groups and in a short last chunk, the full-size
+    # chunks in one launch and the short last chunk in a second.
+    for s in path_shard_lengths():
+        for groups in (K, K + M):
+            err = grouped_verify_case(rng, groups, BATCH, s)
+            errs["hh256_verify_grouped"] = max(errs["hh256_verify_grouped"],
+                                               err)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
     return errs
+
+
+def settle_heap() -> None:
+    """Collect the garbage that the kernel checks, the traces and the last
+    run leave, outside the timings. Nothing is frozen: the main paths run
+    under the collector's full passes as a server's requests do."""
+    gc.collect()
+
+
+# Collector passes over 20 ms during the main paths, (generation, s): a
+# pass holds every thread; one over the hedge delay (0.15 s) during a
+# reader's wait restarts its hedge window (once a fetch), and a second in
+# the same fetch would show as a hedged read.
+PAUSES: list = []
+# Hedge windows restarted after an oversleeping wait, by check label.
+RESTARTS: dict = {}
+_gc_t0 = [0.0]
+
+
+def on_gc(phase: str, info: dict) -> None:
+    if phase == "start":
+        _gc_t0[0] = time.perf_counter()
+    elif time.perf_counter() - _gc_t0[0] > 0.02:
+        PAUSES.append((info["generation"],
+                       round(time.perf_counter() - _gc_t0[0], 4)))
 
 
 def reset_counts() -> None:
@@ -309,12 +410,43 @@ def run_main_path() -> dict:
                     "kernel_hash_launches"):
             if c[key] <= 0:
                 raise AssertionError(f"{ph}: {key} did not rise ({c})")
+    check_fanout("main path", res["counters"], PIPELINED_PHASES)
     for ph, sec in res["seconds"].items():
         gbps = OBJECT_SIZE / sec / 1e9 if ph != "range_get" else float("nan")
         log(f"phase {ph}: {sec:.4f} s, {gbps:.4f} GB/s of object, "
             f"counters {res['counters'][ph]}")
     log(f"heal hint from the degraded GET: {res['heal_hint']}")
     return launches
+
+
+# Phase 4's phases whose copies to the card must all be pinned on the
+# pipelined drivers, and those that read through the ParallelReader.
+PIPELINED_PHASES = ("put", "get_healthy", "get", "range_get")
+READ_PHASES = ("get_healthy", "get", "range_get", "heal")
+
+
+def check_fanout(label: str, counters: dict, pinned_phases=(),
+                 read_phases=READ_PHASES) -> None:
+    """No read hedged in any phase (no drive stalls in these runs); one
+    grouped verify launch a reader fetch with full-size chunks in each
+    read phase; no pageable copy to the card in `pinned_phases`. Tallies
+    the hedge windows restarted into RESTARTS."""
+    RESTARTS[label] = RESTARTS.get(label, 0) + sum(
+        c["hedge_windows_restarted"] for c in counters.values())
+    for ph, c in counters.items():
+        if c["hedged_reads_total"]:
+            raise AssertionError(f"{label} {ph}: {c['hedged_reads_total']} "
+                                 "hedged reads on a healthy run")
+        if ph in read_phases and c["launches_verify"] != \
+                c["reader_fetches_full"]:
+            raise AssertionError(
+                f"{label} {ph}: {c['launches_verify']} grouped verify "
+                f"launches for {c['reader_fetches_full']} fetches")
+        if ph in pinned_phases and (c["h2d_pageable"]
+                                    or not c["h2d_pinned"]):
+            raise AssertionError(
+                f"{label} {ph}: {c['h2d_pageable']} pageable and "
+                f"{c['h2d_pinned']} pinned copies to the card")
 
 
 def run_object_layer() -> tuple[dict, dict]:
@@ -334,10 +466,13 @@ def run_object_layer() -> tuple[dict, dict]:
     failed = [k for k, ok in res["checks"].items() if ok is not True]
     if failed:
         raise AssertionError(f"object layer checks failed: {failed}")
+    check_fanout("object layer", res["counters"], ("put", "get"),
+                 read_phases=("get", "degraded_get", "range_get", "heal"))
     per_phase = {}
     for ph, c in res["counters"].items():
         gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
-        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n}
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n,
+                         "hedged_reads": c["hedged_reads_total"]}
         want_gf = ph not in ("get", "get_inline", "verify", "bitrot_verify")
         if hh_n <= 0 or (gf_n > 0) != want_gf:
             raise AssertionError(
@@ -381,11 +516,14 @@ def run_s3_plane() -> tuple[dict, dict]:
     failed = [k for k, ok in res["checks"].items() if ok is not True]
     if failed:
         raise AssertionError(f"S3 plane checks failed: {failed}")
+    check_fanout("s3 plane", res["counters"], read_phases=(
+        "get", "range_get", "degraded_get", "degraded_get_multipart"))
     per_phase = {}
     for ph, want_gf in S3_PHASES.items():
         c = res["counters"][ph]
         gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
-        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n}
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n,
+                         "hedged_reads": c["hedged_reads_total"]}
         if want_gf is None:
             ok, want = gf_n == hh_n == 0, "none"
         else:
@@ -397,13 +535,16 @@ def run_s3_plane() -> tuple[dict, dict]:
         log(f"s3 plane {ph}: {res['seconds'][ph]:.4f} s, launches A {gf_n} "
             f"B {hh_n}")
     log(f"s3 plane concurrent GETs (4, bytes checked): "
-        f"{res['concurrent_get_seconds']:.4f} s")
+        f"{res['concurrent_get_seconds']:.4f} s, hedged reads "
+        f"{res['counters']['concurrent_get']['hedged_reads_total']}")
     line = {"object_size": res["size"],
             "multipart_size": res["multipart_size"], "parts": res["parts"],
             "small_objects": res["small_count"], "k": K, "m": M,
             "wiped_drives": res["wiped_drives"],
             "seconds": res["seconds"], "launches": per_phase,
             "concurrent_get_seconds": res["concurrent_get_seconds"],
+            "concurrent_get_hedged_reads":
+                res["counters"]["concurrent_get"]["hedged_reads_total"],
             "list_pages": res["list_pages"], "heal": res["heal"],
             "healed_files": res["healed_files"], "checks": res["checks"]}
     return line, launches
@@ -449,7 +590,14 @@ def trace_path(label: str, run, size: int = TRACE_SIZE):
         "of wall)")
     for key, count, ms in rows[:10]:
         log(f"trace:   {ms:10.3f} ms  {count:6d}x  {key[:90]}")
-    return {"wall_s": wall, "device_busy_s": busy_ms / 1e3}
+    # Copies by kind, as the trace names them ("Memcpy HtoD (Pinned ->
+    # Device)", "... (Pageable -> Device)", ...).
+    copies = {key: {"count": count, "ms": ms} for key, count, ms in rows
+              if key.startswith("Memcpy")}
+    del prof
+    settle_heap()
+    return {"wall_s": wall, "device_busy_s": busy_ms / 1e3,
+            "idle_share": 1 - busy_ms / 1e3 / wall, "copies": copies}
 
 
 def traced_put_get_heal(tmp, size) -> bool:
@@ -475,6 +623,103 @@ def traced_s3_plane(tmp, size) -> bool:
                           parts=2, last_part=MP_LAST, small_count=16,
                           small_sizes=SMALL_SIZES, concurrent=0, seed=5)
     return all(res["checks"].values())
+
+
+DRIVER_PHASES = ("put", "get_healthy", "get", "heal")
+
+
+def run_drivers() -> dict:
+    """Phase 4g: phase 4's path through the serial drivers and the
+    pipelined drivers in turns, three times each, then one traced run of
+    each. Returns the {"pipelined": ...} line."""
+    from minio_tpu_torch.entry import put_get_heal
+    from minio_tpu_torch.utils import fanout
+
+    from minio_tpu_torch.pipeline import stage_stats_snapshot
+
+    host_single_core = fanout.SINGLE_CORE
+    drivers = ("serial", "pipelined")
+    stages_before = stage_stats_snapshot()
+    seconds: dict = {d: {ph: [] for ph in DRIVER_PHASES} for d in drivers}
+    counters: dict = {}
+    shards: dict = {}
+    data_root = ROOT / ".smoke_data"
+    try:
+        for _ in range(3):
+            for driver in drivers:
+                fanout.SINGLE_CORE = driver == "serial"
+                data_root.mkdir(exist_ok=True)
+                tmp = tempfile.mkdtemp(dir=data_root)
+                res = None
+                settle_heap()  # the last run's garbage, outside the timings
+                try:
+                    res = put_get_heal(tmp, OBJECT_SIZE, K, M, LOST, seed=0,
+                                       device="cuda", block_size=BLOCK)
+                finally:
+                    shutil.rmtree(data_root, ignore_errors=True)
+                for key in ("healthy_get_ok", "get_ok", "range_ok",
+                            "healed_identical", "reverified"):
+                    if res[key] is not True:
+                        raise AssertionError(f"4g {driver}: {key} failed")
+                if shards.setdefault(driver, res["shard_sha256"]) != \
+                        res["shard_sha256"]:
+                    raise AssertionError(f"4g {driver}: shard files differ "
+                                         "between runs")
+                check_fanout(f"4g {driver}", res["counters"],
+                             PIPELINED_PHASES if driver == "pipelined"
+                             else ())
+                for ph in DRIVER_PHASES:
+                    seconds[driver][ph].append(res["seconds"][ph])
+                counters[driver] = res["counters"]
+        if shards["serial"] != shards["pipelined"]:
+            raise AssertionError("4g: serial and pipelined shard files differ")
+        # Each pipeline stage's seconds busy, starved and stalled, a run.
+        stages = {}
+        for key, v in stage_stats_snapshot().items():
+            b = stages_before.get(key, {})
+            if v["items"] > b.get("items", 0):  # the stages 4g ran
+                stages[key] = {
+                    f: round((v[f] - b.get(f, 0)) / 3, 4)
+                    for f in ("items", "busy_s", "wait_s", "stall_s")}
+        for key, v in stages.items():
+            log(f"4g pipelined stage {key}: {v} a run")
+        traces = {}
+        for driver in drivers:
+            fanout.SINGLE_CORE = driver == "serial"
+            traces[driver] = trace_path(f"4g {driver} drivers",
+                                        traced_put_get_heal)
+    finally:
+        fanout.SINGLE_CORE = host_single_core
+    line: dict = {"object_size": OBJECT_SIZE, "k": K, "m": M,
+                  "lost": list(LOST), "runs": 3,
+                  "shards_identical": True, "seconds": {}, "per_fetch": {},
+                  "h2d": {}, "hedged_reads_total": {}, "trace": traces,
+                  "stages": stages}
+    for driver in drivers:
+        line["seconds"][driver] = {
+            ph: {"min": min(v), "spread": max(v) - min(v), "runs": v}
+            for ph, v in seconds[driver].items()}
+        c = counters[driver]
+        line["per_fetch"][driver] = {
+            ph: {"fetches": c[ph]["reader_fetches"],
+                 "full_fetches": c[ph]["reader_fetches_full"],
+                 "verify_launches": c[ph]["launches_verify"],
+                 "verify_tail_launches": c[ph]["launches_verify_tail"]}
+            for ph in READ_PHASES}
+        line["h2d"][driver] = {
+            ph: {"pinned": c[ph]["h2d_pinned"],
+                 "pageable": c[ph]["h2d_pageable"],
+                 "pinned_bytes": c[ph]["h2d_pinned_bytes"],
+                 "pageable_bytes": c[ph]["h2d_pageable_bytes"]}
+            for ph in DRIVER_PHASES}
+        line["hedged_reads_total"][driver] = sum(
+            c[ph]["hedged_reads_total"] for ph in c)
+        for ph in DRIVER_PHASES:
+            v = seconds[driver][ph]
+            log(f"4g {driver} {ph}: min {min(v):.4f} s, spread "
+                f"{max(v) - min(v):.4f} s, runs "
+                f"{', '.join(f'{x:.4f}' for x in v)}")
+    return line
 
 
 def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
@@ -522,11 +767,26 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     verify_ms = time_calls(lambda x: hh.verify_frames(x, BATCH, SHARD),
                           [fetch], 200)
     warm_bound = 1e3 * BATCH * (SHARD + 32) / HBM_BYTES_PER_S
+    # The grouped verify at a GET fetch's shape: K readers' BATCH frames
+    # in one launch (its int64 answers stay on the card; the reader reads
+    # them back with one sync).
+    group = BATCH * (32 + SHARD)
+    gfetch = rand((K * group,), rng)
+    for g in range(K):
+        hh._rows(gfetch, g * group, 32 + SHARD, BATCH, 32).copy_(
+            hh.hash256_pitched(gfetch, g * group + 32, 32 + SHARD, BATCH,
+                               SHARD))
+    grouped_ms = time_graph(
+        lambda x: hh.verify_frames_grouped(x, K, group, BATCH, SHARD),
+        [gfetch], 200)
+    grouped_bound = 1e3 * K * group / HBM_BYTES_PER_S
     log(f"highwayhash256 [{BATCH * (K + M)}, {SHARD}] cold: {hh_ms:.5f} ms, "
         f"{1e6 * hh_ms / packets:.2f} ns/packet; [{BATCH}, {SHARD}] warm: "
         f"{warm_ms:.5f} ms, {1e6 * warm_ms / packets:.2f} ns/packet; verify "
         f"of {BATCH} frames warm, a call from Python with its int64 "
-        f"readback: {verify_ms:.5f} ms")
+        f"readback: {verify_ms:.5f} ms; grouped verify of {K} x {BATCH} "
+        f"frames: {grouped_ms:.5f} ms a launch (bound {grouped_bound:.5f} "
+        "ms)")
     return [
         {"name": "gf_apply", "route": "cuda",
          "source": "minio_tpu_torch/csrc/gf_apply.cu",
@@ -545,7 +805,8 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "checked": True,
          "launches": sum(launches["highwayhash256"].values()),
          "launches_by_path": launches["highwayhash256"],
-         "max_abs_err": max(errs["highwayhash256"], errs["hh256_verify"]),
+         "max_abs_err": max(errs["highwayhash256"], errs["hh256_verify"],
+                            errs["hh256_verify_grouped"]),
          "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound,
          "bound_by": "bytes", "library_ms": None,
          "shape": [BATCH * (K + M), SHARD],
@@ -553,7 +814,10 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "warm_ms": warm_ms, "warm_shape": [BATCH, SHARD],
          "warm_bound_ms": warm_bound,
          "warm_ns_per_packet": 1e6 * warm_ms / packets,
-         "verify_warm_ms": verify_ms},
+         "verify_warm_ms": verify_ms,
+         "verify_grouped_ms": grouped_ms,
+         "verify_grouped_shape": [K, BATCH, SHARD],
+         "verify_grouped_bound_ms": grouped_bound},
     ]
 
 
@@ -578,6 +842,10 @@ def main() -> int:
 
     rng = np.random.default_rng(1234)
     errs = check_kernels(rng)
+    log(f"heap: {len(gc.get_objects())} objects tracked by the collector "
+        "before the main paths")
+    settle_heap()
+    gc.callbacks.append(on_gc)
     launches = run_main_path()
     trace_path("put_get_heal", traced_put_get_heal)
     t0 = time.perf_counter()
@@ -588,14 +856,24 @@ def main() -> int:
     s3_line, s3_launches = run_s3_plane()
     log(f"S3 plane phase {time.perf_counter() - t0:.1f} s")
     s3_line["trace"] = trace_path("s3 plane", traced_s3_plane)
+    t0 = time.perf_counter()
+    drivers_line = run_drivers()
+    log(f"driver comparison phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name]}
                for name in launches}
+    gc.callbacks.remove(on_gc)
+    log(f"collector passes over 20 ms in the main paths (generation, s): "
+        f"{PAUSES}")
+    log(f"hedge windows restarted after an oversleeping wait: {RESTARTS}")
+    drivers_line["collector_pauses"] = PAUSES
+    drivers_line["hedge_windows_restarted"] = RESTARTS
     kernels = time_kernels(rng, by_path, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"object_layer": object_line}), flush=True)
     print(json.dumps({"s3_plane": s3_line}), flush=True)
+    print(json.dumps({"pipelined": drivers_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

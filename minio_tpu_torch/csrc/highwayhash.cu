@@ -41,7 +41,9 @@
 // frames of a bitrot stream ([digest || chunk]*) hash in place at pitch
 // 32 + length. The verify entry compares each digest with the one stored
 // at want + i * want_pitch on the device and leaves the index of the first
-// mismatching row in one int64.
+// mismatching row in one int64. Its grouped form checks G groups of rows
+// at a group pitch, one grid row and one first-bad int64 a group, so a
+// reader fetch verifies every shard reader's frames in one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -235,14 +237,25 @@ __device__ __forceinline__ void lanes_of(const uint32_t w[5], int sub,
   *b = ((uint64_t)x3 << 32) | x2;
 }
 
-template <bool kVerify>
+template <bool kVerify, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
     hh256_kernel(const uint8_t* __restrict__ data, long long pitch,
                  long long n_chunks, long long length,
                  uint8_t* __restrict__ out, const uint8_t* __restrict__ want,
                  long long want_pitch, long long* __restrict__ first_bad,
+                 long long group_pitch, long long want_group_pitch,
                  uint64_t k0, uint64_t k1, uint64_t k2, uint64_t k3) {
   extern __shared__ __align__(16) uint8_t ring[];
+  // Grid row y is group y of a grouped verify: its rows, digests and
+  // first-bad word lie group_pitch / want_group_pitch bytes and one word
+  // further on. A compile-time flag, so the hash and one-group verify
+  // entries carry no group arithmetic at all.
+  if (kGrouped) {
+    const long long grp = blockIdx.y;
+    data += grp * group_pitch;
+    want += grp * want_group_pitch;
+    first_bad += grp;
+  }
   const long long c0 = (long long)blockIdx.x * kGroup;
   const int count = (int)min((long long)kGroup, n_chunks - c0);
   const uint8_t* first = data + c0 * pitch;
@@ -367,18 +380,21 @@ __global__ void __launch_bounds__(kThreads)
   if (live && h == 0 && differs) atomicMin(first_bad, c);
 }
 
-template <bool kVerify>
+template <bool kVerify, bool kGrouped>
 int launch(const void* data, long long pitch, long long n_chunks,
            long long length, void* out, const void* want, long long want_pitch,
-           void* first_bad, uint64_t k0, uint64_t k1, uint64_t k2,
+           void* first_bad, long long n_groups, long long group_pitch,
+           long long want_group_pitch, uint64_t k0, uint64_t k1, uint64_t k2,
            uint64_t k3, void* stream) {
-  if (n_chunks <= 0) return 0;
-  const unsigned blocks = (unsigned)((n_chunks + kGroup - 1) / kGroup);
-  hh256_kernel<kVerify><<<blocks, kThreads, kSmemBytes,
-                          (cudaStream_t)stream>>>(
+  if (n_chunks <= 0 || n_groups <= 0) return 0;
+  if (n_groups > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)((n_chunks + kGroup - 1) / kGroup),
+                  (unsigned)n_groups);
+  hh256_kernel<kVerify, kGrouped><<<grid, kThreads, kSmemBytes,
+                                    (cudaStream_t)stream>>>(
       (const uint8_t*)data, pitch, n_chunks, length, (uint8_t*)out,
-      (const uint8_t*)want, want_pitch, (long long*)first_bad, k0, k1, k2,
-      k3);
+      (const uint8_t*)want, want_pitch, (long long*)first_bad, group_pitch,
+      want_group_pitch, k0, k1, k2, k3);
   return (int)cudaGetLastError();
 }
 
@@ -392,8 +408,8 @@ extern "C" int hh256_launch(const void* data, long long pitch,
                             long long n_chunks, long long length, void* out,
                             uint64_t k0, uint64_t k1, uint64_t k2,
                             uint64_t k3, void* stream) {
-  return launch<false>(data, pitch, n_chunks, length, out, nullptr, 0,
-                       nullptr, k0, k1, k2, k3, stream);
+  return launch<false, false>(data, pitch, n_chunks, length, out, nullptr,
+                              0, nullptr, 1, 0, 0, k0, k1, k2, k3, stream);
 }
 
 // As hh256_launch, but compares digest i with the 32 bytes at
@@ -404,6 +420,23 @@ extern "C" int hh256_verify_launch(const void* data, long long pitch,
                                    const void* want, long long want_pitch,
                                    void* first_bad, uint64_t k0, uint64_t k1,
                                    uint64_t k2, uint64_t k3, void* stream) {
-  return launch<true>(data, pitch, n_chunks, length, nullptr, want,
-                      want_pitch, first_bad, k0, k1, k2, k3, stream);
+  return launch<true, false>(data, pitch, n_chunks, length, nullptr, want,
+                             want_pitch, first_bad, 1, 0, 0, k0, k1, k2, k3,
+                             stream);
+}
+
+// The grouped verify: n_groups groups of n_chunks rows each, group g's
+// rows at data + g * group_pitch + i * pitch and its digests at
+// want + g * want_group_pitch + i * want_pitch. Lowers first_bad[g] (each
+// set by the caller to n_chunks) to the index of group g's first row that
+// differs: every reader of a fetch checked in one launch. At most 65,535
+// groups (the grid's y extent).
+extern "C" int hh256_verify_grouped_launch(
+    const void* data, long long pitch, long long n_chunks, long long length,
+    const void* want, long long want_pitch, long long n_groups,
+    long long group_pitch, long long want_group_pitch, void* first_bad,
+    uint64_t k0, uint64_t k1, uint64_t k2, uint64_t k3, void* stream) {
+  return launch<true, true>(data, pitch, n_chunks, length, nullptr, want,
+                            want_pitch, first_bad, n_groups, group_pitch,
+                            want_group_pitch, k0, k1, k2, k3, stream);
 }

@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .erasure import device_engine
+from .erasure import device_engine, streaming
 from .erasure.bitrot import (
     StreamingBitrotReader,
     StreamingBitrotWriter,
@@ -40,7 +40,7 @@ from .erasure.streaming import (
 from .api.client import S3Client
 from .object import erasure_objects
 from .object.sets import ErasureSets
-from .ops import gf, highwayhash_torch, rs_cuda
+from .ops import gf, highwayhash_torch, host_feed, rs_cuda
 from .ops.rs import apply_gf_matrix
 from .server import Server
 from .storage.local import LocalStorage
@@ -63,8 +63,12 @@ def entry(device="cuda"):
 
 
 def counters() -> dict:
-    """Device-engine STATS plus the kernels' own launch counts."""
+    """Device-engine STATS, the fan-out and reader counters, the copies
+    to the card by kind (pinned or pageable), and the kernels' own launch
+    counts."""
     snap = device_engine.stats_snapshot()
+    snap.update(streaming.stats_snapshot())
+    snap.update({f"h2d_{k}": v for k, v in host_feed.h2d_snapshot().items()})
     snap["kernel_gf_launches"] = rs_cuda.LAUNCHES.value
     snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES.value
     return snap
@@ -102,8 +106,10 @@ def _reader(path: Path, size: int, erasure: Erasure):
         f.seek(offset)
         return f
 
-    return StreamingBitrotReader(open_stream, size, erasure.shard_size(),
-                                 device=erasure.device)
+    r = StreamingBitrotReader(open_stream, size, erasure.shard_size(),
+                              device=erasure.device)
+    r.local = True
+    return r
 
 
 def _sync(device: torch.device) -> None:
@@ -115,11 +121,14 @@ def put_get_heal(root, size: int, k: int = 12, m: int = 4,
                  lost=(0, 5, 12, 15), seed: int = 0, device="cuda",
                  block_size: int = 1 << 20) -> dict:
     """PUT a seeded payload of `size` bytes as root/disk{i}/part.1 shard
-    files, remove the `lost` shards, GET it back degraded (whole, and one
-    unaligned range), heal the lost shards, and re-verify every frame.
+    files, GET it back, remove the `lost` shards, GET it back degraded
+    (whole, and one unaligned range), heal the lost shards, and re-verify
+    every frame. Which drivers run is `utils.fanout.SINGLE_CORE`'s
+    choice (serial when True, pipelined when False).
 
-    Returns the GET bytes, each phase's seconds and counter deltas, and
-    the checks: get_ok, range_ok, healed_identical, reverified."""
+    Returns the GET bytes, the SHA-256 of each shard file as PUT wrote
+    it, each phase's seconds and counter deltas, and the checks:
+    healthy_get_ok, get_ok, range_ok, healed_identical, reverified."""
     root = Path(root)
     dev = resolve_device(device)
     erasure = Erasure(k, m, block_size, device=dev)
@@ -142,14 +151,22 @@ def put_get_heal(root, size: int, k: int = 12, m: int = 4,
             f.close()
     if n != size:
         raise AssertionError(f"PUT consumed {n} bytes, want {size}")
-    originals = {i: _shard_path(root, i).read_bytes() for i in lost}
-    for i in lost:
-        _shard_path(root, i).unlink()
+    out["shard_sha256"] = [hashlib.sha256(
+        _shard_path(root, i).read_bytes()).hexdigest() for i in range(k + m)]
 
-    # Degraded GET, whole object then an unaligned range.
     def readers():
         return [_reader(_shard_path(root, i), size, erasure)
                 for i in range(k + m)]
+
+    # Healthy GET, then the lost shards go, then a degraded GET, whole
+    # object and an unaligned range.
+    sink = io.BytesIO()
+    _, hint = phase("get_healthy", lambda: decode_stream(
+        erasure, sink, readers(), 0, size, size))
+    out["healthy_get_ok"] = sink.getvalue() == payload and hint is None
+    originals = {i: _shard_path(root, i).read_bytes() for i in lost}
+    for i in lost:
+        _shard_path(root, i).unlink()
 
     sink = io.BytesIO()
     _, hint = phase("get", lambda: decode_stream(
@@ -489,6 +506,7 @@ def s3_put_get_heal(root, size: int, device="cuda",
 
         results: list = [None] * concurrent
         wants = [(big, payload), (mp, mp_payload)]
+        before = counters()
 
         def get_one(i):
             name, want = wants[i % 2]
@@ -505,6 +523,7 @@ def s3_put_get_heal(root, size: int, device="cuda",
             t.join()
         _sync(dev)
         out["concurrent_get_seconds"] = time.perf_counter() - t0
+        out["counters"]["concurrent_get"] = _delta(before, counters())
         checks["concurrent_get_ok"] = all(results)
 
         # Every object of the bucket lost on the wiped drives.

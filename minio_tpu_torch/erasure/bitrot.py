@@ -6,10 +6,17 @@ cmd/bitrot-streaming.go): each shard file is [H(chunk) || chunk]* with
 HighwayHash256S is the one bitrot algorithm the port has
 (`BitrotAlgorithm`); an object stamped with another one is refused, never
 read unchecked. Every digest is computed on the writer's or reader's
-device (kernel B on the card). `read_chunks` verifies a whole fetch in
-place, with one launch over its full-size chunks and one for a short last
-chunk at its true length, never padded; only the index of the first bad
-chunk comes back.
+device (kernel B on the card).
+
+Two read paths:
+- `read_chunks` reads and verifies one reader's fetch in place, with one
+  launch over its full-size chunks and one for a short last chunk at its
+  true length, never padded; only the index of the first bad chunk comes
+  back. `bitrot_verify` and the drives' `verify_file` use it.
+- `read_frames` reads the framed bytes into a slice of a fetch buffer
+  that the caller (the erasure ParallelReader) owns, without a check;
+  `verify_fetch` then checks every reader of the fetch in one grouped
+  launch (and one more for a short last chunk), with one sync.
 """
 
 from __future__ import annotations
@@ -19,7 +26,12 @@ from enum import Enum
 import numpy as np
 import torch
 
-from ..ops.highwayhash_torch import hash256_batch, verify_frames
+from ..ops.highwayhash_torch import (
+    hash256_batch,
+    verify_frames,
+    verify_frames_grouped,
+)
+from ..ops.host_feed import count_h2d
 from ..utils import ceil_frac
 from ..utils.device import resolve_device
 from ..utils.errors import ErrFileCorrupt, ErrLessData
@@ -65,9 +77,21 @@ def _digests(chunks: np.ndarray, device) -> np.ndarray:
     """HighwayHash-256 of the rows of a uint8 [n, L] array on `device`."""
     if not chunks.flags.writeable:  # torch refuses to wrap read-only memory
         chunks = chunks.copy()
-    dev = torch.from_numpy(chunks).to(device)
+    dev = torch.from_numpy(chunks)
+    if device.type == "cuda":
+        count_h2d(False, dev.numel())
+    dev = dev.to(device)
     device_engine.count("launches_hash")
     return hash256_batch(dev).cpu().numpy()
+
+
+def _n_full(lengths: list[int], shard_size: int) -> int:
+    """How many leading chunks are full-size: they lie at a fixed pitch
+    and verify in one launch; a short last chunk takes a second."""
+    n = 0
+    while n < len(lengths) and lengths[n] == shard_size:
+        n += 1
+    return n
 
 
 def _verify_frames(buf: np.ndarray, lengths: list[int], shard_size: int,
@@ -81,10 +105,11 @@ def _verify_frames(buf: np.ndarray, lengths: list[int], shard_size: int,
     for ln in lengths:
         offs.append(off)
         off += DIGEST_SIZE + ln
-    n_full = 0  # the leading full-size chunks, at a fixed pitch in buf
-    while n_full < len(lengths) and lengths[n_full] == shard_size:
-        n_full += 1
-    dev = torch.from_numpy(buf).to(device)
+    n_full = _n_full(lengths, shard_size)
+    dev = torch.from_numpy(buf)
+    if device.type == "cuda":
+        count_h2d(False, dev.numel())
+    dev = dev.to(device)
     if n_full:
         device_engine.count("launches_hash")
         bad = verify_frames(dev[: n_full * (DIGEST_SIZE + shard_size)],
@@ -99,6 +124,41 @@ def _verify_frames(buf: np.ndarray, lengths: list[int], shard_size: int,
     mv = memoryview(buf)
     return [mv[o + DIGEST_SIZE: o + DIGEST_SIZE + ln]
             for o, ln in zip(offs, lengths)]
+
+
+def verify_fetch(rows: np.ndarray, lengths: list[int], shard_size: int,
+                 device) -> np.ndarray:
+    """Check a fetch of several shard readers at once: row g of `rows`
+    ([G, phys], one reader's frames [digest || chunk] per length) is
+    group g. The rows go to `device` in one copy (asynchronous from a
+    pinned fetch buffer); kernel B checks the leading full-size chunks of
+    every group in one grouped launch and a short last chunk, at its
+    true length, in a second; both answers come back with one sync.
+    Returns, per group, the index of its first bad chunk, or -1."""
+    n_groups, phys = rows.shape
+    n_full = _n_full(lengths, shard_size)
+    t = torch.from_numpy(rows).reshape(-1)
+    if device.type == "cuda":
+        pinned = t.is_pinned()
+        count_h2d(pinned, t.numel())
+        t = t.to(device, non_blocking=pinned)
+    answers = []
+    if n_full:
+        device_engine.count("launches_hash")
+        device_engine.count("launches_verify")
+        full = verify_frames_grouped(t, n_groups, phys, n_full, shard_size)
+        answers.append(torch.where(full < n_full, full, len(lengths)))
+    if n_full < len(lengths):
+        device_engine.count("launches_hash")
+        device_engine.count("launches_verify_tail")
+        tail = verify_frames_grouped(t, n_groups, phys, 1, lengths[n_full],
+                                     offset=n_full * (DIGEST_SIZE
+                                                      + shard_size))
+        answers.append(torch.where(tail < 1, n_full, len(lengths)))
+    if not answers:
+        return np.full(n_groups, -1, dtype=np.int64)
+    first = torch.stack(answers).min(dim=0).values.cpu().numpy()
+    return np.where(first >= len(lengths), -1, first)
 
 
 class StreamingBitrotWriter:
@@ -146,6 +206,11 @@ class StreamingBitrotReader:
     readinto() positioned at the physical byte range (a local file, a
     BytesIO); it may raise ErrFileNotFound for a missing shard."""
 
+    # Set by the caller when the stream is a local file or an in-memory
+    # buffer: on a one-core host the ParallelReader reads such readers
+    # inline instead of through the I/O pool.
+    local = False
+
     def __init__(self, open_stream, till_offset: int, shard_size: int,
                  device="cuda"):
         self._open = open_stream
@@ -167,9 +232,9 @@ class StreamingBitrotReader:
         if offset != self._curr:
             raise ValueError("non-sequential bitrot read")
 
-    def _read_phys(self, n: int) -> np.ndarray:
-        buf = bytearray(n)
-        view = memoryview(buf)
+    def _read_into(self, out: np.ndarray) -> None:
+        view = memoryview(out).cast("B")
+        n = len(view)
         got = 0
         while got < n:
             k = self._rc.readinto(view[got:])
@@ -178,7 +243,6 @@ class StreamingBitrotReader:
             got += k
         if got != n:
             raise ErrFileCorrupt("short framed read")
-        return np.frombuffer(buf, dtype=np.uint8)
 
     def read_at(self, offset: int, length: int) -> memoryview:
         """Read and verify one chunk."""
@@ -191,10 +255,27 @@ class StreamingBitrotReader:
         if not lengths:
             return []
         self._start(offset)
-        buf = self._read_phys(sum(lengths) + DIGEST_SIZE * len(lengths))
+        buf = np.empty(sum(lengths) + DIGEST_SIZE * len(lengths),
+                       dtype=np.uint8)
+        self._read_into(buf)
         out = _verify_frames(buf, lengths, self._shard_size, self.device)
         self._curr += sum(lengths)
         return out
+
+    def read_frames(self, offset: int, lengths: list[int],
+                    out: np.ndarray) -> None:
+        """Read the framed bytes of consecutive chunks ([digest || chunk]
+        per length) into `out`, a writable uint8 array of exactly that
+        size, without a check: the caller verifies them (verify_fetch)
+        before it uses a byte."""
+        want = sum(lengths) + DIGEST_SIZE * len(lengths)
+        if out.size != want:
+            raise ValueError(f"fetch slot holds {out.size} B, frames {want}")
+        if not lengths:
+            return
+        self._start(offset)
+        self._read_into(out)
+        self._curr += sum(lengths)
 
     def close(self):
         if self._rc is not None and hasattr(self._rc, "close"):

@@ -13,6 +13,7 @@ import functools
 
 import numpy as np
 
+from ..pipeline.buffers import host_buffer
 from ..utils import ceil_frac
 from ..utils.device import resolve_device
 from ..utils.errors import (
@@ -172,8 +173,12 @@ class Erasure:
 
     def _rebuild(self, shards: list, present: list[int],
                  targets: list[int]) -> np.ndarray:
-        src = np.stack([np.frombuffer(memoryview(shards[i]), dtype=np.uint8)
-                        for i in present[: self.data_blocks]])
+        rows = [np.frombuffer(memoryview(shards[i]), dtype=np.uint8)
+                for i in present[: self.data_blocks]]
+        # Gathered straight into a pinned buffer on the card, so the
+        # survivors' copy to the device is asynchronous.
+        src = host_buffer((len(rows), len(rows[0])), self.device)
+        np.stack(rows, out=src)
         try:
             out, _ = self.engine.reconstruct_async(src[None], present,
                                                    targets)

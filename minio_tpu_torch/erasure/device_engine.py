@@ -3,8 +3,12 @@ minio_tpu/erasure/device_engine.py.
 
 Each [B, k, S] batch is staged onto the device once and runs kernel A
 (the GF apply) then kernel B (HighwayHash-256 of every shard chunk) back
-to back on the current stream. The parity matrix and each (present,
-targets) reconstruction matrix stay cached on the device. The outputs
+to back on the calling thread's current stream. A batch the pipelined
+PUT staged on its copy stream (ops.host_feed.HostFeed) arrives as a
+`Staged` item: the compute stream waits on its event on the device, and
+the tensor is recorded on that stream for the caching allocator. The
+parity matrix and each (present, targets) reconstruction matrix stay
+cached on the device. The outputs
 come back by a non_blocking copy into pinned host tensors behind a
 recorded CUDA event: the returned handles wait on that event before they
 hand out numpy, so the host can fan out the writes of batch N-1 while
@@ -16,6 +20,9 @@ STATS counts, per process:
   launches_gf    GF applications issued (kernel A on the card)
   launches_hash  digest computations issued (kernel B on the card), the
                  bitrot writers' and readers' included
+  launches_verify       grouped verifies of a reader fetch's full-size
+                        chunks (one a fetch; part of launches_hash)
+  launches_verify_tail  grouped verifies of a fetch's short last chunk
 """
 
 from __future__ import annotations
@@ -28,12 +35,13 @@ import torch
 
 from ..ops import gf
 from ..ops.highwayhash_torch import hash256_batch
+from ..ops.host_feed import Staged, count_h2d
 from ..ops.rs import apply_gf_matrix
 from ..utils.device import resolve_device
 from . import registry
 
 STATS = {"dispatches": 0, "async_d2h": 0, "launches_gf": 0,
-         "launches_hash": 0}
+         "launches_hash": 0, "launches_verify": 0, "launches_verify_tail": 0}
 _stats_lock = threading.Lock()
 
 
@@ -84,7 +92,9 @@ def _to_host(outs: list[torch.Tensor]) -> list[HostResult]:
     for h, t in zip(hosts, outs):
         h.copy_(t, non_blocking=True)
     event = torch.cuda.Event()
-    event.record()
+    # The stream of the outputs' device on this thread (a stage thread's
+    # current device need not be theirs).
+    event.record(torch.cuda.current_stream(outs[0].device))
     count("async_d2h", len(outs))
     return [HostResult(h, event) for h in hosts]
 
@@ -117,15 +127,24 @@ class DeviceCodec:
             return self._mats.setdefault(key, mat)
 
     def _stage(self, blocks) -> torch.Tensor:
-        """Host ndarray or tensor [B, k, S] -> contiguous uint8 on device.
-        The kernels only read it, so the caller's buffer stays intact."""
-        if isinstance(blocks, torch.Tensor):
+        """[B, k, S] uint8 -> contiguous on the device, ready for work
+        on the current stream. A `Staged` item (the pipeline's HostFeed)
+        is consumed: the stream waits on its copy's event. A host array
+        or tensor is copied here, asynchronously when it is pinned. The
+        kernels only read it, so the caller's buffer stays intact."""
+        if isinstance(blocks, Staged):
+            t = blocks.consume()
+        elif isinstance(blocks, torch.Tensor):
             t = blocks
         else:
             t = torch.from_numpy(np.ascontiguousarray(blocks, dtype=np.uint8))
         if t.dtype != torch.uint8 or t.dim() != 3:
             raise ValueError(f"want uint8 [B, k, S], got {t.dtype} "
                              f"{tuple(t.shape)}")
+        if t.device.type == "cpu" and self.device.type == "cuda":
+            pinned = t.is_pinned()
+            count_h2d(pinned, t.numel())
+            return t.to(self.device, non_blocking=pinned).contiguous()
         return t.to(self.device).contiguous()
 
     def _run(self, bitmat, dev, hash_input_of):
@@ -140,7 +159,8 @@ class DeviceCodec:
         return out_h, dig_h
 
     def encode_async(self, blocks, with_hashes: bool):
-        """blocks [B, k, S] -> (parity [B, m, S], digests [B, k+m, 32] or
+        """blocks [B, k, S] (a host array, a tensor, or a `Staged` item
+        from the HostFeed) -> (parity [B, m, S], digests [B, k+m, 32] or
         None) as HostResult handles with their copies in flight."""
         dev = self._stage(blocks)
         if dev.shape[1] != self.k:
@@ -152,8 +172,9 @@ class DeviceCodec:
     def reconstruct_async(self, src, present, targets,
                           with_hashes: bool = False):
         """Rebuild `targets` from the first k `present` shards: src
-        [B, k, S] (rows in present[:k] order) -> (rebuilt [B, T, S],
-        digests [B, T, 32] or None) as HostResult handles."""
+        [B, k, S] (rows in present[:k] order; a host array, a tensor or a
+        `Staged` item) -> (rebuilt [B, T, S], digests [B, T, 32] or None)
+        as HostResult handles."""
         present = tuple(present[: self.k])
         targets = tuple(targets)
         bitmat = self._bitmat(

@@ -302,7 +302,7 @@ class ErasureObjects(MultipartMixin):
         inline = 0 <= shard_file_size <= small_file_threshold()
         tmp_id = new_uuid()
         data_dir = new_uuid()
-        tee = TeeMD5Reader(reader)
+        tee = TeeMD5Reader(reader, size=size)
         phys_shard = (bitrot_shard_file_size(shard_file_size,
                                              erasure.shard_size())
                       if shard_file_size >= 0 else -1)
@@ -553,8 +553,10 @@ class ErasureObjects(MultipartMixin):
 
             def open_stream(off, ln, d=disk, p=path):
                 return d.read_file_stream(bucket, p, off, ln)
-        return StreamingBitrotReader(open_stream, till_offset, shard_size,
-                                     device=self.device)
+        r = StreamingBitrotReader(open_stream, till_offset, shard_size,
+                                  device=self.device)
+        r.local = True  # an inline buffer or a LocalStorage drive
+        return r
 
     # ------------------------------------------------------------------
     # delete (DeleteObject, cmd/erasure-object.go)

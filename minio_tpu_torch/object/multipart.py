@@ -148,7 +148,7 @@ class MultipartMixin:
                                        fi.erasure.codec)
         disks_by_shard = shuffle_disks(self.disks, fi.erasure.distribution)
 
-        tee = TeeMD5Reader(reader)
+        tee = TeeMD5Reader(reader, size=size)
         # Staged under a tmp name: a re-upload of a part number must not
         # clobber the journaled shards until it has fully verified.
         tmp_part = f"part.{part_number}.tmp.{new_uuid()}"
@@ -188,7 +188,8 @@ class MultipartMixin:
                     pass
 
         try:
-            total = encode_stream(erasure, tee, writers, write_quorum)
+            total = encode_stream(erasure, tee, writers, write_quorum,
+                                  telemetry="multipart")
         except BaseException:
             drop_tmp()
             raise

@@ -7,9 +7,14 @@ cmd/object-api-datatypes.go).
 from __future__ import annotations
 
 import hashlib
+import queue
+import threading
+import weakref
 from dataclasses import dataclass, field
 
+from ..pipeline.buffers import copy_add
 from ..storage.fileinfo import FileInfo
+from ..utils import fanout
 
 
 @dataclass
@@ -128,18 +133,114 @@ def compute_parts_etag(part_md5s: list[bytes]) -> str:
 
 
 class TeeMD5Reader:
-    """A reader that takes the MD5 of the bytes that pass through it, the
-    object's ETag (MinIO's hash.Reader). Hashing is inline on the
-    caller's thread; minio_tpu's overlaps it on a thread of its own."""
+    """A reader that takes the MD5 and size of the bytes that pass
+    through it, the object's ETag (MinIO's hash.Reader).
 
-    def __init__(self, src):
+    On a multi-core host the MD5 runs on a hashing thread of its own,
+    fed through a bounded queue, so hashing batch N overlaps encoding and
+    writing batch N+1 (hashlib releases the GIL for updates over 2 KiB).
+    The thread starts lazily, on the first buffer: the pipelined encode
+    calls delegate_hashing() before it reads, and hashes in a stage of
+    its own. On one core, or below PIPELINE_MIN_SIZE, it hashes inline."""
+
+    # At most this many buffers in flight: a slow hasher applies
+    # backpressure instead of buffering the object.
+    QUEUE_DEPTH = 4
+    # Below this the MD5 takes microseconds: a thread and its hand-offs
+    # would cost more than they could overlap.
+    PIPELINE_MIN_SIZE = 4 << 20
+
+    def __init__(self, src, pipelined: bool | None = None,
+                 size: int | None = None):
         self._src = src
         self._md5 = hashlib.md5()
+        self.bytes_read = 0
+        if pipelined is None:
+            big = size is None or size < 0 or size >= self.PIPELINE_MIN_SIZE
+            pipelined = big and not fanout.SINGLE_CORE
+        self._queue = None
+        self._want_pipeline = bool(pipelined)
+
+    def _start_worker(self):
+        q = queue.Queue(maxsize=self.QUEUE_DEPTH)
+        self._queue = q
+        # The worker closes over (queue, md5), not self, so an abandoned
+        # reader is collected and its finalizer stops the thread.
+        self._worker = threading.Thread(
+            target=self._hash_loop, args=(q, self._md5),
+            name="mtpu-md5", daemon=True)
+        self._worker.start()
+        self._finalizer = weakref.finalize(self, q.put, None)
+
+    @staticmethod
+    def _hash_loop(q, md5):
+        while True:
+            buf = q.get()
+            try:
+                if buf is None:
+                    return
+                md5.update(buf)
+            finally:
+                q.task_done()
+
+    def _ingest(self, buf):
+        if self._want_pipeline and self._queue is None:
+            self._start_worker()
+        if self._queue is not None:
+            self._queue.put(buf)
+        else:
+            self._md5.update(buf)
 
     def read(self, n: int = -1) -> bytes:
         buf = self._src.read(n)
-        self._md5.update(buf)
+        if buf:
+            self._ingest(buf)  # bytes are immutable: no copy needed
+            self.bytes_read += len(buf)
         return buf
 
+    def readinto(self, b) -> int:
+        """Fill `b` from the source, by its readinto where it has one."""
+        view = memoryview(b).cast("B")
+        src_readinto = getattr(self._src, "readinto", None)
+        if src_readinto is not None:
+            n = src_readinto(view)
+            if n:
+                # The caller owns (and reuses) `b`: the hashing thread
+                # gets a snapshot. Decided on _want_pipeline, since the
+                # lazy worker starts inside _ingest.
+                if self._want_pipeline or self._queue is not None:
+                    copy_add("put.md5_snapshot", n)
+                    self._ingest(bytes(view[:n]))
+                else:
+                    self._ingest(view[:n])
+                self.bytes_read += n
+            return n or 0
+        buf = self._src.read(len(view))
+        n = len(buf)
+        if n:
+            view[:n] = buf
+            self._ingest(buf)
+            self.bytes_read += n
+        return n
+
+    def delegate_hashing(self):
+        """Hand hashing to a pipeline stage: returns (inner_source,
+        md5_update) and stops this reader's own hashing (and its thread).
+        The caller feeds md5_update exactly the source's bytes in order;
+        md5_hex() then returns the digest as usual. bytes_read stops
+        advancing."""
+        self._want_pipeline = False
+        if self._queue is not None:
+            self._stop_worker()
+        return self._src, self._md5.update
+
+    def _stop_worker(self):
+        self._finalizer.detach()
+        self._queue.put(None)
+        self._worker.join()
+        self._queue = None
+
     def md5_hex(self) -> str:
+        if self._queue is not None:
+            self._stop_worker()  # drains the queue once
         return self._md5.hexdigest()

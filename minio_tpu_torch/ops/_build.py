@@ -39,6 +39,9 @@ SIGNATURES = {
                          _VP],
         "hh256_verify_launch": [_VP, _LL, _LL, _LL, _VP, _LL, _VP, _U64,
                                 _U64, _U64, _U64, _VP],
+        "hh256_verify_grouped_launch": [_VP, _LL, _LL, _LL, _VP, _LL, _LL,
+                                        _LL, _LL, _VP, _U64, _U64, _U64,
+                                        _U64, _VP],
     },
 }
 

@@ -2,11 +2,13 @@
 minio_tpu/ops/highwayhash_jax.py.
 
 `hash256_batch(data, key)` maps uint8 [..., L] to the digests [..., 32].
-`hash256_pitched` hashes rows of a flat buffer at a row pitch, and
+`hash256_pitched` hashes rows of a flat buffer at a row pitch,
 `verify_frames` checks a run of bitrot frames [digest || chunk] in place
-and returns the index of the first bad chunk. Tensors on a CUDA device
-go to kernel B (csrc/highwayhash.cu: chunks staged through shared memory,
-each chunk's lanes on two threads); tensors on the CPU go to
+and returns the index of the first bad chunk, and
+`verify_frames_grouped` checks G such runs at a group pitch (every shard
+reader of a fetch) with one first-bad index a group. Tensors on a CUDA
+device go to kernel B (csrc/highwayhash.cu: chunks staged through shared
+memory, each chunk's lanes on two threads); tensors on the CPU go to
 `_hash256_plain`.
 
 The plain version holds each u64 as two 32-bit halves in int64 tensors,
@@ -293,21 +295,102 @@ def hash256_pitched(buf: torch.Tensor, offset: int, pitch: int, n: int,
     return _hash256_cuda(rows, key)
 
 
+def _groups(buf: torch.Tensor, offset: int, group_pitch: int,
+            n_groups: int, pitch: int, n: int, length: int) -> torch.Tensor:
+    """The [n_groups, n, length] view of rows at
+    buf[offset + g * group_pitch + i * pitch]."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError("want a contiguous 1-D uint8 buffer")
+    if min(n_groups, n, length, offset, group_pitch) < 0 or (
+            n > 1 and pitch < length):
+        raise ValueError(f"bad groups: offset {offset}, group pitch "
+                         f"{group_pitch}, pitch {pitch}, n {n}, "
+                         f"length {length}")
+    end = offset + (n_groups - 1) * group_pitch + (n - 1) * pitch + length
+    if n_groups and n and end > buf.numel():
+        raise ValueError(f"{n_groups} groups of {n} rows of {length} B "
+                         f"overrun a buffer of {buf.numel()} B")
+    return buf.as_strided((n_groups, n, length), (group_pitch, pitch, 1),
+                          buf.storage_offset() + offset)
+
+
+def _verify_grouped_plain(buf: torch.Tensor, offset: int, group_pitch: int,
+                          n_groups: int, n: int, length: int,
+                          key: bytes) -> torch.Tensor:
+    """Plain version of the grouped verify: int64 [n_groups], the index
+    of each group's first frame whose digest differs, or n."""
+    pitch = 32 + length
+    rows = _groups(buf, offset + 32, group_pitch, n_groups, pitch, n,
+                   length)
+    want = _groups(buf, offset, group_pitch, n_groups, pitch, n, 32)
+    out = torch.full((n_groups,), n, dtype=torch.int64, device=buf.device)
+    if n_groups == 0 or n == 0:
+        return out
+    got = _hash256_plain(rows.reshape(n_groups * n, length), key)
+    differs = (got.reshape(n_groups, n, 32) != want).any(dim=2)
+    idx = torch.arange(n, dtype=torch.int64, device=buf.device)
+    return torch.where(differs, idx, n).min(dim=1).values
+
+
+def _verify_grouped_cuda(buf: torch.Tensor, offset: int, group_pitch: int,
+                         n_groups: int, n: int, length: int,
+                         key: bytes) -> torch.Tensor:
+    """Kernel B's grouped verify entry, queued on the current stream with
+    no host sync: int64 [n_groups] on the buffer's device."""
+    if buf.device.type != "cuda":
+        raise ValueError(f"_verify_grouped_cuda needs a CUDA tensor, got "
+                         f"{buf.device}")
+    pitch = 32 + length
+    _groups(buf, offset, group_pitch, n_groups, pitch, n, pitch)  # bounds
+    if n_groups > 65535:
+        raise ValueError(f"{n_groups} groups exceed the grid's 65,535")
+    first_bad = torch.full((n_groups,), n, dtype=torch.int64,
+                           device=buf.device)
+    if n_groups == 0 or n == 0:
+        return first_bad
+    lib = _build.library("highwayhash")
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    base = buf.data_ptr() + offset
+    _build.check(
+        lib.hh256_verify_grouped_launch(base + 32, pitch, n, length, base,
+                                        pitch, n_groups, group_pitch,
+                                        group_pitch, first_bad.data_ptr(),
+                                        *key_lanes(key), stream),
+        "hh256_verify_grouped_launch",
+    )
+    LAUNCHES.add()
+    return first_bad
+
+
+def verify_frames_grouped(buf: torch.Tensor, n_groups: int,
+                          group_pitch: int, n: int, length: int,
+                          offset: int = 0,
+                          key: bytes = MAGIC_KEY) -> torch.Tensor:
+    """buf holds n_groups groups of n bitrot frames [digest (32 B) ||
+    chunk (length B)], group g from buf[offset + g * group_pitch]: one
+    shard reader's fetch a group. Returns int64 [n_groups] on the
+    buffer's device, the index of each group's first chunk whose digest
+    differs, or n where all agree. On a CUDA buffer it is one kernel B
+    launch on the current stream and nothing waits for it: the caller
+    reads every group's answer back with one sync."""
+    if buf.device.type == "cpu":
+        return _verify_grouped_plain(buf, offset, group_pitch, n_groups, n,
+                                     length, key)
+    return _verify_grouped_cuda(buf, offset, group_pitch, n_groups, n,
+                                length, key)
+
+
 def verify_frames(buf: torch.Tensor, n: int, length: int,
                   key: bytes = MAGIC_KEY) -> int:
     """buf starts with n bitrot frames [digest (32 B) || chunk (length B)];
     the index of the first chunk whose digest differs, or -1 (the
     counterpart of minio_tpu's native hh256_verify_frames over equal
-    chunks)."""
-    pitch = 32 + length
-    rows = _rows(buf, 32, pitch, n, length)
-    want = _rows(buf, 0, pitch, n, 32)
+    chunks). The grouped verify's one-group case, read back at once."""
     if buf.device.type != "cpu":
-        return _verify_cuda(rows, want, key)
-    if n == 0:
-        return -1
-    bad = torch.nonzero((_hash256_plain(rows, key) != want).any(dim=1))
-    return int(bad[0, 0]) if bad.numel() else -1
+        return _verify_cuda(_rows(buf, 32, 32 + length, n, length),
+                            _rows(buf, 0, 32 + length, n, 32), key)
+    bad = int(verify_frames_grouped(buf, 1, 0, n, length, key=key)[0])
+    return -1 if bad >= n else bad
 
 
 def hash256_batch(data: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:

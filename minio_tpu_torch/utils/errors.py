@@ -17,6 +17,14 @@ class ErrDiskNotFound(StorageError):
     """Disk is offline / not found (errDiskNotFound)."""
 
 
+class ErrDiskOpTimeout(ErrDiskNotFound):
+    """One storage op outlived its deadline: a shard writer detached past
+    write quorum, or a shard reader abandoned past a hedge. Quorum
+    reductions treat it as an offline disk (minio_tpu derives it from
+    ErrDiskFaulty, itself an ErrDiskNotFound). The op may still complete
+    in the background; heal repairs what it missed."""
+
+
 class ErrFileNotFound(StorageError):
     """File not found on disk (errFileNotFound): triggers missing-part heal."""
 

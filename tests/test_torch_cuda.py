@@ -180,3 +180,79 @@ def test_s3_put_get_heal_on_card(cuda, tmp_path):
         c = res["counters"][phase]
         assert c["kernel_gf_launches"] == 0, phase
         assert c["kernel_hash_launches"] > 0, phase
+
+
+@pytest.mark.parametrize("length", [1, 33, 4096 + 22, 87382])
+def test_grouped_verify_kernel_matches_plain(cuda, length):
+    """Kernel B's grouped verify entry against its plain version: 12
+    groups of n frames at a group pitch with slack, bad chunks in several
+    groups, one first-bad index a group."""
+    g_n, n = 12, (1 if length > 4096 + 22 else 5)
+    group = n * (32 + length) + 7
+    buf = _rand((1 + g_n * group,), length, cuda)[1:]
+    for g in range(g_n):
+        hh._rows(buf, g * group, 32 + length, n, 32).copy_(
+            hh.hash256_pitched(buf, g * group + 32, 32 + length, n, length))
+    assert hh.verify_frames_grouped(buf, g_n, group, n, length).tolist() \
+        == [n] * g_n
+    for g, i in dict.fromkeys(((0, 0), (4, n - 1), (11, 0), (11, n - 1))):
+        buf[g * group + i * (32 + length) + 32 + length // 2] ^= 0x41
+    before = hh.LAUNCHES.value
+    got = hh.verify_frames_grouped(buf, g_n, group, n, length)
+    assert hh.LAUNCHES.value == before + 1
+    want = hh.verify_frames_grouped(buf.cpu(), g_n, group, n, length)
+    assert got.cpu().tolist() == want.tolist()
+    assert want[0] == 0 and want[4] == n - 1 and want[11] == 0
+    assert want[1] == n
+
+
+def test_pipelined_put_recycles_two_pinned_buffers(cuda, monkeypatch):
+    """64 pipelined PUT batches through a pool that keeps 2 pinned
+    buffers, so every batch packs into a buffer just recycled: every
+    shard file must equal the serial driver's (pageable, no pool), every
+    data chunk the payload's own bytes, and the pipelined PUT must copy
+    nothing pageable to the card."""
+    import io
+
+    from minio_tpu_torch.erasure import streaming
+    from minio_tpu_torch.erasure.bitrot import StreamingBitrotWriter
+    from minio_tpu_torch.erasure.codec import Erasure
+    from minio_tpu_torch.ops import host_feed
+    from minio_tpu_torch.pipeline import BufferPool
+    from minio_tpu_torch.utils import fanout
+
+    k, m, block = 12, 4, 12 * 16384
+    shard = block // k
+    e = Erasure(k, m, block, device=cuda)
+    payload = np.random.default_rng(64).bytes(64 * 8 * block)
+    pools = []
+
+    def two_buffer_pool(key, factory, capacity=6, name=""):
+        pools.append(BufferPool(factory, capacity=2, name="two"))
+        return pools[-1]
+
+    monkeypatch.setattr(streaming, "shared_pool", two_buffer_pool)
+
+    def put(single_core: bool) -> list:
+        monkeypatch.setattr(fanout, "SINGLE_CORE", single_core)
+        sinks = [io.BytesIO() for _ in range(k + m)]
+        n = streaming.encode_stream(
+            e, io.BytesIO(payload),
+            [StreamingBitrotWriter(s, device=cuda) for s in sinks], k + 1)
+        assert n == len(payload)
+        return [s.getvalue() for s in sinks]
+
+    host_feed.reset_h2d()
+    piped = put(False)
+    assert host_feed.h2d_snapshot()["pageable"] == 0
+    assert host_feed.h2d_snapshot()["pinned"] == 64
+    assert pools and pools[0].stats()["reused"] > 0
+    for j in range(k):
+        f = piped[j]
+        for b in range(64 * 8):
+            at = b * (32 + shard) + 32
+            assert f[at: at + shard] == \
+                payload[b * block + j * shard: b * block + (j + 1) * shard]
+    serial = put(True)
+    for i in range(k + m):
+        assert piped[i] == serial[i], f"shard {i} differs"

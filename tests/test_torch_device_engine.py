@@ -78,3 +78,27 @@ def test_codec_cache_and_device_matrices():
     n = len(a._mats)
     a.reconstruct_async(src, present, targets)
     assert len(a._mats) == n  # the pattern's matrix is reused
+
+
+def test_staged_batch_encodes_like_a_host_batch():
+    """A batch through HostFeed (on the CPU it passes the host tensor
+    through) encodes to the same parity and digests as the host array,
+    and minio_tpu's engine agrees."""
+    from minio_tpu_torch.ops.host_feed import HostFeed, Staged
+    from minio_tpu_torch.pipeline import host_buffer
+
+    k, m = 12, 4
+    rng = np.random.default_rng(77)
+    blocks = host_buffer((3, k, 333), "cpu")  # a shape JAX compiled above
+    blocks[:] = rng.integers(0, 256, size=blocks.shape, dtype=np.uint8)
+    staged = HostFeed("cpu")(blocks)
+    assert isinstance(staged, Staged) and staged.event is None
+    assert staged.nbytes == blocks.nbytes
+    codec = device_engine.for_geometry(k, m, device="cpu")
+    got = codec.encode_async(staged, with_hashes=True)
+    want = codec.encode_async(blocks, with_hashes=True)
+    jp, jd = jde.for_geometry(k, m).encode_async(blocks.copy(),
+                                                 with_hashes=True)
+    for g, w, j in zip(got, want, (jp, jd)):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+        assert np.array_equal(np.asarray(g), np.asarray(j))

@@ -359,3 +359,81 @@ def test_buckets_format_and_etag_match(tmp_path):
     for parts in (0, 1, 7):
         assert compute_etag(digest, parts) == jax_compute_etag(digest, parts)
     assert compute_etag(None) == jax_compute_etag(None) == ""
+
+
+@pytest.mark.parametrize("single_core", [False, True],
+                         ids=["pipelined", "serial"])
+def test_delegated_md5_etag_matches(small_blocks, tmp_path, monkeypatch,
+                                    single_core):
+    """A PUT of 9 blocks + 13 B: on the pipelined encode the MD5 is a
+    stage of its own (TeeMD5Reader.delegate_hashing), on the serial one
+    the reader hashes as it goes. Either way the ETag is minio_tpu's and
+    the 16 drives hold minio_tpu's files."""
+    import hashlib
+
+    from minio_tpu_torch.utils import fanout
+
+    monkeypatch.setattr(fanout, "SINGLE_CORE", single_core)
+    size = 9 * SMALL_BLOCK + 13
+    payload = _payload(3, size)
+    etags = {}
+    for pkg in (PORT, JAX):
+        with pytest.MonkeyPatch.context() as mp:
+            _seed_uuids(mp, 12)
+            sets = _set(pkg, tmp_path / pkg, fresh=True)
+            etags[pkg] = sets.put_object(BUCKET, "nine", io.BytesIO(payload),
+                                         size, _opts(pkg)).etag
+    assert etags[PORT] == etags[JAX] == hashlib.md5(payload).hexdigest()
+    port, jax = _tree(tmp_path / PORT), _tree(tmp_path / JAX)
+    assert sorted(port) == sorted(jax)
+    assert all(port[p] == jax[p] for p in port)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_tee_md5_reader_matches_minio_tpu(pipelined):
+    """TeeMD5Reader with its hashing thread or inline, through read() and
+    readinto() and a delegate_hashing() hand-off midway: minio_tpu's MD5
+    and byte count."""
+    import hashlib
+
+    from minio_tpu.object.types import TeeMD5Reader as JaxTee
+    from minio_tpu_torch.object.types import TeeMD5Reader
+
+    data = _payload(4, (5 << 20) + 3)
+    digests = []
+    for cls in (TeeMD5Reader, JaxTee):
+        tee = cls(io.BytesIO(data), pipelined=pipelined, size=len(data))
+        buf = bytearray(70_001)
+        got = [tee.read(100_000)]
+        n = tee.readinto(buf)
+        got.append(bytes(buf[:n]))  # the tee hashes a snapshot
+        buf[:] = b"\0" * len(buf)   # so reusing the buffer changes nothing
+        got.append(tee.read(1 << 20))
+        assert tee.bytes_read == sum(map(len, got))
+        src, update = tee.delegate_hashing()
+        rest = src.read()
+        update(rest)
+        assert b"".join(got) + rest == data
+        digests.append(tee.md5_hex())
+    assert digests[0] == digests[1] == hashlib.md5(data).hexdigest()
+
+
+def test_tee_md5_reader_pipelines_only_large_streams_on_many_cores(
+        monkeypatch):
+    import hashlib
+
+    from minio_tpu_torch.object.types import TeeMD5Reader
+    from minio_tpu_torch.utils import fanout
+
+    monkeypatch.setattr(fanout, "SINGLE_CORE", False)
+    big = TeeMD5Reader(io.BytesIO(b"x" * 10), size=8 << 20)
+    small = TeeMD5Reader(io.BytesIO(b"x" * 10), size=1000)
+    assert big._want_pipeline and not small._want_pipeline
+    assert big._queue is None  # the hashing thread starts lazily
+    assert big.read(10) == small.read(10) == b"x" * 10
+    assert big._queue is not None and small._queue is None
+    assert big.md5_hex() == small.md5_hex() == \
+        hashlib.md5(b"x" * 10).hexdigest()
+    assert big._queue is None  # drained, its thread joined
+    monkeypatch.setattr(fanout, "SINGLE_CORE", True)
+    assert not TeeMD5Reader(io.BytesIO(b""), size=8 << 20)._want_pipeline

@@ -2,7 +2,10 @@
 heal_stream, on the CPU) against minio_tpu's, byte for byte, on in-memory
 bitrot-framed shard files: 3 full blocks of k*4096 bytes plus a ragged
 tail, at 8+4 and 12+4, with 2 data and 2 parity shards lost. Shard files
-written by either package are read by the other."""
+written by either package are read by the other. The pipelined and the
+serial drivers (utils.fanout.SINGLE_CORE forced each way) are each held
+to minio_tpu's files, bytes and heal hints, at 6+2 and 12+4 and sizes
+from empty to 17 blocks."""
 
 import io
 
@@ -15,6 +18,8 @@ from minio_tpu.erasure.bitrot import (
     StreamingBitrotWriter as JaxWriter,
 )
 from minio_tpu.erasure.codec import Erasure as JaxErasure
+from minio_tpu.utils.errors import ErrFileNotFound as JaxErrFileNotFound
+import minio_tpu.erasure.streaming as jax_streaming
 from minio_tpu.erasure.streaming import (
     decode_stream as jax_decode_stream,
     encode_stream as jax_encode_stream,
@@ -31,6 +36,7 @@ from minio_tpu_torch.erasure.streaming import (
     encode_stream,
     heal_stream,
 )
+from minio_tpu_torch.utils import fanout
 from minio_tpu_torch.utils.errors import (
     ErrFileCorrupt,
     ErrFileNotFound,
@@ -70,6 +76,18 @@ def _jax_readers(files, size, shard_size, lost=()):
     return [None if i in lost else JaxReader(
         lambda off, ln, buf=f: io.BytesIO(buf[off: off + ln]), size,
         shard_size) for i, f in enumerate(files)]
+
+
+def _jax_missing_readers(files, size, shard_size, lost):
+    """minio_tpu's readers with the `lost` shard files gone: opening one
+    raises minio_tpu's ErrFileNotFound, as the port's readers do."""
+    def missing(off, ln):
+        raise JaxErrFileNotFound("shard removed")
+
+    readers = _jax_readers(files, size, shard_size)
+    for i in lost:
+        readers[i] = JaxReader(missing, size, shard_size)
+    return readers
 
 
 @pytest.fixture(scope="module")
@@ -218,3 +236,95 @@ def test_codec_matches_jax_codec(k, m):
     too_few = [None if i <= m else s for i, s in enumerate(shards)]
     with pytest.raises(ErrTooFewShards):
         e.decode_data_blocks(too_few)
+
+
+# --- the pipelined and serial drivers, each against minio_tpu ----------
+
+DRIVER_GEOMETRIES = [(6, 2), (12, 4)]
+DRIVERS = [False, True]  # fanout.SINGLE_CORE: pipelined, serial
+
+
+def _driver_sizes(block: int) -> tuple:
+    return (0, 1, block - 1, block, 9 * block + 13, 17 * block)
+
+
+@pytest.fixture(scope="module")
+def jax_sized_files():
+    """minio_tpu's shard files at every driver test size, 8 blocks a
+    batch: (k, m, size) -> files."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MTPU_WORKER_POOL", "0")
+        for k, m in DRIVER_GEOMETRIES:
+            e = JaxErasure(k, m, k * 4096)
+            for size in _driver_sizes(k * 4096):
+                data = np.random.default_rng(size).bytes(size)
+                sinks = [io.BytesIO() for _ in range(k + m)]
+                assert jax_encode_stream(e, io.BytesIO(data),
+                                         [JaxWriter(s) for s in sinks],
+                                         quorum=k + 1) == size
+                out[(k, m, size)] = [s.getvalue() for s in sinks]
+    return out
+
+
+@pytest.mark.parametrize("single_core", DRIVERS,
+                         ids=["pipelined", "serial"])
+@pytest.mark.parametrize("k,m", DRIVER_GEOMETRIES)
+def test_encode_drivers_write_jax_identical_files(jax_sized_files,
+                                                  monkeypatch, k, m,
+                                                  single_core):
+    """Both encode drivers (fanout.SINGLE_CORE forced each way) write
+    minio_tpu's shard files, so also each other's: empty, one byte, a
+    block less one, one block (inline stages), 9 blocks + 13 and 17
+    blocks (the staged pipeline, tail and all)."""
+    monkeypatch.setattr(fanout, "SINGLE_CORE", single_core)
+    e = Erasure(k, m, k * 4096, device="cpu")
+    for size in _driver_sizes(k * 4096):
+        data = np.random.default_rng(size).bytes(size)
+        sinks = [io.BytesIO() for _ in range(k + m)]
+        n = encode_stream(e, io.BytesIO(data),
+                          [StreamingBitrotWriter(s, device="cpu")
+                           for s in sinks], quorum=k + 1)
+        assert n == size
+        for i, s in enumerate(sinks):
+            assert s.getvalue() == jax_sized_files[(k, m, size)][i], \
+                f"size {size}: shard {i} differs from minio_tpu's"
+
+
+@pytest.mark.parametrize("single_core", DRIVERS,
+                         ids=["pipelined", "serial"])
+@pytest.mark.parametrize("k,m", GEOMETRIES)
+def test_decode_and_heal_drivers_match_jax(jax_files, monkeypatch, k, m,
+                                           single_core):
+    """Degraded GET (whole, and 3 blocks from an unaligned offset) and
+    heal on each driver: minio_tpu's bytes, its heal hint, and the lost
+    shard files rebuilt exactly."""
+    monkeypatch.setattr(fanout, "SINGLE_CORE", single_core)
+    monkeypatch.setattr(jax_streaming, "_SINGLE_CORE", single_core)
+    monkeypatch.setenv("MTPU_WORKER_POOL", "0")
+    e = Erasure(k, m, k * 4096, device="cpu")
+    je = JaxErasure(k, m, k * 4096)
+    data = _payload(k)
+    lost = LOST[(k, m)]
+    files = jax_files[(k, m)]
+    for off, ln in ((0, len(data)), (777, 2 * k * 4096 + 5)):
+        sink, jsink = io.BytesIO(), io.BytesIO()
+        n, hint = decode_stream(e, sink, _port_readers(files, len(data), e,
+                                                       lost),
+                                off, ln, len(data))
+        _, jhint = jax_decode_stream(
+            je, jsink, _jax_missing_readers(files, len(data),
+                                            je.shard_size(), lost),
+            off, ln, len(data))
+        assert n == ln and sink.getvalue() == jsink.getvalue() == \
+            data[off: off + ln]
+        assert type(hint).__name__ == type(jhint).__name__ == \
+            "ErrFileNotFound"
+    healed = {i: io.BytesIO() for i in lost}
+    writers = [StreamingBitrotWriter(healed[i], device="cpu")
+               if i in healed else None for i in range(k + m)]
+    readers = [None if i in lost else r
+               for i, r in enumerate(_port_readers(files, len(data), e))]
+    heal_stream(e, writers, readers, len(data))
+    for i in lost:
+        assert healed[i].getvalue() == files[i], f"healed shard {i} differs"

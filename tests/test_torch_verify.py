@@ -173,3 +173,97 @@ def test_wide_geometry_reconstructs():
     assert np.array_equal(got, np.asarray(jrs._apply_bits(bits, src)))
     for t_i, t in enumerate(lost):
         assert np.array_equal(got[0, t_i], allshards[t])
+
+
+def _groups_of_frames(n_groups: int, tail: int, slack: int):
+    """n_groups fetches of minio_tpu-framed chunks (N_FULL of SHARD bytes
+    and a `tail`-byte one), one a group, `slack` bytes apart."""
+    frames = []
+    for g in range(n_groups):
+        data = np.random.default_rng(100 + g).integers(
+            0, 256, size=N_FULL * SHARD + tail, dtype=np.uint8).tobytes()
+        sink = io.BytesIO()
+        w = JaxWriter(sink)
+        for off in range(0, len(data), SHARD):
+            w.write(data[off: off + SHARD])
+        frames.append(sink.getvalue())
+    group = len(frames[0]) + slack
+    buf = bytearray(n_groups * group)
+    for g, f in enumerate(frames):
+        buf[g * group: g * group + len(f)] = f
+    return buf, group
+
+
+@pytest.mark.parametrize("bad", [(), ((0, 0),), ((1, 2), (3, 4)),
+                                 ((0, 4), (2, 1), (2, 3), (3, 0))])
+def test_grouped_verify_matches_per_group_verify(bad):
+    """verify_frames_grouped (the plain version of kernel B's grouped
+    entry) against a loop of verify_frames over each group, with bad
+    chunks in several groups, for the full-size chunks and for the short
+    last chunk at its true length."""
+    from minio_tpu_torch.ops.highwayhash_torch import verify_frames_grouped
+
+    n_groups, tail = 4, 37
+    buf, group = _groups_of_frames(n_groups, tail, slack=5)
+    for g, i in bad:
+        buf[g * group + i * (32 + SHARD) + 32 + 11] ^= 0x20
+    t = torch.from_numpy(np.frombuffer(buf, dtype=np.uint8).copy())
+    got = verify_frames_grouped(t, n_groups, group, N_FULL, SHARD)
+    loop = [verify_frames(t[g * group:], N_FULL, SHARD)
+            for g in range(n_groups)]
+    assert [N_FULL if x < 0 else x for x in loop] == got.tolist()
+    assert got.tolist() == [min([i for gg, i in bad if gg == g],
+                                default=N_FULL) for g in range(n_groups)]
+    at = N_FULL * (32 + SHARD)
+    buf[2 * group + at + 32] ^= 0x01  # group 2's short chunk
+    t = torch.from_numpy(np.frombuffer(buf, dtype=np.uint8).copy())
+    tails = verify_frames_grouped(t, n_groups, group, 1, tail, offset=at)
+    loop = [verify_frames(t[g * group + at:], 1, tail)
+            for g in range(n_groups)]
+    assert tails.tolist() == [1 if x < 0 else x for x in loop] == \
+        [1, 1, 0, 1]
+
+
+def test_verify_fetch_names_the_first_bad_chunk_of_each_reader():
+    """bitrot.verify_fetch, as the ParallelReader calls it: one answer a
+    reader row, the full-size chunks and the short last one together."""
+    from minio_tpu_torch.erasure.bitrot import verify_fetch
+
+    n_groups, tail = 3, 37
+    buf, group = _groups_of_frames(n_groups, tail, slack=0)
+    buf[1 * group + 3 * (32 + SHARD) + 40] ^= 0x08       # reader 1, chunk 3
+    buf[2 * group + N_FULL * (32 + SHARD) + 40] ^= 0x08  # reader 2's tail
+    rows = np.frombuffer(buf, dtype=np.uint8).reshape(n_groups, group)
+    bad = verify_fetch(rows, [SHARD] * N_FULL + [tail], SHARD,
+                       torch.device("cpu"))
+    assert bad.tolist() == [-1, 3, N_FULL]
+
+
+def test_read_frames_lands_unverified_bytes():
+    """read_frames copies the framed bytes into the caller's slot with no
+    check; read_chunks reads each fetch into a buffer of its own and
+    checks it."""
+    size, framed = _framed(0)
+    framed[40] ^= 0x01  # chunk 0 is bad: read_frames does not look
+
+    def reader():
+        return StreamingBitrotReader(
+            lambda off, ln: io.BytesIO(bytes(framed[off: off + ln])), size,
+            SHARD, device="cpu")
+
+    r = reader()
+    out = np.zeros(2 * (32 + SHARD), dtype=np.uint8)
+    r.read_frames(0, [SHARD, SHARD], out)
+    assert out.tobytes() == bytes(framed[: 2 * (32 + SHARD)])
+    with pytest.raises(ValueError):
+        r.read_frames(2 * SHARD, [SHARD], out)  # slot of the wrong size
+    with pytest.raises(ErrFileCorrupt):
+        reader().read_chunks(0, [SHARD])
+    framed[40] ^= 0x01
+    r = reader()
+    views = [r.read_chunks(i * SHARD, [SHARD]) for i in range(3)]
+    for i, v in enumerate(views):
+        o = i * (32 + SHARD) + 32
+        assert bytes(v[0]) == bytes(framed[o: o + SHARD])
+    assert not np.shares_memory(np.asarray(views[0][0]),
+                                np.asarray(views[2][0]))
