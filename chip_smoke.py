@@ -13,6 +13,12 @@ Phases, each of which must pass (nothing is caught):
     object's ragged last block's, path_shard_lengths()) for the encode
     and each reconstruction those paths run (path_reconstructions()), at
     wide geometries (40+40, 128+128, 200+56) and at S = 1, 2, 3 mod 16;
+    for phase 4h's cells (check_codec_kernels) at each codec's shard
+    lengths in the sub-shard view [B, k*alpha, S/alpha], its encode, its
+    degraded GETs' and heal's reconstructions and its repair matrix, and
+    at the widest msr-pm geometries (254+2, 128+128, 200+56 piggyback;
+    8+2, 6+3, 5+5 coupled-layer); kernel B also at 4h's new chunk
+    lengths (hash, grouped verify at k and k+m readers);
     kernel B on contiguous rows and on framed buffers at pitch 32 + L for
     the same shard lengths and short ones, at chunk starts 0..15 mod 16,
     its verify entry on good and corrupted frames, and its grouped verify
@@ -69,12 +75,26 @@ Phases, each of which must pass (nothing is caught):
     and stalled seconds. Prints {"pipelined": ...}, with the collector
     passes over 20 ms of phases 4 to 4g and the hedge windows restarted
     in each (garbage is collected before each run, the heap not frozen);
+ 4h. the codecs through the object layer (object_codec_put_get_heal, 1
+    MiB blocks, 256 MiB + 12,345 B): cauchy-xor at 12+4 (16 drives),
+    msr-pm at 12+4 (piggyback, alpha 2) and at 4+4 (8 drives,
+    coupled-layer, alpha 16): PutObject with the codec, GET, m shards
+    lost (0, 5, 12, 15; at 4+4 0, 3, 4, 7), degraded GET whole and
+    ranged, HealObject (rebuilt files equal to the originals by
+    SHA-256); in the msr-pm cells one more lost drive healed through the
+    repair plane, with no fallback and bytes read a byte healed equal to
+    the plan's ratio. Then one signed 16 MiB + 12,345 B PUT with
+    x-mtpu-codec: msr-pm through the port's S3Server (s3_codec_put_get),
+    GET back, xl.meta naming msr-pm on every drive. Counters zeroed just
+    before and read just after each; kernel A launches in every phase
+    but the healthy GETs, kernel B in all. Prints {"codecs": ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
-    of 12 readers x 8 frames) and print one JSON line
-    {"kernels": [...]}, whose launches are those of phases 4, 4c and 4e
-    (by path in "launches_by_path");
+    of 12 readers x 8 frames; kernel A also at 4h's msr-pm encode
+    shapes [8, 24, 43,691] -> 8 and [8, 64, 16,384] -> 64) and print one
+    JSON line {"kernels": [...]}, whose launches are those of phases 4,
+    4c, 4e and 4h (by path in "launches_by_path");
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -108,6 +128,19 @@ SHARD = -(-BLOCK // K)  # 87,382
 BATCH = 8
 LOST = (0, 5, 12, 15)
 HASH_LENGTHS = (0, 1, 17, 31, 32, 33, 63, 4096 + 22)
+# Phase 4h: (codec, drives, lost shards, repair target) of each cell, one
+# set of parity 4 each: 16 drives at 12+4 and 8 drives at 4+4, MinIO's
+# EC:4 sets. The repair target of the piggyback cell is a data shard (its
+# plans cover data shards only).
+CODEC_CELLS = (("cauchy-xor", 16, LOST, None),
+               ("msr-pm", 16, LOST, 3),
+               ("msr-pm", 8, (0, 3, 4, 7), 6))
+CODEC_PARITY = 4
+S3_CODEC_SIZE = (16 << 20) + 12_345
+# The widest msr-pm geometries the registry admits: piggyback (alpha 2)
+# at the widest K (254+2), R (128+128) and both (200+56); coupled-layer
+# at alpha 32, 27 and 25.
+WIDE_MSR = ((254, 2), (128, 128), (200, 56), (8, 2), (6, 3), (5, 5))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 
@@ -174,6 +207,125 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     return sorted(recs)
 
 
+def codec_cell(cell):
+    """(codec, k, m, lost, repair target, the cell's Erasure on the card)
+    of a phase 4h cell."""
+    from minio_tpu_torch.erasure.codec import cached_erasure
+
+    codec, drives, lost, target = cell
+    k, m = drives - CODEC_PARITY, CODEC_PARITY
+    return codec, k, m, lost, target, cached_erasure(k, m, BLOCK, codec,
+                                                     "cuda")
+
+
+def codec_shard_lengths(erasure) -> list[int]:
+    """The shard lengths phase 4h gives the kernels in a cell: a full
+    block's and the last block's of its 256 MiB + 12,345 B object (and of
+    the 16 MiB + 12,345 B S3 PUT), rounded to the codec's
+    sub-packetization."""
+    return sorted({erasure.shard_size()} | {
+        erasure.chunk_size(size % BLOCK)
+        for size in (OBJECT_SIZE, S3_CODEC_SIZE) if size % BLOCK})
+
+
+def codec_reconstructions(k: int, lost) -> list[tuple[tuple, tuple]]:
+    """(unavailable, rebuilt) of a cell's degraded GETs (its lost data
+    shards) and heal (every lost shard)."""
+    lost = tuple(lost)
+    return [(lost, tuple(s for s in lost if s < k)), (lost, lost)]
+
+
+def codec_chunk_lengths() -> dict:
+    """Kernel B's chunk lengths in phase 4h that no earlier phase has,
+    each with the (k, m) of a cell that gives it."""
+    out = {}
+    for cell in CODEC_CELLS:
+        _, k, m, _, _, erasure = codec_cell(cell)
+        for s in codec_shard_lengths(erasure):
+            if s not in path_shard_lengths():
+                out.setdefault(s, (k, m))
+    return dict(sorted(out.items()))
+
+
+def check_codec_kernels(rng, errs: dict) -> None:
+    """Phase 3 for phase 4h: kernel A against its plain version at every
+    matrix and shape the codec cells give it (each codec's encode, the
+    degraded GETs' and heals' reconstructions, in the sub-shard view
+    [B, k*alpha, S/alpha]; the repair matrices [alpha, T] on
+    [nb, T, S/alpha]), at the widest msr-pm geometries, and kernel B at
+    the cells' new chunk lengths."""
+    from minio_tpu_torch.erasure import registry, repair
+    from minio_tpu_torch.ops import gf, highwayhash_torch as hh, regen, rs
+    from minio_tpu_torch.ops import rs_cuda
+
+    def gf_err(mat, shapes) -> int:
+        bm = gf.to_device_bitmat(gf.bit_matrix(mat), "cuda")
+        err = 0
+        for shape in shapes:
+            x = rand(shape, rng)
+            got = rs_cuda.apply_gf_matrix_cuda(bm, x)
+            want = rs._apply_bits_plain(bm, x)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+        errs["gf_apply"] = max(errs["gf_apply"], err)
+        return err
+
+    for cell in CODEC_CELLS:
+        codec, k, m, lost, target, erasure = codec_cell(cell)
+        entry = registry.get(codec)
+        a = erasure.subshards
+        lengths = codec_shard_lengths(erasure)
+        mats = [("encode", entry.parity_matrix(k, m))]
+        for unavailable, targets in codec_reconstructions(k, lost):
+            present = [i for i in range(k + m) if i not in unavailable]
+            mats.append((f"reconstruct {targets} from {present[:k]}",
+                         entry.reconstruct_matrix(k, m, present,
+                                                  list(targets))))
+        shapes = [(b, k * a, s // a) for s in lengths for b in (1, BATCH)]
+        for name, mat in mats:
+            err = gf_err(mat, shapes)
+            log(f"gf_apply {codec} {k}+{m} {name} -> {mat.shape[0]} rows "
+                f"at [B, {k * a}, S/{a}] for B in (1, {BATCH}), S in "
+                f"{lengths}: max_abs_err {err}")
+        if target is not None:
+            plan = entry.repair_plan(k, m, target)
+            step = max(1, repair._WINDOW_BYTES // (
+                plan.total_symbols * (erasure.shard_size() // a)))
+            shapes = [(nb, plan.total_symbols, s // a) for s in lengths
+                      for nb in (1, step)]
+            err = gf_err(plan.matrix, shapes)
+            log(f"gf_apply {codec} {k}+{m} repair of shard {target} "
+                f"[{plan.alpha}, {plan.total_symbols}] at {shapes}: "
+                f"max_abs_err {err}")
+    for k, m in WIDE_MSR:
+        entry = registry.get("msr-pm")
+        t0 = time.perf_counter()
+        a = entry.alpha(k, m)  # builds and verifies the geometry
+        built = time.perf_counter() - t0
+        sub = 515
+        enc = gf_err(entry.parity_matrix(k, m), [(2, k * a, sub)])
+        lost = list(range(m))
+        rec = gf_err(entry.reconstruct_matrix(
+            k, m, list(range(m, k + m)), lost), [(2, k * a, sub)])
+        log(f"gf_apply msr-pm {k}+{m} ({regen.arm(k, m)}, alpha {a}, "
+            f"built in {built:.1f} s): encode [2, {k * a}, {sub}] -> "
+            f"{m * a} rows max_abs_err {enc}; reconstruct of shards "
+            f"0..{m - 1} -> {m * a} rows max_abs_err {rec}")
+    for s, (k, m) in codec_chunk_lengths().items():
+        x = rand((BATCH * (k + m), s), rng)
+        got = hh.hash256_batch(x)
+        want = hh._hash256_plain(x, hh.MAGIC_KEY)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["highwayhash256"] = max(errs["highwayhash256"], err)
+        log(f"highwayhash256 hash256_batch {tuple(x.shape)}: "
+            f"max_abs_err {err}")
+        for groups in (k, k + m):
+            err = grouped_verify_case(rng, groups, BATCH, s)
+            errs["hh256_verify_grouped"] = max(errs["hh256_verify_grouped"],
+                                               err)
+
+
 def grouped_verify_case(rng, groups: int, n: int, s: int) -> int:
     """Kernel B's grouped verify entry against its plain version on
     `groups` fetches of n frames of s bytes and one short last frame
@@ -192,9 +344,9 @@ def grouped_verify_case(rng, groups: int, n: int, s: int) -> int:
         o += n * (32 + s)
         hh._rows(buf, o, 32, 1, 32).copy_(
             hh.hash256_pitched(buf, o + 32, 32, 1, tail))
-    bad = dict.fromkeys([(1, 0), (5, n - 1), (11, 0), (11, n - 1), (7, n),
-                         (groups - 1, 0), (groups - 1, n),
-                         (groups - 2, n - 1)])
+    bad = dict.fromkeys((g % groups, i) for g, i in (
+        (1, 0), (5, n - 1), (11, 0), (11, n - 1), (7, n), (groups - 1, 0),
+        (groups - 1, n), (groups - 2, n - 1)))
     for g, i in bad:
         buf[g * group + i * (32 + s) + 40] ^= 0x41
     # Where the flips are: a group's first bad full-size frame (n if
@@ -335,6 +487,7 @@ def check_kernels(rng) -> dict:
             err = grouped_verify_case(rng, groups, BATCH, s)
             errs["hh256_verify_grouped"] = max(errs["hh256_verify_grouped"],
                                                err)
+    check_codec_kernels(rng, errs)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -550,6 +703,101 @@ def run_s3_plane() -> tuple[dict, dict]:
     return line, launches
 
 
+# Phase 4h's phases, and whether each launches kernel A (kernel B
+# launches in all of them: each writes or verifies).
+CODEC_PHASES = {"put": True, "get": False, "degraded_get": True,
+                "range_get": True, "heal": True, "repair_heal": True}
+
+
+def run_codecs() -> tuple[dict, dict]:
+    """Phase 4h: object_codec_put_get_heal in each codec cell, then one
+    signed PUT with x-mtpu-codec: msr-pm over HTTP (s3_codec_put_get).
+    Returns the {"codecs": ...} line and the launches of all of it."""
+    from minio_tpu_torch.entry import (
+        object_codec_put_get_heal,
+        s3_codec_put_get,
+    )
+
+    data_root = ROOT / ".smoke_data"
+    line: dict = {"object_size": OBJECT_SIZE, "cells": {}}
+    launches = {"gf_apply": 0, "highwayhash256": 0}
+    for i, (codec, drives, lost, target) in enumerate(CODEC_CELLS):
+        k = drives - CODEC_PARITY
+        label = f"{codec} {k}+{CODEC_PARITY}"
+        data_root.mkdir(exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=data_root)
+        try:
+            reset_counts()
+            res = object_codec_put_get_heal(
+                tmp, OBJECT_SIZE, codec, drives=drives, parity=CODEC_PARITY,
+                lost=lost, repair_target=target, device="cuda", seed=10 + i)
+            got = read_counts()
+        finally:
+            shutil.rmtree(data_root, ignore_errors=True)
+        failed = [key for key, ok in res["checks"].items() if ok is not True]
+        if failed:
+            raise AssertionError(f"4h {label} checks failed: {failed} "
+                                 f"({res.get('repair')})")
+        check_fanout(f"4h {label}", res["counters"], ("put", "get"),
+                     read_phases=("get", "degraded_get", "range_get",
+                                  "heal"))
+        per_phase = {}
+        for ph, c in res["counters"].items():
+            gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
+            per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n}
+            if hh_n <= 0 or (gf_n > 0) != CODEC_PHASES[ph]:
+                raise AssertionError(
+                    f"4h {label} {ph}: kernel A launched {gf_n} times, "
+                    f"kernel B {hh_n} (want A "
+                    f"{'> 0' if CODEC_PHASES[ph] else '0'}, B > 0)")
+            log(f"4h {label} {ph}: {res['seconds'][ph]:.4f} s, launches "
+                f"A {gf_n} B {hh_n}")
+        if target is not None:
+            c = res["counters"]["repair_heal"]
+            log(f"4h {label} repair of shard {target}: {res['repair']}, "
+                f"parts repaired {c['repair_parts_repaired']}, fallbacks "
+                f"{c['repair_fallbacks']}")
+        for name in launches:
+            launches[name] += got[name]
+        line["cells"][label] = {
+            "codec": codec, "k": k, "m": CODEC_PARITY, "lost": list(lost),
+            "repair_target": target, "seconds": res["seconds"],
+            "launches": per_phase, "repair": res.get("repair"),
+            "checks": res["checks"]}
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_codec_put_get(tmp, S3_CODEC_SIZE, "msr-pm", device="cuda",
+                               seed=20)
+        got = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [key for key, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"4h S3 x-mtpu-codec PUT checks failed: "
+                             f"{failed} (xl.meta {res['xl_meta_codecs']})")
+    per_phase = {}
+    for ph, want_gf in (("put", True), ("get", False)):
+        c = res["counters"][ph]
+        gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n}
+        if hh_n <= 0 or (gf_n > 0) != want_gf:
+            raise AssertionError(f"4h S3 {ph}: kernel A launched {gf_n} "
+                                 f"times, kernel B {hh_n}")
+    for name in launches:
+        launches[name] += got[name]
+    log(f"4h S3 x-mtpu-codec: msr-pm PUT of {S3_CODEC_SIZE} B: "
+        f"{res['seconds']}, xl.meta names {res['xl_meta_codecs']}, "
+        f"launches {per_phase}")
+    line["s3_header_put"] = {"size": S3_CODEC_SIZE, "codec": "msr-pm",
+                             "seconds": res["seconds"],
+                             "launches": per_phase,
+                             "xl_meta_codecs": res["xl_meta_codecs"],
+                             "checks": res["checks"]}
+    return line, launches
+
+
 def trace_path(label: str, run, size: int = TRACE_SIZE):
     """Phases 4b and 4d: one traced run (torch.profiler, CPU + CUDA) of a
     main path at a quarter of the main size: device busy time by kernel
@@ -745,6 +993,36 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
         f"({gf_call_ms:.5f} ms a call from Python), bound {gf_bound:.5f} ms "
         f"({100 * gf_bound / gf_ms:.1f}% of bound)")
 
+    # Kernel A at phase 4h's msr-pm encode shapes, in the sub-shard view.
+    from minio_tpu_torch.erasure import registry
+    from minio_tpu_torch.erasure.codec import cached_erasure
+
+    codec_shapes = []
+    for k, m in ((K, M), (4, 4)):
+        entry = registry.get("msr-pm")
+        a = entry.alpha(k, m)
+        sub = cached_erasure(k, m, BLOCK, "msr-pm", "cuda").shard_size() // a
+        bm = gf.to_device_bitmat(gf.bit_matrix(entry.parity_matrix(k, m)),
+                                 "cuda")
+        xs = [rand((BATCH, k * a, sub), rng) for _ in range(8)]
+        ms = time_graph(lambda x, bm=bm: rs_cuda.apply_gf_matrix_cuda(bm, x),
+                        xs, 200)
+        plain_ms = time_calls(lambda x, bm=bm: rs._apply_bits_plain(bm, x),
+                              xs, 10)
+        rows_in, rows_out = k * a, m * a
+        nbytes = BATCH * (rows_in + rows_out) * sub + bm.numel()
+        ops = 2 * (8 * rows_out) * (8 * rows_in) * BATCH * sub
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S)
+        codec_shapes.append({
+            "codec": "msr-pm", "geometry": f"{k}+{m}", "alpha": a,
+            "shape": [BATCH, rows_in, sub], "rows_out": rows_out, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / INT8_OPS_PER_S else "operations"})
+        log(f"gf_apply msr-pm {k}+{m} encode [{BATCH}, {rows_in}, {sub}] -> "
+            f"{rows_out} cold: {ms:.5f} ms a launch, plain {plain_ms:.5f} "
+            f"ms, bound {bound:.5f} ms ({100 * bound / ms:.1f}% of bound)")
+
     packets = SHARD // 32
 
     def hash_fn(x):
@@ -798,7 +1076,8 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "call_ms": gf_call_ms, "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
          "bound_by": "bytes" if gf_bytes / HBM_BYTES_PER_S
          >= gf_ops / INT8_OPS_PER_S else "operations",
-         "library_ms": None, "shape": [BATCH, K, SHARD]},
+         "library_ms": None, "shape": [BATCH, K, SHARD],
+         "codec_shapes": codec_shapes},
         {"name": "highwayhash256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/highwayhash.cu",
          "replaces": "minio_tpu/ops/highwayhash_jax.py:279",
@@ -859,9 +1138,13 @@ def main() -> int:
     t0 = time.perf_counter()
     drivers_line = run_drivers()
     log(f"driver comparison phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    codecs_line, codec_launches = run_codecs()
+    log(f"codec phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
-                      "s3_plane": s3_launches[name]}
+                      "s3_plane": s3_launches[name],
+                      "codecs": codec_launches[name]}
                for name in launches}
     gc.callbacks.remove(on_gc)
     log(f"collector passes over 20 ms in the main paths (generation, s): "
@@ -874,6 +1157,7 @@ def main() -> int:
     print(json.dumps({"object_layer": object_line}), flush=True)
     print(json.dumps({"s3_plane": s3_line}), flush=True)
     print(json.dumps({"pipelined": drivers_line}), flush=True)
+    print(json.dumps({"codecs": codecs_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

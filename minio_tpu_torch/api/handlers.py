@@ -240,12 +240,20 @@ class S3ApiHandlers:
             raise S3Error("InvalidStorageClass", sc)
 
     @staticmethod
-    def _apply_codec(ctx) -> None:
-        """x-mtpu-codec: the port writes its one codec; an id it does not
-        have is refused before a byte streams."""
+    def _apply_codec(ctx, opts) -> None:
+        """x-mtpu-codec: the request's erasure codec id, the top of
+        registry.select_codec's order. An unknown id is refused before a
+        byte streams; "auto" turns auto-selection back on even where
+        MTPU_CODEC forces a codec for the whole server."""
         cid = ctx.headers.get("x-mtpu-codec", "")
-        if cid and cid != "auto" and cid != registry.DEFAULT_CODEC:
-            raise S3Error("NotImplemented", f"erasure codec {cid!r}")
+        if not cid:
+            return
+        if cid != "auto" and cid not in registry.codec_ids():
+            raise S3Error(
+                "InvalidArgument",
+                f"unknown erasure codec {cid!r} "
+                f"(registered: {sorted(registry.codec_ids())} or auto)")
+        opts.codec = cid
 
     # ---------- service ----------
 
@@ -429,7 +437,7 @@ class S3ApiHandlers:
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
         self._apply_storage_class(ctx)
-        self._apply_codec(ctx)
+        self._apply_codec(ctx, opts)
         # Checked inside the object layer as the body streams, before the
         # commit: a bad digest leaves nothing behind.
         opts.want_md5_hex = _parse_content_md5(ctx.headers)
@@ -563,7 +571,7 @@ class S3ApiHandlers:
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
         self._apply_storage_class(ctx)
-        self._apply_codec(ctx)
+        self._apply_codec(ctx, opts)
         try:
             upload_id = self.ol.new_multipart_upload(ctx.bucket, ctx.object,
                                                      opts)

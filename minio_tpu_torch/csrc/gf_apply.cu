@@ -45,7 +45,8 @@
 // is the ring (33,280 B) plus the constants of one pass (32 B a shard and
 // row of the pass): 34,816 B at 12+4, and up to 98,816 B at K = 256, where
 // the launch raises the kernel's dynamic shared memory limit above 48 KB.
-// Every geometry up to K = 256 (any R, any B, any S) fits.
+// Every K up to 778 (any R, any B, any S) fits: 163,328 B at K = 508, the
+// widest sub-shard view of the msr-pm codec (254+2, alpha 2).
 //
 // Stores. A thread writes its 16 output bytes as one aligned 16-byte store
 // that takes the tail of its neighbour's bytes with a shuffle; where that

@@ -5,10 +5,13 @@ batch of 8 x 1 MiB blocks. `put_get_heal()` drives the erasure data plane
 end to end on shard files: PUT, degraded GET (full and ranged), heal.
 `object_put_get_heal()` drives the same through the object layer and the
 drive storage: PutObject, GetObject healthy and degraded, HealObject and
-a bitrot check on 16 drive directories at 12+4. `s3_put_get_heal()`
-drives the S3 server over HTTP on localhost: signed PUTs (aws-chunked,
-multipart, small objects), listing, GETs, lost drives, degraded GETs and
-an admin heal.
+a bitrot check on 16 drive directories at 12+4;
+`object_codec_put_get_heal()` does it under one erasure codec at any
+set size, with a heal of one lost drive through the repair plane.
+`s3_put_get_heal()` drives the S3 server over HTTP on localhost: signed
+PUTs (aws-chunked, multipart, small objects), listing, GETs, lost
+drives, degraded GETs and an admin heal; `s3_codec_put_get()` one PUT
+with the x-mtpu-codec header.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .erasure import device_engine, streaming
+from .erasure import device_engine, registry, repair, streaming
 from .erasure.bitrot import (
     StreamingBitrotReader,
     StreamingBitrotWriter,
@@ -40,6 +43,7 @@ from .erasure.streaming import (
 from .api.client import S3Client
 from .object import erasure_objects
 from .object.sets import ErasureSets
+from .object.types import ObjectOptions
 from .ops import gf, highwayhash_torch, host_feed, rs_cuda
 from .ops.rs import apply_gf_matrix
 from .server import Server
@@ -69,6 +73,7 @@ def counters() -> dict:
     snap = device_engine.stats_snapshot()
     snap.update(streaming.stats_snapshot())
     snap.update({f"h2d_{k}": v for k, v in host_feed.h2d_snapshot().items()})
+    snap.update({f"repair_{k}": v for k, v in repair.stats_snapshot().items()})
     snap["kernel_gf_launches"] = rs_cuda.LAUNCHES.value
     snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES.value
     return snap
@@ -333,6 +338,164 @@ def object_put_get_heal(root, size: int, device="cuda",
         return False
 
     checks["bitrot_detected"] = phase("bitrot_verify", verify_bad)
+    out["checks"] = checks
+    return out
+
+
+# How object_codec_put_get_heal loses the shards of `lost`, in turn:
+# part.1 deleted twice, the object's directory removed, part.1 cut in
+# half (the losses of object_put_get_heal).
+_LOSSES = ("unlink", "unlink", "rmtree", "truncate")
+
+
+def object_codec_put_get_heal(root, size: int, codec: str,
+                              drives: int = 16, parity: int = 4,
+                              lost=OBJECT_LOST, repair_target=None,
+                              device="cuda", seed: int = 0) -> dict:
+    """Drive the object layer under one erasure codec: `drives` fresh
+    drive directories under `root` as one set of default parity
+    `parity`, then
+
+    1. PutObject of a seeded `size`-byte object with
+       ObjectOptions(codec=codec), and its xl.meta checked to name the
+       codec and its wire algorithm;
+    2. GetObject, every shard present;
+    3. the shards `lost` lost (by shard index, mapped to drives through
+       the object's distribution; in turn part.1 deleted, part.1
+       deleted, the object directory removed, part.1 cut in half);
+    4. degraded GetObject, whole and an unaligned range;
+    5. HealObject, then each rebuilt part.1 and xl.meta against the
+       SHA-256 of its original;
+    6. when `repair_target` is a shard index: that shard's drive loses
+       the object, and HealObject rebuilds it through the repair plane
+       (erasure/repair.py): one part repaired, no fallback, the bytes
+       read a byte healed equal to the plan's total_symbols / alpha,
+       and the rebuilt files equal to the originals.
+
+    Returns each phase's seconds and counter deltas (`counters()`, the
+    repair plane's STATS under "repair_"), the repair ratio, and the
+    checks, each True when it held."""
+    dev = resolve_device(device)
+    root = Path(root)
+    bucket, name = OBJECT_BUCKET, "object"
+    disks = [LocalStorage(str(root / f"d{i}"), endpoint=f"d{i}", device=dev)
+             for i in range(drives)]
+    sets = ErasureSets(disks, drives, default_parity=parity, device=dev)
+    sets.init_format()
+    sets.make_bucket(bucket)
+    payload = np.random.default_rng(seed).bytes(size)
+    out: dict = {"size": size, "codec": codec, "k": drives - parity,
+                 "m": parity, "lost": list(lost),
+                 "repair_target": repair_target, "seconds": {},
+                 "counters": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+
+    def get(offset=0, length=-1) -> bytes:
+        sink = io.BytesIO()
+        sets.get_object(bucket, name, sink, offset, length)
+        return sink.getvalue()
+
+    phase("put", lambda: sets.put_object(bucket, name, io.BytesIO(payload),
+                                         size, ObjectOptions(codec=codec)))
+    fi = disks[0].read_version(bucket, name)
+    checks["codec_stamped"] = (
+        fi.erasure.codec == codec
+        and fi.erasure.algorithm == registry.get(codec).wire_algorithm)
+    checks["get_ok"] = phase("get", get) == payload
+    shard_disk = {d - 1: i for i, d in enumerate(fi.erasure.distribution)}
+
+    def obj_dir(shard: int) -> Path:
+        return root / f"d{shard_disk[shard]}" / bucket / name
+
+    def part(shard: int) -> Path:
+        return obj_dir(shard) / fi.data_dir / "part.1"
+
+    def digests(shard: int) -> tuple:
+        return tuple(hashlib.sha256(p.read_bytes()).hexdigest()
+                     for p in (part(shard), obj_dir(shard) / "xl.meta"))
+
+    originals = {s: digests(s) for s in range(drives)}
+    for i, s in enumerate(lost):
+        loss = _LOSSES[i % len(_LOSSES)]
+        if loss == "unlink":
+            part(s).unlink()
+        elif loss == "rmtree":
+            shutil.rmtree(obj_dir(s))
+        else:
+            with open(part(s), "r+b") as f:
+                f.truncate(part(s).stat().st_size // 2)
+    checks["degraded_get_ok"] = phase("degraded_get", get) == payload
+    block = erasure_objects.BLOCK_SIZE_V2
+    r_off = min(size - 1, 3 * block + 12345)
+    r_len = min(size - r_off, 5 * block + 777)
+    checks["range_ok"] = phase("range_get", lambda: get(
+        r_off, r_len)) == payload[r_off:r_off + r_len]
+    healed = phase("heal", lambda: sets.heal_object(bucket, name))
+    checks["heal_result_ok"] = healed == {
+        "healed": [f"d{shard_disk[s]}" for s in sorted(lost)],
+        "dangling": False}
+    checks["healed_identical"] = all(digests(s) == originals[s]
+                                     for s in lost)
+
+    if repair_target is not None:
+        shutil.rmtree(obj_dir(repair_target))
+        healed = phase("repair_heal", lambda: sets.heal_object(bucket, name))
+        c = out["counters"]["repair_heal"]
+        plan = registry.get(codec).repair_plan(drives - parity, parity,
+                                               repair_target)
+        ratio = (c["repair_bytes_read"] / c["repair_bytes_written"]
+                 if c["repair_bytes_written"] else float("nan"))
+        out["repair"] = {"bytes_read": c["repair_bytes_read"],
+                         "bytes_written": c["repair_bytes_written"],
+                         "ratio": ratio,
+                         "plan_ratio": plan.total_symbols / plan.alpha}
+        checks["repair_result_ok"] = healed == {
+            "healed": [f"d{shard_disk[repair_target]}"], "dangling": False}
+        checks["repaired_by_plane"] = (c["repair_parts_repaired"] == 1
+                                       and c["repair_fallbacks"] == 0)
+        checks["repair_ratio_ok"] = ratio == plan.total_symbols / plan.alpha
+        checks["repaired_identical"] = (digests(repair_target)
+                                        == originals[repair_target])
+        checks["get_after_repair_ok"] = get() == payload
+    out["checks"] = checks
+    return out
+
+
+def s3_codec_put_get(root, size: int, codec: str, device="cuda",
+                     seed: int = 0) -> dict:
+    """A Server over 16 fresh drive directories under `root` (one 12+4
+    set) takes one signed PUT of a seeded `size`-byte object with the
+    header x-mtpu-codec: `codec`, and one GET of it. Returns the seconds
+    and counter deltas of both, and the checks: the PUT's ETag, the GET's
+    bytes, and the codec id xl.meta names on every drive."""
+    dev = resolve_device(device)
+    root = Path(root)
+    payload = np.random.default_rng(seed).bytes(size)
+    out: dict = {"size": size, "codec": codec, "seconds": {},
+                 "counters": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    key = f"/{S3_BUCKET}/codec.bin"
+    server = Server([str(root / "d{1...16}")], port=0,
+                    root_user=S3_ACCESS, root_password=S3_SECRET,
+                    default_parity=4, device=dev).start()
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+        checks["make_bucket_ok"] = c.request("PUT", f"/{S3_BUCKET}")[0] == 200
+        status, headers, _ = phase("put", lambda: c.request(
+            "PUT", key, headers={"x-mtpu-codec": codec}, body=payload))
+        checks["put_ok"] = (status == 200 and headers.get("ETag") ==
+                            f'"{hashlib.md5(payload).hexdigest()}"')
+        status, _, body = phase("get", lambda: c.request("GET", key))
+        checks["get_ok"] = status == 200 and body == payload
+    finally:
+        server.stop()
+    codecs = {LocalStorage(str(root / f"d{i}"), device=dev).read_version(
+        S3_BUCKET, key.rsplit("/", 1)[1]).erasure.codec
+        for i in range(1, 17)}
+    out["xl_meta_codecs"] = sorted(codecs)
+    checks["codec_stamped"] = codecs == {codec}
     out["checks"] = checks
     return out
 

@@ -2,9 +2,12 @@
 the reference's `Erasure`, cmd/erasure-coding.go).
 
 Shard geometry, split semantics and the empty/all-missing early-outs are
-the reference's. Every GF application, the ragged tail block included,
-runs through the device engine on the codec's device: the port has no
-host engine to hand small work to.
+the reference's. A sub-packetized codec (msr-pm, alpha sub-shards a
+shard) rounds every shard length up to a multiple of alpha, as
+minio_tpu does. Every GF application, the ragged tail block included,
+runs through the device engine on the codec's device, which applies the
+sub-shard view around kernel A: the port has no host engine to hand
+small work to.
 """
 
 from __future__ import annotations
@@ -60,11 +63,18 @@ class Erasure:
                 f"data+parity={data_blocks + parity_blocks} exceeds "
                 f"{entry.max_shards}"
             )
+        if not entry.geometry_ok(data_blocks, parity_blocks):
+            raise ErrInvShardNum(
+                f"codec {codec!r} does not support geometry "
+                f"{data_blocks}+{parity_blocks}"
+            )
         self.data_blocks = data_blocks
         self.parity_blocks = parity_blocks
         self.block_size = block_size
         self.total_shards = data_blocks + parity_blocks
         self.codec_id = codec
+        # Sub-packetization: shard lengths are multiples of alpha.
+        self.subshards = entry.alpha(data_blocks, parity_blocks)
         self.matrix = entry.coding_matrix(data_blocks, parity_blocks)
         self.engine = device_engine.for_geometry(data_blocks, parity_blocks,
                                                  codec, device)
@@ -72,9 +82,20 @@ class Erasure:
 
     # --- geometry (cmd/erasure-coding.go:120-149) ---
 
+    def chunk_size(self, block_len: int) -> int:
+        """Shard length of a block of `block_len` bytes: its split into k,
+        rounded up to the codec's sub-packetization. The pad must be on
+        disk: a sub-packetized parity byte depends on data columns past
+        the block's end."""
+        return self._round_shard(ceil_frac(block_len, self.data_blocks))
+
+    def _round_shard(self, size: int) -> int:
+        a = self.subshards
+        return ceil_frac(size, a) * a if a > 1 else size
+
     def shard_size(self) -> int:
         """Actual shard size from the erasure blockSize."""
-        return ceil_frac(self.block_size, self.data_blocks)
+        return self.chunk_size(self.block_size)
 
     def shard_file_size(self, total_length: int) -> int:
         """Final erasure size on each disk from the original object size."""
@@ -83,8 +104,7 @@ class Erasure:
         if total_length == -1:
             return -1
         num_shards = total_length // self.block_size
-        last_block_size = total_length % self.block_size
-        last_shard_size = ceil_frac(last_block_size, self.data_blocks)
+        last_shard_size = self.chunk_size(total_length % self.block_size)
         return num_shards * self.shard_size() + last_shard_size
 
     def shard_file_offset(self, start_offset: int, length: int,
@@ -104,7 +124,7 @@ class Erasure:
         data = np.frombuffer(memoryview(data), dtype=np.uint8)
         if data.size == 0:
             raise ErrShortData("cannot split empty data")
-        per_shard = ceil_frac(data.size, self.data_blocks)
+        per_shard = self.chunk_size(data.size)
         padded = np.zeros(self.total_shards * per_shard, dtype=np.uint8)
         padded[: data.size] = data
         return list(padded.reshape(self.total_shards, per_shard))

@@ -8,7 +8,11 @@ PUT staged on its copy stream (ops.host_feed.HostFeed) arrives as a
 `Staged` item: the compute stream waits on its event on the device, and
 the tensor is recorded on that stream for the caching allocator. The
 parity matrix and each (present, targets) reconstruction matrix stay
-cached on the device. The outputs
+cached on the device. A sub-packetized codec (msr-pm) addresses
+alpha sub-shards a shard: the contiguous [B, K, S] batch is viewed as
+[B, K*alpha, S/alpha] for kernel A, whose [B, R*alpha, S/alpha] output
+is viewed back as [B, R, S] (both views cost nothing); kernel B hashes
+whole shards either way. The outputs
 come back by a non_blocking copy into pinned host tensors behind a
 recorded CUDA event: the returned handles wait on that event before they
 hand out numpy, so the host can fan out the writes of batch N-1 while
@@ -38,6 +42,7 @@ from ..ops.highwayhash_torch import hash256_batch
 from ..ops.host_feed import Staged, count_h2d
 from ..ops.rs import apply_gf_matrix
 from ..utils.device import resolve_device
+from ..utils.errors import ErrShardSize
 from . import registry
 
 STATS = {"dispatches": 0, "async_d2h": 0, "launches_gf": 0,
@@ -111,6 +116,7 @@ class DeviceCodec:
         self.device = resolve_device(device)
         self.codec_id = codec
         self._entry = registry.get(codec)
+        self.alpha = self._entry.alpha(self.k, self.m)
         self._lock = threading.Lock()
         self._mats: dict = {}  # key -> device bit-matrix
         self._parity = self._bitmat(
@@ -147,10 +153,27 @@ class DeviceCodec:
             return t.to(self.device, non_blocking=pinned).contiguous()
         return t.to(self.device).contiguous()
 
-    def _run(self, bitmat, dev, hash_input_of):
-        count("dispatches")
+    def _apply(self, bitmat, dev: torch.Tensor) -> torch.Tensor:
+        """Kernel A on [B, K, S] shards on the device -> [B, R, S], in the
+        sub-shard view when alpha > 1."""
+        a = self.alpha
+        if a > 1:
+            b, k, s = dev.shape
+            if s % a:
+                raise ErrShardSize(
+                    f"shard length {s} not a multiple of sub-packetization "
+                    f"{a} for codec {self.codec_id!r}")
+            dev = dev.view(b, k * a, s // a)
         out = apply_gf_matrix(bitmat, dev)
         count("launches_gf")
+        if a > 1:
+            out = out.view(out.shape[0], out.shape[1] // a, -1)
+        return out
+
+    @staticmethod
+    def _finish(out, hash_input_of):
+        """Digest the output if asked (kernel B), then queue the copies
+        of both to the host."""
         if hash_input_of is None:
             return _to_host([out])[0], None
         digests = hash256_batch(hash_input_of(out))
@@ -167,7 +190,8 @@ class DeviceCodec:
             raise ValueError(f"want {self.k} data shards, got {dev.shape[1]}")
         hash_in = (lambda parity: torch.cat([dev, parity], dim=1)) \
             if with_hashes else None
-        return self._run(self._parity, dev, hash_in)
+        count("dispatches")
+        return self._finish(self._apply(self._parity, dev), hash_in)
 
     def reconstruct_async(self, src, present, targets,
                           with_hashes: bool = False):
@@ -182,8 +206,25 @@ class DeviceCodec:
             lambda: self._entry.reconstruct_matrix(
                 self.k, self.m, list(present), list(targets)))
         dev = self._stage(src)
-        return self._run(bitmat, dev, (lambda out: out) if with_hashes
-                         else None)
+        count("dispatches")
+        return self._finish(self._apply(bitmat, dev),
+                            (lambda out: out) if with_hashes else None)
+
+    def repair_async(self, target: int, matrix, symbols,
+                     with_hashes: bool = False):
+        """Rebuild shard `target` of nb blocks from its repair symbols
+        (erasure/repair.py): symbols [nb, T, S/alpha] in the plan's order
+        (a host array, a tensor or a `Staged` item), `matrix` the plan's
+        [alpha, T] byte matrix -> (chunks [nb, 1, S], digests [nb, 1, 32]
+        or None) as HostResult handles. The symbols are sub-shards
+        already, so kernel A takes them as they are."""
+        bitmat = self._bitmat(("repair", target), lambda: matrix)
+        dev = self._stage(symbols)
+        count("dispatches")
+        out = apply_gf_matrix(bitmat, dev)
+        count("launches_gf")
+        return self._finish(out.view(out.shape[0], 1, -1),
+                            (lambda o: o) if with_hashes else None)
 
 
 @functools.lru_cache(maxsize=64)

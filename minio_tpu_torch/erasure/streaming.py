@@ -54,7 +54,7 @@ from ..pipeline import (
     shared_pool,
 )
 from ..storage.diskcheck import ROBUST
-from ..utils import ceil_frac, fanout
+from ..utils import fanout
 from ..utils.errors import (
     OBJECT_OP_IGNORED_ERRS,
     ErrDiskNotFound,
@@ -213,10 +213,11 @@ def _gather_batches(src, block_size: int, batch_blocks: int):
         yield full, tail
 
 
-def _pack(group: list[bytes], k: int) -> np.ndarray:
+def _pack(group: list[bytes], erasure: Erasure) -> np.ndarray:
     """Equal-length blocks -> [B, k, S] data shards, zero-padded as
-    Erasure.split pads."""
-    s = ceil_frac(len(group[0]), k)
+    Erasure.split pads (to the codec's sub-packetization too)."""
+    k = erasure.data_blocks
+    s = erasure.chunk_size(len(group[0]))
     data = np.zeros((len(group), k * s), dtype=np.uint8)
     for bi, b in enumerate(group):
         data[bi, : len(b)] = np.frombuffer(b, dtype=np.uint8)
@@ -258,7 +259,6 @@ def _encode_stream_batched(erasure: Erasure, src, writer: ParallelWriter,
     """Serial driver: each gather's full blocks are one batch dispatched
     asynchronously (staged from pageable memory), and the tail block a
     batch of its own; while batch N computes, the host writes batch N-1."""
-    k = erasure.data_blocks
     total = 0
     pending = None  # (data [B, k, S], parity handle, digests handle, bytes)
 
@@ -266,7 +266,7 @@ def _encode_stream_batched(erasure: Erasure, src, writer: ParallelWriter,
         for group in (full, [tail] if tail else []):
             if not group:
                 continue
-            data = _pack(group, k)
+            data = _pack(group, erasure)
             parity_h, digests_h = erasure.encode_batch_async(
                 data, with_hashes=want_digests)
             if pending is not None:
@@ -355,7 +355,7 @@ def _encode_stream_batched_pipelined(erasure: Erasure, src,
         if tail:
             # The ragged tail splits to its own shard size: a batch of its
             # own, in a pinned buffer of its own.
-            s_t = ceil_frac(len(tail), k)
+            s_t = erasure.chunk_size(len(tail))
             tbuf = host_buffer((1, k * s_t), device)
             tbuf[0, : len(tail)] = np.frombuffer(tail, dtype=np.uint8)
             tbuf[0, len(tail):] = 0

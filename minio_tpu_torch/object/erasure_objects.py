@@ -27,8 +27,9 @@ import threading
 import time
 from contextlib import ExitStack, contextmanager
 
-from ..erasure import registry
+from ..erasure import registry, repair
 from ..erasure.bitrot import (
+    DIGEST_SIZE,
     BitrotAlgorithm,
     StreamingBitrotReader,
     StreamingBitrotWriter,
@@ -290,7 +291,11 @@ class ErasureObjects(MultipartMixin):
             parity = opts.parity
         data_blocks = n - parity
         write_quorum = data_blocks + (1 if data_blocks == parity else 0)
-        codec_id = registry.DEFAULT_CODEC  # the port's one codec
+        # Codec identity is fixed at PUT time and persisted in xl.meta:
+        # the request's codec > MTPU_CODEC > auto-selection.
+        codec_id = registry.select_codec(data_blocks, parity,
+                                         forced=opts.codec,
+                                         device=self.device)
         wire_algo = registry.get(codec_id).wire_algorithm
         block_size = self._block_size()
         erasure = self._object_erasure(data_blocks, parity, block_size,
@@ -558,6 +563,19 @@ class ErasureObjects(MultipartMixin):
         r.local = True  # an inline buffer or a LocalStorage drive
         return r
 
+    @staticmethod
+    def _repair_sources(avail_by_shard: list, bucket: str, object_: str,
+                        fi: FileInfo, part_number: int) -> list:
+        """The repair plane's SymbolSource of each surviving shard: its
+        drive and the part file's frame geometry. Every part the port
+        reads is framed by HighwayHash256S (check_parts refuses other
+        algorithms), whose digests interleave the chunks."""
+        path = f"{object_}/{fi.data_dir}/part.{part_number}"
+        return [None if disk is None else repair.SymbolSource(
+                    disk=disk, volume=bucket, path=path,
+                    digest_size=DIGEST_SIZE)
+                for disk in avail_by_shard]
+
     # ------------------------------------------------------------------
     # delete (DeleteObject, cmd/erasure-object.go)
 
@@ -687,35 +705,79 @@ class ErasureObjects(MultipartMixin):
             erasure = self._object_erasure(
                 data_blocks, ref_fi.erasure.parity_blocks,
                 ref_fi.erasure.block_size, ref_fi.erasure.codec)
+            # The repair plane (erasure/repair.py) serves ONE stale shard
+            # of a part file when every other shard survives (the plan
+            # needs all n-1 helpers) and the codec has a plan for it:
+            # each survivor reads only its beta-slices. Anything else
+            # takes the dense heal_stream, the same bytes either way.
+            use_repair = (
+                not inline
+                and len(stale_shards) == 1
+                and repair.enabled()
+                and all(avail_by_shard[s] is not None
+                        for s in range(len(disks_by_shard))
+                        if s != stale_shards[0])
+                and repair.plan_for(erasure, stale_shards[0]) is not None)
             for part in ref_fi.parts:
                 phys_shard = bitrot_shard_file_size(
                     erasure.shard_file_size(part.size), erasure.shard_size())
-                till = erasure.shard_file_offset(0, part.size, part.size)
-                readers = [
-                    None if avail_by_shard[s] is None else self._shard_reader(
-                        avail_by_shard[s], metas_by_shard[s], bucket,
-                        object_, ref_fi, part.number, till,
-                        erasure.shard_size())
-                    for s in range(len(disks_by_shard))]
-                writers: list = [None] * len(disks_by_shard)
-                sinks: dict[int, object] = {}
-                try:
+
+                def open_sinks(part=part, phys_shard=phys_shard):
+                    ws: list = [None] * len(disks_by_shard)
                     for s in stale_shards:
                         sinks[s] = io.BytesIO() if inline else \
                             disks_by_shard[s].create_file_writer(
                                 SYSTEM_META_BUCKET,
                                 f"{self._tmp_path(tmp_id)}/part.{part.number}",
                                 size=phys_shard)
-                        writers[s] = StreamingBitrotWriter(
-                            sinks[s], device=self.device)
-                    heal_stream(erasure, writers, readers, part.size)
-                except BaseException:
-                    _close_sinks(sinks)
-                    if not inline:
+                        ws[s] = StreamingBitrotWriter(sinks[s],
+                                                      device=self.device)
+                    return ws
+
+                sinks: dict[int, object] = {}
+                repaired = False
+                if use_repair and part.size > 0:
+                    try:
+                        sources = self._repair_sources(
+                            avail_by_shard, bucket, object_, ref_fi,
+                            part.number)
+                        writers = open_sinks()
+                        repair.repair_part(erasure, stale_shards[0], sources,
+                                           writers[stale_shards[0]],
+                                           part.size)
+                        repaired = True
+                    except (repair.RepairUnavailable, StorageError,
+                            OSError) as exc:
+                        # A CUDA error is not caught: the dense path
+                        # would run the same kernel. The dense heal
+                        # re-creates (truncates) the same tmp files.
+                        repair.note_fallback(getattr(exc, "reason",
+                                                     "drive_error"))
+                        _close_sinks(sinks)
+                        sinks = {}
+                    except BaseException:
+                        _close_sinks(sinks)
                         self._cleanup_tmp(disks_by_shard, tmp_id)
-                    raise
-                finally:
-                    _close_sinks(readers)
+                        raise
+                if not repaired:
+                    till = erasure.shard_file_offset(0, part.size, part.size)
+                    readers = [
+                        None if avail_by_shard[s] is None
+                        else self._shard_reader(
+                            avail_by_shard[s], metas_by_shard[s], bucket,
+                            object_, ref_fi, part.number, till,
+                            erasure.shard_size())
+                        for s in range(len(disks_by_shard))]
+                    try:
+                        heal_stream(erasure, open_sinks(), readers,
+                                    part.size)
+                    except BaseException:
+                        _close_sinks(sinks)
+                        if not inline:
+                            self._cleanup_tmp(disks_by_shard, tmp_id)
+                        raise
+                    finally:
+                        _close_sinks(readers)
                 for s in stale_shards:
                     if inline:
                         healed_inline[s][part.number] = sinks[s].getvalue()

@@ -90,7 +90,9 @@ class MultipartMixin:
         upload_path = f"{_upload_root(bucket, object_)}/{upload_id}"
         # The geometry and codec are fixed at initiate time and journaled:
         # every part and the complete use them.
-        codec_id = registry.DEFAULT_CODEC  # the port's one codec
+        codec_id = registry.select_codec(data_blocks, parity,
+                                         forced=opts.codec,
+                                         device=self.device)
         fi = FileInfo(
             volume=SYSTEM_META_BUCKET,
             name=upload_path,

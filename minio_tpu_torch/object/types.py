@@ -35,6 +35,9 @@ class ObjectOptions:
     # GET: the ETag the response headers advertised; a locked read that
     # finds another object fails with no byte written.
     expected_etag: str = ""
+    # The request's erasure codec id (x-mtpu-codec; "auto" re-enables
+    # auto-selection); "" lets registry.select_codec choose.
+    codec: str = ""
 
 
 @dataclass

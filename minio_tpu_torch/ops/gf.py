@@ -168,15 +168,24 @@ def reconstruct_matrix(data_shards: int, parity_shards: int,
 @functools.lru_cache(maxsize=256)
 def _reconstruct_matrix_cached(data_shards: int, parity_shards: int,
                                present: tuple, targets: tuple) -> np.ndarray:
+    out = reconstruct_matrix_from(rs_matrix(data_shards, parity_shards),
+                                  data_shards, present, targets)
+    out.setflags(write=False)
+    return out
+
+
+def reconstruct_matrix_from(full: np.ndarray, data_shards: int, present,
+                            targets) -> np.ndarray:
+    """(len(targets), k) byte matrix M with targets = M @ present[:k], for
+    any systematic (k+m, k) coding matrix `full` (dense Vandermonde here,
+    Cauchy in ops/cauchy.py)."""
     k = data_shards
     if len(present) < k:
         raise ValueError("need at least dataShards present shards")
-    full = rs_matrix(data_shards, parity_shards)
     inv = gf_mat_inv(full[list(present[:k])])  # present -> original data
     out = np.zeros((len(targets), k), dtype=np.uint8)
     for t_i, t in enumerate(targets):
         out[t_i] = inv[t] if t < k else gf_matmul(full[t: t + 1], inv)[0]
-    out.setflags(write=False)
     return out
 
 

@@ -18,9 +18,10 @@ def _apply_bits_plain(bitmat: torch.Tensor,
                       shards: torch.Tensor) -> torch.Tensor:
     """Unpack to bits -> float32 matmul -> & 1 -> repack.
 
-    The 0/1 sums are at most 8K <= 2048, exact in float32 (TF32 must be
-    off, which the smoke run sets on the card); torch has no int32
-    matmul on CUDA and its int8 matmul returns int8."""
+    The 0/1 sums are at most 8K, exact in float32 while 8K < 2^24, so for
+    every K (TF32 must be off, which the smoke run sets on the card);
+    torch has no int32 matmul on CUDA and its int8 matmul returns
+    int8."""
     r8, k8 = bitmat.shape
     lead = shards.shape[:-2]
     s = shards.shape[-1]

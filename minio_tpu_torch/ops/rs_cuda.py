@@ -3,11 +3,13 @@
 
 `apply_gf_matrix_cuda` takes the interleaved bit-matrix itself; the
 kernel builds its per-row constants in shared memory, so there is no
-plane-major column permutation as the Pallas kernel needs. It takes
-every geometry minio_tpu accepts (K + R <= 256, any batch and any S):
-its shared memory is a 33,280-byte ring of shard rows plus 32 bytes a
+plane-major column permutation as the Pallas kernel needs. Its only
+limit is shared memory: a 33,280-byte ring of shard rows plus 32 bytes a
 shard and output row of a pass (up to eight rows), 98,816 bytes at
-K = 256.
+K = 256 and 163,328 at K = 508, so it takes K <= 778 input rows (the
+launch checks it), any R, any batch and any S. The sub-shard view of
+the msr-pm codec gives it K = k*alpha and R = r*alpha: up to K = 508
+(254+2) and R = 256 (128+128) among the geometries the registry admits.
 """
 
 from __future__ import annotations

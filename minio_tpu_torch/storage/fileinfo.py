@@ -60,8 +60,10 @@ class ErasureInfo:
     metadata from before codec ids, which is dense Vandermonde when the
     wire algorithm is rs-vandermonde; from_dict resolves it, and refuses
     a codec the port does not have rather than decode with the wrong
-    matrices. The port's one codec has no sub-packetization, so shard
-    sizes are the block split as is."""
+    matrices. Shard sizes round up to the codec's sub-packetization, as
+    the codec layer's do (erasure/codec.Erasure.chunk_size): otherwise
+    check_parts and verify_file would find every part of a sub-packetized
+    object the wrong size."""
 
     algorithm: str = ERASURE_ALGORITHM
     data_blocks: int = 0
@@ -72,8 +74,14 @@ class ErasureInfo:
     checksums: list[ChecksumInfo] = field(default_factory=list)
     codec: str = ""
 
+    def _chunk_size(self, block_len: int) -> int:
+        size = ceil_frac(block_len, self.data_blocks)
+        a = registry.get(self.codec).alpha(
+            self.data_blocks, self.parity_blocks) if self.codec else 1
+        return ceil_frac(size, a) * a if a > 1 else size
+
     def shard_size(self) -> int:
-        return ceil_frac(self.block_size, self.data_blocks)
+        return self._chunk_size(self.block_size)
 
     def shard_file_size(self, total_length: int) -> int:
         if total_length == 0:
@@ -81,8 +89,8 @@ class ErasureInfo:
         if total_length == -1:
             return -1
         num = total_length // self.block_size
-        last = total_length % self.block_size
-        return num * self.shard_size() + ceil_frac(last, self.data_blocks)
+        return num * self.shard_size() + self._chunk_size(
+            total_length % self.block_size)
 
     def get_checksum_info(self, part_number: int) -> ChecksumInfo:
         for c in self.checksums:

@@ -115,6 +115,20 @@ class StorageAPI(abc.ABC):
         file; the caller closes it."""
 
     @abc.abstractmethod
+    def read_repair_symbol(self, volume: str, path: str, *, stride: int,
+                           digest_size: int, alpha: int, subs: list[int],
+                           blocks: list[tuple[int, int]]) -> bytes:
+        """The repair symbols (beta-slices) of a bitrot-framed shard file:
+        for each (block index, chunk length) of `blocks`, the sub-shards
+        `subs` of that block's chunk (chunk length / alpha bytes each),
+        past the block's digest. `stride` is a full block's frame
+        (digest + whole chunk); the last block's chunk may be shorter.
+        Returns the slices block-major in `subs` order, exactly
+        len(blocks) * len(subs) * chunk / alpha bytes, which is all the
+        drive reads. No digest is checked: a slice cannot be without
+        reading its whole chunk (the repair plane, erasure/repair.py)."""
+
+    @abc.abstractmethod
     def check_parts(self, volume: str, path: str, fi: FileInfo) -> None: ...
 
     @abc.abstractmethod

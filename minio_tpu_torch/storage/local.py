@@ -375,6 +375,35 @@ class LocalStorage(StorageAPI):
         f.seek(offset)
         return _LimitedReader(f, length)
 
+    def read_repair_symbol(self, volume: str, path: str, *, stride: int,
+                           digest_size: int, alpha: int, subs: list[int],
+                           blocks: list[tuple[int, int]]) -> bytes:
+        """One open and a seek a slice (minio_tpu's LocalStorage
+        override)."""
+        self._require_online()
+        out = bytearray()
+        try:
+            with open(self._file_path(volume, path), "rb") as f:
+                for block, chunk_len in blocks:
+                    if chunk_len % alpha:
+                        raise ValueError(
+                            f"repair chunk {chunk_len} not divisible by "
+                            f"alpha {alpha}")
+                    sub_len = chunk_len // alpha
+                    base = block * stride + digest_size
+                    for sub in subs:
+                        f.seek(base + sub * sub_len)
+                        buf = f.read(sub_len)
+                        if len(buf) != sub_len:
+                            raise ErrFileCorrupt(
+                                f"short repair read {volume}/{path}")
+                        out += buf
+        except FileNotFoundError:
+            raise ErrFileNotFound(f"{volume}/{path}") from None
+        except IsADirectoryError:
+            raise ErrFileAccessDenied(f"{volume}/{path}") from None
+        return bytes(out)
+
     def _part_path(self, volume: str, path: str, fi: FileInfo,
                    number: int) -> str:
         return os.path.join(self._file_path(volume, path), fi.data_dir,

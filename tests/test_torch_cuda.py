@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from minio_tpu_torch.entry import (object_put_get_heal, put_get_heal,
+from minio_tpu_torch.entry import (object_codec_put_get_heal,
+                                   object_put_get_heal, put_get_heal,
                                    s3_put_get_heal)
-from minio_tpu_torch.erasure import device_engine
+from minio_tpu_torch.erasure import device_engine, registry
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
 pytestmark = pytest.mark.cuda
@@ -60,6 +61,62 @@ def test_gf_kernel_reconstructs(cuda, k, m, lost):
     x = _rand((4, k, 1000), 1, cuda)
     assert torch.equal(rs_cuda.apply_gf_matrix_cuda(bm, x),
                        rs._apply_bits_plain(bm, x))
+
+
+@pytest.mark.parametrize("k,m,sub", [
+    (254, 2, 515),      # piggyback, K = 508: the widest K
+    (128, 128, 257),    # piggyback, R = 256: the widest R
+    (200, 56, 515),     # piggyback, K = 400, R = 112
+    (8, 2, 333),        # coupled-layer, alpha 32: K = 256, R = 64
+    (6, 3, 1000),       # coupled-layer, alpha 27
+    (5, 5, 1000),       # coupled-layer, alpha 25
+    (12, 4, 43691),     # 12+4 at a 1 MiB block: 87,382 / 2
+    (12, 4, 515),       # its 12,345 B tail: 1,030 / 2
+    (4, 4, 193),        # 4+4's 12,345 B tail: 3,088 / 16
+])
+def test_gf_kernel_at_msr_pm_shapes(cuda, k, m, sub):
+    """Kernel A in the msr-pm sub-shard view [B, k*alpha, S/alpha]: the
+    encode, and a reconstruction of shards 0..m-1 from the rest."""
+    entry = registry.get(registry.MSR_PM)
+    a = entry.alpha(k, m)
+    x = _rand((2, k * a, sub), k + m + sub, cuda)
+    for mat in (entry.parity_matrix(k, m),
+                entry.reconstruct_matrix(k, m, list(range(m, k + m)),
+                                         list(range(m)))):
+        bm = gf.to_device_bitmat(gf.bit_matrix(mat), cuda)
+        assert torch.equal(rs_cuda.apply_gf_matrix_cuda(bm, x),
+                           rs._apply_bits_plain(bm, x))
+
+
+@pytest.mark.parametrize("k,m,target,sub", [(4, 4, 6, 16384), (4, 4, 0, 193),
+                                            (12, 4, 3, 43691),
+                                            (12, 4, 3, 515)])
+def test_gf_kernel_at_repair_shapes(cuda, k, m, target, sub):
+    """Kernel A with a repair plan's [alpha, T] matrix on [nb, T, S/alpha]
+    symbols."""
+    plan = registry.get(registry.MSR_PM).repair_plan(k, m, target)
+    bm = gf.to_device_bitmat(gf.bit_matrix(plan.matrix), cuda)
+    x = _rand((9, plan.total_symbols, sub), target + sub, cuda)
+    assert torch.equal(rs_cuda.apply_gf_matrix_cuda(bm, x),
+                       rs._apply_bits_plain(bm, x))
+
+
+@pytest.mark.parametrize("codec,drives,lost,target", [
+    ("cauchy-xor", 16, (0, 5, 12, 15), None),
+    ("msr-pm", 16, (0, 5, 12, 15), 3),
+    ("msr-pm", 8, (0, 3, 4, 7), 6)])
+def test_object_codec_put_get_heal_on_card(cuda, tmp_path, codec, drives,
+                                           lost, target):
+    """Phase 4h of chip_smoke.py at 3 MiB + 777 B: every check holds,
+    and the repair heal reads plan.total_symbols / alpha bytes a byte
+    healed."""
+    res = object_codec_put_get_heal(tmp_path, 3 * (1 << 20) + 777, codec,
+                                    drives=drives, parity=4, lost=lost,
+                                    repair_target=target, device=cuda)
+    assert all(res["checks"].values()), res["checks"]
+    for phase, c in res["counters"].items():
+        assert c["kernel_hash_launches"] > 0, phase
+        assert (c["kernel_gf_launches"] > 0) == (phase != "get"), phase
 
 
 def test_gf_kernel_unaligned_view_and_large_batch(cuda):

@@ -96,4 +96,4 @@ def test_registry_dense_entry_matches_jax_registry():
     assert np.array_equal(entry.reconstruct_matrix(8, 4, present, targets),
                           jentry.reconstruct_matrix(8, 4, present, targets))
     with pytest.raises(KeyError):
-        registry.get("cauchy-xor")  # not in this slice: loud, never dense
+        registry.get("bogus-codec")  # unknown: loud, never dense

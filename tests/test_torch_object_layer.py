@@ -7,8 +7,10 @@ replaced by one seeded sequence, restarted for each package, and both
 take the same calls in the same order, so the deployment id, the data
 dirs and every other uuid agree; mod times come from
 `ObjectOptions(mod_time_ns=...)`. So every file either package writes
-(format.json, xl.meta, part.1) is compared whole. minio_tpu runs with
-MTPU_CODEC=dense-gf8 (the port's one codec) and MTPU_WORKER_POOL=0.
+(format.json, xl.meta, part.1) is compared whole. Both run with
+MTPU_CODEC=dense-gf8, so that no measured auto-selection picks the codec,
+and minio_tpu with MTPU_WORKER_POOL=0; the codec cases name their codec
+on each PUT (ObjectOptions.codec), at 12+4 on 16 drives and at 4+4 on 8.
 
 The port hashes on the CPU with its plain HighwayHash, a Python loop over
 32-byte packets (~0.15 s a call at 4 KiB chunks, ~2 s at 87 KiB), so
@@ -63,15 +65,17 @@ def _seed_uuids(mp, seed: int) -> None:
                lambda: uuid.UUID(int=rng.getrandbits(128), version=4))
 
 
-def _set(pkg: str, root, fresh: bool):
-    """A 16-drive set of `pkg` over root/d{i}: formatted anew, or loaded
-    from the format.json already there."""
+def _set(pkg: str, root, fresh: bool, drives: int = 16):
+    """A set of `drives` drives (default parity 4) of `pkg` over
+    root/d{i}: formatted anew, or loaded from the format.json already
+    there."""
     disks = [LocalStorage(str(root / f"d{i}"), endpoint=f"d{i}",
                           device="cpu") if pkg == PORT else
              JaxLocalStorage(str(root / f"d{i}"), endpoint=f"d{i}")
-             for i in range(16)]
-    sets = (ErasureSets(disks, 16, default_parity=4, device="cpu")
-            if pkg == PORT else JaxErasureSets(disks, 16, default_parity=4))
+             for i in range(drives)]
+    sets = (ErasureSets(disks, drives, default_parity=4, device="cpu")
+            if pkg == PORT else
+            JaxErasureSets(disks, drives, default_parity=4))
     if fresh:
         sets.init_format()
         sets.make_bucket(BUCKET)
@@ -154,17 +158,18 @@ def _shard_dirs(root, name):
     fi = JaxLocalStorage(str(root / "d0")).read_version(BUCKET, name)
     drive = {d - 1: i for i, d in enumerate(fi.erasure.distribution)}
     return {s: (root / f"d{drive[s]}" / BUCKET / name, fi.data_dir)
-            for s in range(16)}, drive
+            for s in drive}, drive
 
 
-def _lose(root, name):
-    """Data shards 0 and 5 lose part.1, shard 12 its object directory,
-    shard 15's part.1 is cut in half."""
+def _lose(root, name, lost=LOST):
+    """Of the shards `lost` (data 0 and 5 and parity 12 and 15 at 12+4),
+    the first two lose part.1, the third its object directory, and the
+    fourth's part.1 is cut in half."""
     dirs, drive = _shard_dirs(root, name)
-    for s in (0, 5):
+    for s in lost[:2]:
         (dirs[s][0] / dirs[s][1] / "part.1").unlink()
-    shutil.rmtree(dirs[12][0])
-    part = dirs[15][0] / dirs[15][1] / "part.1"
+    shutil.rmtree(dirs[lost[2]][0])
+    part = dirs[lost[3]][0] / dirs[lost[3]][1] / "part.1"
     with open(part, "r+b") as f:
         f.truncate(part.stat().st_size // 2)
     return drive
@@ -437,3 +442,51 @@ def test_tee_md5_reader_pipelines_only_large_streams_on_many_cores(
     assert big._queue is None  # drained, its thread joined
     monkeypatch.setattr(fanout, "SINGLE_CORE", True)
     assert not TeeMD5Reader(io.BytesIO(b""), size=8 << 20)._want_pipeline
+
+
+# Codec cases: (codec, drives); the lost shards are 0, 5, 12, 15 at 12+4
+# and 0, 3, 4, 7 at 4+4.
+CODEC_LOST = {16: LOST, 8: (0, 3, 4, 7)}
+
+
+@pytest.mark.parametrize("writer,reader", [(JAX, PORT), (PORT, JAX)])
+@pytest.mark.parametrize("codec,drives", [
+    ("dense-gf8", 16), ("cauchy-xor", 16), ("msr-pm", 16),
+    ("dense-gf8", 8), ("cauchy-xor", 8), ("msr-pm", 8)])
+def test_codec_objects_cross_packages(small_blocks, tmp_path, codec, drives,
+                                      writer, reader):
+    """Both packages write one object under `codec` (ObjectOptions.codec)
+    to the same drives byte for byte; `reader`'s package then reads the
+    set `writer`'s wrote, degraded and ranged, heals the lost shards,
+    and heals one more lost drive alone (through the repair plane where
+    the codec has a plan): every file as it was."""
+    payload = _payload(1, BIG_SIZE)
+    for pkg in (PORT, JAX):
+        with pytest.MonkeyPatch.context() as mp:
+            _seed_uuids(mp, 13)
+            sets = _set(pkg, tmp_path / pkg, fresh=True, drives=drives)
+            sets.put_object(BUCKET, BIG, io.BytesIO(payload), BIG_SIZE,
+                            _opts(pkg, codec=codec))
+    written = _tree(tmp_path / writer)
+    assert written == _tree(tmp_path / (JAX if writer == PORT else PORT))
+    fi = JaxLocalStorage(str(tmp_path / writer / "d0")).read_version(
+        BUCKET, BIG)
+    assert fi.erasure.codec == codec
+
+    root = tmp_path / f"{reader}-reads-{writer}"
+    shutil.copytree(tmp_path / writer, root)
+    sets = _set(reader, root, fresh=False, drives=drives)
+    assert _get(sets, BIG) == payload
+    lost = CODEC_LOST[drives]
+    drive = _lose(root, BIG, lost)
+    assert _get(sets, BIG) == payload
+    off, ln = SMALL_BLOCK + 777, SMALL_BLOCK + 4321
+    assert _get(sets, BIG, off, ln) == payload[off:off + ln]
+    assert sets.heal_object(BUCKET, BIG) == {
+        "healed": [f"d{drive[s]}" for s in lost], "dangling": False}
+    assert _tree(root) == written
+    shutil.rmtree(root / f"d{drive[1]}" / BUCKET / BIG)
+    assert sets.heal_object(BUCKET, BIG) == {
+        "healed": [f"d{drive[1]}"], "dangling": False}
+    assert _tree(root) == written
+    assert _get(sets, BIG) == payload

@@ -593,3 +593,68 @@ def test_heal_bucket_remakes_missing_volumes(tmp_path, monkeypatch):
     assert out[PORT][1] == [[{"healed": []}]]
     assert sorted(p.name for p in (tmp_path / PORT).glob(f"d*/{BUCKET}")) \
         == sorted(p.name for p in (tmp_path / JAX).glob(f"d*/{BUCKET}"))
+
+
+@pytest.mark.parametrize("header,want", [
+    ("msr-pm", "msr-pm"), ("dense-gf8", "dense-gf8"), ("auto", "msr-pm"),
+    ("bogus", None)])
+def test_codec_header(tmp_path, monkeypatch, header, want):
+    """x-mtpu-codec on PutObject and on a multipart initiate, both
+    servers alike: a known id is stamped in xl.meta; "auto" turns
+    auto-selection (here the heal-heavy profile, msr-pm at 12+4) back on
+    over the server-wide MTPU_CODEC; an unknown id is InvalidArgument
+    before a byte streams. Every answer, and every file of the bucket,
+    equal."""
+    monkeypatch.setenv("MTPU_CODEC", "cauchy-xor")
+    monkeypatch.setenv("MTPU_CODEC_PROFILE", "heal-heavy")
+    monkeypatch.setenv("MTPU_WORKER_POOL", "0")
+    monkeypatch.setenv("MTPU_INLINE_THRESHOLD", "1024")
+    monkeypatch.setattr(jax_eo, "BLOCK_SIZE_V2", SMALL_BLOCK)
+    monkeypatch.setattr(erasure_objects, "BLOCK_SIZE_V2", SMALL_BLOCK)
+    payload = _payload("codec", 30_001)
+    codec_header = {"x-mtpu-codec": header}
+    out = {}
+    for pkg in (JAX, PORT):
+        with pytest.MonkeyPatch.context() as alike:
+            _alike(alike)
+            srv = _server(pkg, tmp_path / pkg, fresh=True)
+            try:
+                c = S3Client(srv.endpoint, ACCESS, SECRET)
+                recs = [c.request("PUT", f"/{BUCKET}"),
+                        c.request("PUT", f"/{BUCKET}/obj",
+                                  headers=codec_header, body=payload)]
+                init = c.request("POST", f"/{BUCKET}/mp", [("uploads", "")],
+                                 headers=codec_header)
+                recs.append(init)
+                if init[0] == 200:
+                    upload, etags = _upload_id(init[2]), []
+                    for n, part in enumerate((payload[:25_000],
+                                              payload[25_000:]), 1):
+                        resp = c.request("PUT", f"/{BUCKET}/mp", [
+                            ("partNumber", str(n)), ("uploadId", upload)],
+                            body=part)
+                        etags.append(resp[1]["ETag"])
+                        recs.append(resp)
+                    recs.append(c.request("POST", f"/{BUCKET}/mp",
+                                          [("uploadId", upload)],
+                                          body=_complete_xml(etags)))
+                recs += [c.request("GET", f"/{BUCKET}/{name}")
+                         for name in ("obj", "mp")]
+            finally:
+                srv.stop()
+        out[pkg] = ([_record(r) for r in recs],
+                    {p: b for p, b in _tree(tmp_path / pkg).items()
+                     if Path(p).parts[1] == BUCKET})
+    assert out[PORT][0] == out[JAX][0]
+    assert out[PORT][1] == out[JAX][1]
+    records = out[PORT][0]
+    if want is None:
+        assert [r["error"]["Code"] for r in records[1:]] == [
+            b"InvalidArgument", b"InvalidArgument", b"NoSuchKey",
+            b"NoSuchKey"]
+        return
+    assert records[-2]["body"] == records[-1]["body"] == payload
+    for name in ("obj", "mp"):
+        fi = LocalStorage(str(tmp_path / PORT / "d0"), device="cpu") \
+            .read_version(BUCKET, name)
+        assert fi.erasure.codec == want

@@ -142,8 +142,11 @@ def test_xlmeta_refuses_corrupt_and_unknown_codecs():
             XLMeta.from_bytes(bad)
     fi = _journal(FileInfo, ErasureInfo, ChecksumInfo)[0]
     d = fi.to_dict()
-    d["er"]["cid"] = "msr-pm"
+    d["er"]["cid"] = "bogus-codec"
     with pytest.raises(ValueError, match="does not have"):
+        FileInfo.from_dict(d)
+    d["er"]["cid"] = "msr-pm"  # a known codec under another's algorithm
+    with pytest.raises(ValueError, match="mismatch"):
         FileInfo.from_dict(d)
     del d["er"]["cid"]  # metadata from before codec ids reads as dense
     assert FileInfo.from_dict(d).erasure.codec == "dense-gf8"
