@@ -88,13 +88,31 @@ Phases, each of which must pass (nothing is caught):
     GET back, xl.meta naming msr-pm on every drive. Counters zeroed just
     before and read just after each; kernel A launches in every phase
     but the healthy GETs, kernel B in all. Prints {"codecs": ...};
+ 4i. the S3 object core over HTTP (s3_core, a port Server on 16 drive
+    directories, one 12+4 set, 1 MiB blocks, dense-gf8, objects of
+    256 MiB + 12,345 B): versioning Enabled, two versions of ver/big (the
+    second with x-amz-tagging), ListObjectVersions, a delete marker (GET
+    404), GETs of both versions by id, ver's objects lost on drives 0, 5,
+    12 and 15, a degraded GET of v1, CopyObject of v1 to dst/copy from the
+    degraded source (257 ranged GETs of 1 MiB), three UploadPartCopy parts
+    of v2 (the last two ragged: 7 B and 12,338 B tails), a REPLACE
+    self-copy that moves no byte, tagging of v1, 256 small PUTs deleted by
+    one POST ?delete (ListObjectsV2 empty, 512 versions listed in pages),
+    a bucket policy with anonymous GETs and PUT, then dst lost on the same
+    drives, an admin heal of dst and heal_object of v1, v2 and the marker
+    (every part file equal to its pre-loss copy by SHA-256, every healed
+    journal equal to a survivor's). Counters zeroed just before and read
+    just after; kernel A launches in the degraded GET, the copies (at
+    least once a pull: the source is degraded) and the heals, neither
+    kernel in the self-copy. Prints {"s3_core": ...} with each step's
+    seconds and launches and the bytes each copy read and wrote;
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
     of 12 readers x 8 frames; kernel A also at 4h's msr-pm encode
     shapes [8, 24, 43,691] -> 8 and [8, 64, 16,384] -> 64) and print one
     JSON line {"kernels": [...]}, whose launches are those of phases 4,
-    4c, 4e and 4h (by path in "launches_by_path");
+    4c, 4e, 4h and 4i (by path in "launches_by_path");
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -141,6 +159,11 @@ S3_CODEC_SIZE = (16 << 20) + 12_345
 # at the widest K (254+2), R (128+128) and both (200+56); coupled-layer
 # at alpha 32, 27 and 25.
 WIDE_MSR = ((254, 2), (128, 128), (200, 56), (8, 2), (6, 3), (5, 5))
+# Phase 4i: the small objects put and deleted in the versioned bucket,
+# and the objects its heals rebuild (bucket, key).
+CORE_SMALL_COUNT, CORE_SMALL_SIZE = 256, 1 << 10
+CORE_OBJECTS = (("ver", "big"), ("dst", "copy"), ("dst", "parts"),
+                ("dst", "public/x"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 
@@ -173,11 +196,15 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def path_shard_lengths() -> list[int]:
     """The shard lengths the main paths give the kernels: a full block's,
     and the ragged last block's of each object or part that phases 4,
-    4b, 4c, 4d, 4e and 4f store (an inline or small object is one short
-    block)."""
+    4b, 4c, 4d, 4e, 4f and 4i store (an inline or small object is one
+    short block; 4i's UploadPartCopy parts end in 7 B and 12,338 B)."""
+    from minio_tpu_torch.entry import part_copy_ranges
+
+    core_parts = [last - first + 1
+                  for first, last in part_copy_ranges(OBJECT_SIZE)]
     lengths = set()
     for size in (OBJECT_SIZE, TRACE_SIZE, INLINE_SIZE, MP_PART, MP_LAST,
-                 *SMALL_SIZES):
+                 *SMALL_SIZES, *core_parts, CORE_SMALL_SIZE):
         if size >= BLOCK:
             lengths.add(SHARD)
         if size % BLOCK:
@@ -189,20 +216,24 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     """(unavailable shards, rebuilt shards) of every reconstruction the
     main paths run: phase 4's and 4c's heal (shards 0, 5, 12, 15 lost),
     degraded GET (data shards 0 and 5 rebuilt, shard 12 gone) and GET
-    past a flipped byte (data shard 3 rebuilt); and phase 4e's, whose
-    lost shards are those that drives 0, 5, 12 and 15 hold for each
+    past a flipped byte (data shard 3 rebuilt); and phases 4e's and 4i's,
+    whose lost shards are those that drives 0, 5, 12 and 15 hold for each
     object, through its distribution: the heal rebuilds them all, a
-    degraded GET the data shards among them."""
+    degraded GET (4e's big objects, and 4i's versions of ver/big and the
+    copies' pulls from them) the data shards among them."""
     from minio_tpu_torch.entry import S3_BUCKET, S3_WIPED, s3_object_names
     from minio_tpu_torch.object.metadata import hash_order
 
     recs = {(LOST, LOST), (LOST, (0, 5)), ((3,), (3,))}
-    for n, name in enumerate(s3_object_names(SMALL_COUNT)):
-        dist = hash_order(f"{S3_BUCKET}/{name}", K + M)
+    keys = [(f"{S3_BUCKET}/{name}", n < 2)
+            for n, name in enumerate(s3_object_names(SMALL_COUNT))]
+    keys += [(f"{b}/{name}", b == "ver") for b, name in CORE_OBJECTS]
+    for key, read_degraded in keys:
+        dist = hash_order(key, K + M)
         lost = tuple(sorted(dist[d] - 1 for d in S3_WIPED))
         recs.add((lost, lost))
         data_lost = tuple(s for s in lost if s < K)
-        if n < 2 and data_lost:
+        if read_degraded and data_lost:
             recs.add((lost, data_lost))
     return sorted(recs)
 
@@ -348,7 +379,9 @@ def grouped_verify_case(rng, groups: int, n: int, s: int) -> int:
         (1, 0), (5, n - 1), (11, 0), (11, n - 1), (7, n), (groups - 1, 0),
         (groups - 1, n), (groups - 2, n - 1)))
     for g, i in bad:
-        buf[g * group + i * (32 + s) + 40] ^= 0x41
+        # A byte of the chunk (its ninth, or its last when shorter).
+        length = s if i < n else tail
+        buf[g * group + i * (32 + s) + 32 + min(8, length - 1)] ^= 0x41
     # Where the flips are: a group's first bad full-size frame (n if
     # none), and 0 or 1 for its short last frame.
     expect = [torch.tensor([min([i for gg, i in bad if gg == g and i < n],
@@ -970,6 +1003,72 @@ def run_drivers() -> dict:
     return line
 
 
+# Phase 4i's steps, and whether each launches kernel A (True, False) or
+# neither kernel (None); kernel B launches in every step that launches
+# anything. "versioning" and "policy" write the bucket's metadata.json.
+CORE_STEPS = {"versioning": True, "put_v1": True, "put_v2": True,
+              "list_versions": None, "delete_marker": None,
+              "get_marked": None, "get_v1": False, "get_v2": False,
+              "degraded_get_v1": True, "copy": True, "get_copy": False,
+              "part_copy": True, "get_parts": False, "self_copy": None,
+              "tagging": None, "put_small": True, "delete_objects": None,
+              "list_after_delete": None, "list_versions_small": None,
+              "policy": True, "heal_bucket": True, "heal_versions": True}
+
+
+def run_s3_core() -> tuple[dict, dict]:
+    """Phase 4i: s3_core, the S3 object core over HTTP on localhost."""
+    from minio_tpu_torch.entry import s3_core
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_core(tmp, OBJECT_SIZE, device="cuda",
+                      small_count=CORE_SMALL_COUNT,
+                      small_size=CORE_SMALL_SIZE, page=100, seed=30)
+        launches = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"S3 object core checks failed: {failed}")
+    check_fanout("s3 core", res["counters"], read_phases=(
+        "get_v1", "get_v2", "degraded_get_v1", "get_copy", "get_parts"))
+    per_phase = {}
+    for ph, want_gf in CORE_STEPS.items():
+        c = res["counters"][ph]
+        gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n,
+                         "hedged_reads": c["hedged_reads_total"]}
+        if want_gf is None:
+            ok, want = gf_n == hh_n == 0, "none"
+        else:
+            ok = hh_n > 0 and (gf_n > 0) == want_gf
+            want = f"A {'> 0' if want_gf else '0'}, B > 0"
+        if ph in ("copy", "part_copy"):
+            # Every pull from the degraded source rebuilds its block.
+            ok = ok and gf_n >= c["copy_pulls"] > 0
+            want += ", A >= pulls"
+        if not ok:
+            raise AssertionError(f"S3 core {ph}: kernel A launched {gf_n} "
+                                 f"times, kernel B {hh_n}, pulls "
+                                 f"{c['copy_pulls']} (want {want})")
+        log(f"s3 core {ph}: {res['seconds'][ph]:.4f} s, launches A {gf_n} "
+            f"B {hh_n}, pulls {c['copy_pulls']}")
+    log(f"s3 core copies: {res['copy_bytes']}, heal {res['heal']}")
+    line = {"object_size": res["size"], "k": K, "m": M,
+            "wiped_drives": res["wiped_drives"],
+            "small_objects": res["small_count"],
+            "part_copy_ranges": res["part_copy_ranges"],
+            "seconds": res["seconds"], "launches": per_phase,
+            "copy_bytes": res["copy_bytes"],
+            "version_pages": res["version_pages"], "heal": res["heal"],
+            "healed_files": res["healed_files"], "checks": res["checks"]}
+    return line, launches
+
+
 def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5: kernel, plain and bound times at the main shapes.
     `launches` holds each kernel's launches by main path."""
@@ -1141,10 +1240,14 @@ def main() -> int:
     t0 = time.perf_counter()
     codecs_line, codec_launches = run_codecs()
     log(f"codec phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    core_line, core_launches = run_s3_core()
+    log(f"S3 object core phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
-                      "codecs": codec_launches[name]}
+                      "codecs": codec_launches[name],
+                      "s3_core": core_launches[name]}
                for name in launches}
     gc.callbacks.remove(on_gc)
     log(f"collector passes over 20 ms in the main paths (generation, s): "
@@ -1158,6 +1261,7 @@ def main() -> int:
     print(json.dumps({"s3_plane": s3_line}), flush=True)
     print(json.dumps({"pipelined": drivers_line}), flush=True)
     print(json.dumps({"codecs": codecs_line}), flush=True)
+    print(json.dumps({"s3_core": core_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from ..background.healseq import (
     HealOverlap,
     make_io_gate,
 )
+from ..iam.policy import Args
 from .errors import S3Error
 from .handlers import Response
 
@@ -47,7 +48,8 @@ class AdminHandlers:
     def authorize(self, auth_result) -> None:
         if auth_result.is_anonymous:
             raise S3Error("AccessDenied", "admin API requires signature")
-        if not self.iam.is_allowed(auth_result.access_key):
+        if not self.iam.is_allowed(Args(account=auth_result.access_key,
+                                        action="admin:Heal")):
             raise S3Error("AccessDenied",
                           f"{auth_result.access_key} admin:Heal")
 

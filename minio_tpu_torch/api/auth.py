@@ -3,13 +3,14 @@ minio_tpu/api/auth.py (MinIO's cmd/auth-handler.go checkRequestAuthType):
 classify the auth type (anonymous, SigV2, SigV4, presigned, streaming),
 verify the signature against the IAM credentials, and allow the action.
 
-Only the root credential exists and bucket policies are not ported yet:
-the root may do every action, and an anonymous request is refused with
-AccessDenied, as minio_tpu answers for a bucket without a policy.
+Only the root credential exists: the root may do every action. An
+anonymous request, or one the IAM refuses, is let through only by the
+bucket's policy, as minio_tpu does.
 """
 
 from __future__ import annotations
 
+from ..iam.policy import Args
 from ..iam.store import IAMSys
 from . import sign
 from .errors import S3Error
@@ -113,11 +114,23 @@ def authenticate(iam: IAMSys, method: str, path: str,
     raise S3Error("SignatureVersionNotSupported")
 
 
-def authorize(iam: IAMSys, result: AuthResult, action: str) -> None:
-    """Allow or deny an S3 action: the root may do every action; an
-    anonymous request has no bucket policy to fall back on."""
+def authorize(iam: IAMSys, bucket_policy, result: AuthResult, action: str,
+              bucket: str, object_: str = "",
+              conditions: dict | None = None) -> None:
+    """Allow or deny the S3 action: an anonymous request falls back to
+    the bucket policy, a signed one to the IAM and then the bucket policy
+    (isPutActionAllowed / checkRequestAuthTypeCredential)."""
+    conditions = conditions or {}
     if result.is_anonymous:
+        if bucket_policy is not None and bucket_policy.is_allowed(Args(
+                account="", action=action, bucket=bucket, object=object_,
+                conditions=conditions)):
+            return
         raise S3Error("AccessDenied", f"anonymous {action}")
-    if iam.is_allowed(result.access_key):
+    args = Args(account=result.access_key, action=action, bucket=bucket,
+                object=object_, conditions=conditions)
+    if iam.is_allowed(args):
+        return
+    if bucket_policy is not None and bucket_policy.is_allowed(args):
         return
     raise S3Error("AccessDenied", f"{result.access_key} {action}")

@@ -64,6 +64,13 @@ API_ERRORS: dict[str, APIError] = {e.code: e for e in [
     _E("RequestNotReadyYet", "Request is not valid yet.", HTTPStatus.FORBIDDEN),
     _E("UnsignedHeaders", "There were headers present in the request which were not signed.", HTTPStatus.BAD_REQUEST),
     _E("MalformedChunkedEncoding", "The request body is not properly aws-chunked encoded.", HTTPStatus.BAD_REQUEST),
+    _E("InvalidTag", "The tag provided was not a valid tag.",
+       HTTPStatus.BAD_REQUEST),
+    _E("NoSuchBucketPolicy", "The bucket policy does not exist.", HTTPStatus.NOT_FOUND),
+    _E("NoSuchTagSet", "The TagSet does not exist.", HTTPStatus.NOT_FOUND),
+    _E("InvalidBucketState", "The request is not valid for the current state of the bucket.", HTTPStatus.CONFLICT),
+    _E("NoSuchCORSConfiguration", "The CORS configuration does not exist.", HTTPStatus.NOT_FOUND),
+    _E("NoSuchWebsiteConfiguration", "The specified bucket does not have a website configuration.", HTTPStatus.NOT_FOUND),
 ]}
 
 

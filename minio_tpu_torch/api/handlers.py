@@ -1,15 +1,19 @@
 """S3 API handlers, the port's copy of the S3ApiHandlers of
 minio_tpu/api/handlers.py (MinIO's cmd/bucket-handlers.go,
-bucket-listobjects-handlers.go and object-handlers.go) on the plain
-path: the bucket calls, ListObjects v1 and v2, PutObject, GetObject
-(whole, ranged, conditional), HeadObject, DeleteObject and the multipart
-calls.
+bucket-listobjects-handlers.go, object-handlers.go, acl-handlers.go and
+dummy-handlers.go) on the plain path: the bucket calls, versioning,
+bucket policy and tagging, the canned bucket answers and ACLs,
+ListObjects v1 and v2, ListObjectVersions, PutObject, CopyObject,
+GetObject (whole, ranged, conditional), HeadObject, DeleteObject(s),
+object tagging and the multipart calls with UploadPartCopy.
 
 Each handler takes the parsed request and returns a Response; the
-server has checked the signature and the action before. What the port
-does not serve yet (SSE and compression, tagging, object lock, copies,
-versioning and the other bucket configurations) is refused with
-NotImplemented, never served half.
+server has checked the signature and the action (a copy's source too)
+before. What the port does not serve yet (SSE and compression, object
+lock, quota, lifecycle, replication, events) is refused with
+NotImplemented, never served half: a bucket with such a configuration,
+an object whose bytes need a transform, and the request headers that
+ask for one.
 """
 
 from __future__ import annotations
@@ -17,11 +21,17 @@ from __future__ import annotations
 import base64
 import binascii
 import datetime
+import io
+import json
+import re
+import tempfile
+import threading
 import urllib.parse
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 
 from ..erasure import registry
+from ..iam.policy import Policy
 from ..object.types import CompletePart, ObjectOptions
 from ..utils.errors import StorageError
 from .errors import S3Error, from_object_error
@@ -29,18 +39,17 @@ from .errors import S3Error, from_object_error
 MAX_OBJECT_SIZE = 5 * 1024 ** 4         # 5 TiB
 MAX_PART_SIZE = 5 * 1024 ** 3           # 5 GiB
 MAX_PARTS = 10000
+MAX_DELETE_OBJECTS = 1000
 MAX_KEY_LENGTH = 1024
 
 # Bucket configurations whose effect on the data path is not ported: a
 # bucket that has one is not served.
 _UNPORTED_BUCKET_CONFIG = (
-    "versioning_xml", "lifecycle_xml", "sse_xml", "quota_json",
-    "object_lock_xml", "notification_xml", "replication_xml",
+    "lifecycle_xml", "sse_xml", "quota_json", "object_lock_xml",
+    "notification_xml", "replication_xml",
 )
 # Request headers of features not ported.
-_UNPORTED_HEADERS = (
-    "x-amz-copy-source", "x-amz-tagging", "x-amz-server-side-encryption",
-)
+_UNPORTED_HEADERS = ("x-amz-server-side-encryption",)
 _LOCK_HEADERS = (
     "x-amz-object-lock-mode", "x-amz-object-lock-retain-until-date",
     "x-amz-object-lock-legal-hold",
@@ -110,6 +119,67 @@ def valid_object_name(obj: str) -> bool:
     if obj.startswith("/"):
         return False
     return all(seg not in (".", "..") for seg in obj.split("/"))
+
+
+# What copies read from their sources: ranged GETs ("pulls") and bytes.
+COPY_READS = {"pulls": 0, "bytes": 0}  # guarded-by: _copy_reads_mu
+_copy_reads_mu = threading.Lock()
+
+
+def copy_reads_snapshot() -> dict:
+    with _copy_reads_mu:
+        return dict(COPY_READS)
+
+
+class _RangeCopyReader:
+    """A source object's range read in pulls of at most 1 MiB, so that a
+    copy never holds a whole (up to 5 GiB) part: each pull is a ranged
+    GET of the source through the object layer."""
+
+    def __init__(self, ol, bucket, object_, offset, length, opts):
+        self._ol = ol
+        self._bucket = bucket
+        self._object = object_
+        self._pos = offset
+        self._left = length
+        self._opts = opts
+
+    def read(self, n: int = -1) -> bytes:
+        if self._left <= 0:
+            return b""
+        if n is None or n < 0:
+            n = self._left
+        n = min(n, self._left, 1 << 20)
+        data = self._ol.get_object_bytes(
+            self._bucket, self._object, offset=self._pos, length=n,
+            opts=self._opts)
+        self._pos += len(data)
+        self._left -= len(data)
+        if not data:
+            self._left = 0
+        with _copy_reads_mu:
+            COPY_READS["pulls"] += 1
+            COPY_READS["bytes"] += len(data)
+        return data
+
+
+def parse_copy_source(header: str) -> tuple[str, str, str]:
+    """x-amz-copy-source -> (bucket, object, version id). The server
+    authorizes the source with it, and the copy handlers read it."""
+    # The versionId suffix is split off before percent-decoding: a
+    # literal "?" in the key travels as %3F.
+    raw, vid = header, ""
+    if "?versionId=" in raw:
+        raw, _, vid = raw.partition("?versionId=")
+    src = urllib.parse.unquote(raw)
+    if src.startswith("/"):
+        src = src[1:]
+    if "/" not in src:
+        raise S3Error("InvalidArgument", "bad x-amz-copy-source")
+    sbucket, _, sobject = src.partition("/")
+    if not sbucket or not valid_object_name(sobject):
+        raise S3Error("InvalidArgument", "bad x-amz-copy-source")
+    return sbucket, sobject, urllib.parse.unquote(vid)
 
 
 def _parse_http_date(h: str) -> int | None:
@@ -208,6 +278,10 @@ def _parse_content_md5(headers: dict) -> str:
 class S3ApiHandlers:
     """The S3 endpoints of the slice, over an ObjectLayer."""
 
+    # A version's tags live in its metadata, url-encoded (UserTags).
+    TAGS_META_KEY = "x-mtpu-internal-tags"
+    MAX_TAGS = 10
+
     def __init__(self, object_layer, bucket_meta):
         self.ol = object_layer
         self.bm = bucket_meta
@@ -218,8 +292,12 @@ class S3ApiHandlers:
             if getattr(bmeta, f):
                 raise S3Error("NotImplemented",
                               f"bucket {bucket}: {f} is not ported")
-        # No versioning configuration, so no versioned write.
-        return ObjectOptions(version_id=query.get("versionId", ""))
+        # versionId "null" stays the literal, so that the object layer
+        # sees a targeted request (a delete of the null version removes
+        # it instead of writing a marker); the journal maps it to "".
+        return ObjectOptions(version_id=query.get("versionId", ""),
+                             versioned=bmeta.versioning_enabled,
+                             version_suspended=bmeta.versioning_suspended)
 
     @staticmethod
     def _refuse_unported_headers(ctx) -> None:
@@ -230,6 +308,27 @@ class S3ApiHandlers:
             # No bucket of the port has an object lock configuration.
             raise S3Error("InvalidRequest",
                           "Bucket is missing ObjectLockConfiguration")
+
+    def _validate_tags(self, tags: list[tuple[str, str]]) -> None:
+        """The one rule set of both tag writes (the ?tagging XML and the
+        x-amz-tagging header)."""
+        if len(tags) > self.MAX_TAGS:
+            raise S3Error("InvalidTag", f"more than {self.MAX_TAGS} tags")
+        if len({k for k, _ in tags}) != len(tags):
+            raise S3Error("InvalidTag", "duplicate tag keys")
+        for k, v in tags:
+            if not k or len(k) > 128 or len(v) > 256:
+                raise S3Error("InvalidTag", f"bad tag {k!r}")
+
+    def _apply_tagging_header(self, ctx, opts) -> None:
+        """x-amz-tagging on a write: url-encoded tags, checked as the
+        ?tagging subresource checks them and stored normalised."""
+        tag_hdr = ctx.headers.get("x-amz-tagging", "")
+        if tag_hdr:
+            tags = urllib.parse.parse_qsl(tag_hdr, keep_blank_values=True)
+            self._validate_tags(tags)
+            opts.user_defined[self.TAGS_META_KEY] = \
+                urllib.parse.urlencode(tags)
 
     @staticmethod
     def _apply_storage_class(ctx) -> None:
@@ -304,6 +403,138 @@ class S3ApiHandlers:
     def _check_bucket(self, bucket: str) -> None:
         if not self.ol.bucket_exists(bucket):
             raise S3Error("NoSuchBucket", bucket)
+
+    # --- canned bucket subresources (cmd/dummy-handlers.go): S3-shaped
+    # answers for SDK feature probes ---
+
+    def get_bucket_cors(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        raise S3Error("NoSuchCORSConfiguration", ctx.bucket)
+
+    def get_bucket_website(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        raise S3Error("NoSuchWebsiteConfiguration", ctx.bucket)
+
+    def delete_bucket_website(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        return Response(200)
+
+    def get_bucket_accelerate(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        return Response.xml(_xml_root("AccelerateConfiguration"))
+
+    def get_bucket_request_payment(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        root = _xml_root("RequestPaymentConfiguration")
+        ET.SubElement(root, "Payer").text = "BucketOwner"
+        return Response.xml(root)
+
+    def get_bucket_logging(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        return Response.xml(_xml_root("BucketLoggingStatus"))
+
+    def get_bucket_policy_status(self, ctx) -> Response:
+        """IsPublic: the policy has an Allow statement whose principal is
+        the wildcard, read from the statements' structure."""
+        self._check_bucket(ctx.bucket)
+        # Loaded outside the try: a storage failure is an error, not
+        # IsPublic FALSE.
+        meta = self.bm.get(ctx.bucket)
+        public = False
+        try:
+            doc = json.loads(meta.policy_json) if meta.policy_json else {}
+            stmts = doc.get("Statement") or []
+            if isinstance(stmts, dict):
+                stmts = [stmts]
+            for st in stmts:
+                if st.get("Effect") != "Allow":
+                    continue
+                pr = st.get("Principal")
+                aws = pr.get("AWS") if isinstance(pr, dict) else pr
+                if isinstance(aws, str):
+                    aws = [aws]
+                if aws and "*" in aws:
+                    public = True
+                    break
+        except (ValueError, AttributeError, TypeError):
+            public = False  # an unreadable policy is not public
+        root = _xml_root("PolicyStatus")
+        ET.SubElement(root, "IsPublic").text = "TRUE" if public else "FALSE"
+        return Response.xml(root)
+
+    # --- bucket configurations ---
+
+    def put_bucket_policy(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        try:
+            Policy.parse(ctx.body)
+        except (ValueError, KeyError) as exc:
+            raise S3Error("MalformedXML", f"bad policy: {exc}") from exc
+        self.bm.update(ctx.bucket, "policy_json", ctx.body.decode())
+        return Response(204)
+
+    def get_bucket_policy(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        bm = self.bm.get(ctx.bucket)
+        if not bm.policy_json:
+            raise S3Error("NoSuchBucketPolicy", ctx.bucket)
+        return Response(200, {"Content-Type": "application/json"},
+                        bm.policy_json.encode())
+
+    def delete_bucket_policy(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        self.bm.update(ctx.bucket, "policy_json", "")
+        return Response(204)
+
+    def _xml_subresource(self, ctx, fld: str, missing_code: str) -> Response:
+        """GET, PUT and DELETE of a bucket configuration kept as an XML
+        blob."""
+        self._check_bucket(ctx.bucket)
+        if ctx.method == "GET":
+            val = getattr(self.bm.get(ctx.bucket), fld)
+            if not val:
+                raise S3Error(missing_code, ctx.bucket)
+            return Response(200, {"Content-Type": "application/xml"},
+                            val.encode())
+        if ctx.method == "PUT":
+            try:
+                ET.fromstring(ctx.body)
+            except ET.ParseError as exc:
+                raise S3Error("MalformedXML", str(exc)) from exc
+            self.bm.update(ctx.bucket, fld, ctx.body.decode())
+            return Response(200)
+        self.bm.update(ctx.bucket, fld, "")
+        return Response(204)
+
+    def bucket_versioning(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        if ctx.method == "PUT":
+            try:
+                root = ET.fromstring(ctx.body)
+            except ET.ParseError as exc:
+                raise S3Error("MalformedXML", str(exc)) from exc
+            status = ""
+            for el in root.iter():
+                if el.tag.endswith("Status"):
+                    status = (el.text or "").strip()
+            if status != "Enabled" and \
+                    self.bm.get(ctx.bucket).replication_xml:
+                # Suspension would break the replication of delete
+                # markers (PutBucketVersioningHandler).
+                raise S3Error(
+                    "InvalidBucketState",
+                    "A replication configuration is present on this "
+                    "bucket, so the versioning state cannot be suspended.")
+            self.bm.update(ctx.bucket, "versioning_xml", ctx.body.decode())
+            return Response(200)
+        bm = self.bm.get(ctx.bucket)
+        if bm.versioning_xml:
+            return Response(200, {"Content-Type": "application/xml"},
+                            bm.versioning_xml.encode())
+        return Response.xml(_xml_root("VersioningConfiguration"))
+
+    def bucket_tagging(self, ctx) -> Response:
+        return self._xml_subresource(ctx, "tagging_xml", "NoSuchTagSet")
 
     # ---------- listing ----------
 
@@ -392,6 +623,118 @@ class S3ApiHandlers:
         self._fill_entries(root, res, owner=fetch_owner, encode=encode)
         return Response.xml(root)
 
+    def list_object_versions(self, ctx) -> Response:
+        """GET /bucket?versions (ListObjectVersionsHandler,
+        cmd/bucket-listobjects-handlers.go:214-352)."""
+        self._check_bucket(ctx.bucket)
+        q = ctx.qdict
+        prefix = q.get("prefix", "")
+        key_marker = q.get("key-marker", "")
+        vid_marker = q.get("version-id-marker", "")
+        delimiter = q.get("delimiter", "")
+        max_keys = self._max_keys(q)
+        if max_keys < 0:
+            raise S3Error("InvalidArgument", "max-keys negative")
+        if vid_marker and not key_marker:
+            raise S3Error("InvalidArgument",
+                          "version-id-marker without key-marker")
+        try:
+            res = self.ol.list_object_versions(
+                ctx.bucket, prefix=prefix, key_marker=key_marker,
+                version_id_marker=vid_marker, delimiter=delimiter,
+                max_keys=max_keys)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        encode = self._listing_encoder(ctx)
+        enc = encode or (lambda s: s)
+        root = _xml_root("ListVersionsResult")
+        ET.SubElement(root, "Name").text = ctx.bucket
+        ET.SubElement(root, "Prefix").text = enc(prefix)
+        ET.SubElement(root, "KeyMarker").text = enc(key_marker)
+        if vid_marker:
+            ET.SubElement(root, "VersionIdMarker").text = vid_marker
+        ET.SubElement(root, "MaxKeys").text = str(max_keys)
+        if delimiter:
+            ET.SubElement(root, "Delimiter").text = enc(delimiter)
+        if encode is not None:
+            ET.SubElement(root, "EncodingType").text = "url"
+        ET.SubElement(root, "IsTruncated").text = (
+            "true" if res.is_truncated else "false")
+        if res.is_truncated:
+            ET.SubElement(root, "NextKeyMarker").text = enc(
+                res.next_key_marker)
+            ET.SubElement(root, "NextVersionIdMarker").text = (
+                res.next_version_id_marker)
+        for oi in res.versions:
+            v = ET.SubElement(root, "DeleteMarker" if oi.delete_marker
+                              else "Version")
+            ET.SubElement(v, "Key").text = enc(oi.name)
+            ET.SubElement(v, "VersionId").text = oi.version_id or "null"
+            ET.SubElement(v, "IsLatest").text = (
+                "true" if oi.is_latest else "false")
+            ET.SubElement(v, "LastModified").text = iso8601(oi.mod_time_ns)
+            if not oi.delete_marker:
+                ET.SubElement(v, "ETag").text = f'"{oi.etag}"'
+                ET.SubElement(v, "Size").text = str(oi.size)
+                ET.SubElement(v, "StorageClass").text = "STANDARD"
+            o = ET.SubElement(v, "Owner")
+            ET.SubElement(o, "ID").text = "minio-tpu"
+            ET.SubElement(o, "DisplayName").text = "minio-tpu"
+        for p in res.prefixes:
+            cp = ET.SubElement(root, "CommonPrefixes")
+            ET.SubElement(cp, "Prefix").text = enc(p)
+        return Response.xml(root)
+
+    def delete_multiple_objects(self, ctx) -> Response:
+        """POST /bucket?delete: Quiet, VersionId, at most
+        MAX_DELETE_OBJECTS keys; a key already gone is reported Deleted."""
+        self._check_bucket(ctx.bucket)
+        try:
+            req = ET.fromstring(ctx.body)
+        except ET.ParseError as exc:
+            raise S3Error("MalformedXML", str(exc)) from exc
+        ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+        objects = []
+        quiet = False
+        for el in req:
+            tag = el.tag.removeprefix(ns)
+            if tag == "Quiet":
+                quiet = (el.text or "").strip() == "true"
+            elif tag == "Object":
+                key = vid = ""
+                for sub in el:
+                    st = sub.tag.removeprefix(ns)
+                    if st == "Key":
+                        key = sub.text or ""
+                    elif st == "VersionId":
+                        vid = sub.text or ""
+                if key:
+                    objects.append((key, vid))
+        if len(objects) > MAX_DELETE_OBJECTS:
+            raise S3Error("InvalidRequest", "too many objects")
+        root = _xml_root("DeleteResult")
+        for key, vid in objects:
+            try:
+                opts = self._opts_for(ctx.bucket, {"versionId": vid})
+                self.ol.delete_object(ctx.bucket, key, opts)
+                if not quiet:
+                    d = ET.SubElement(root, "Deleted")
+                    ET.SubElement(d, "Key").text = key
+                    if vid:
+                        ET.SubElement(d, "VersionId").text = vid
+            except StorageError as exc:
+                api = from_object_error(exc)
+                if api.api.code in ("NoSuchKey", "NoSuchVersion"):
+                    if not quiet:
+                        d = ET.SubElement(root, "Deleted")
+                        ET.SubElement(d, "Key").text = key
+                    continue
+                e = ET.SubElement(root, "Error")
+                ET.SubElement(e, "Key").text = key
+                ET.SubElement(e, "Code").text = api.api.code
+                ET.SubElement(e, "Message").text = api.detail
+        return Response.xml(root)
+
     @staticmethod
     def _listing_encoder(ctx):
         """encoding-type=url: keys are URL-encoded on request."""
@@ -428,6 +771,9 @@ class S3ApiHandlers:
             raise S3Error("InvalidArgument",
                           f"bad object name {ctx.object!r}")
         self._check_bucket(ctx.bucket)
+        copy_source = ctx.headers.get("x-amz-copy-source", "")
+        if copy_source:
+            return self._copy_object(ctx, copy_source)
         self._refuse_unported_headers(ctx)
         size = ctx.content_length
         if size is None:
@@ -436,6 +782,7 @@ class S3ApiHandlers:
             raise S3Error("EntityTooLarge")
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
+        self._apply_tagging_header(ctx, opts)
         self._apply_storage_class(ctx)
         self._apply_codec(ctx, opts)
         # Checked inside the object layer as the body streams, before the
@@ -450,6 +797,114 @@ class S3ApiHandlers:
         if oi.version_id and oi.version_id != "null":
             headers["x-amz-version-id"] = oi.version_id
         return Response(200, headers)
+
+    # --- CopyObject (CopyObjectHandler, cmd/object-handlers.go) ---
+
+    def _copy_source_info(self, ctx, copy_source: str):
+        """The copy source's (bucket, object, options, ObjectInfo), its
+        x-amz-copy-source-if-* preconditions held."""
+        sbucket, sobject, vid = parse_copy_source(copy_source)
+        try:
+            src_opts = self._opts_for(sbucket, {"versionId": vid})
+            src_info = self.ol.get_object_info(sbucket, sobject, src_opts)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        for k in _UNPORTED_OBJECT_META:
+            if src_info.user_defined.get(k):
+                raise S3Error("NotImplemented", f"{sobject}: {k}")
+        self._copy_source_conditions(ctx, src_info)
+        return sbucket, sobject, src_opts, src_info
+
+    def _copy_object(self, ctx, copy_source: str) -> Response:
+        sbucket, sobject, src_opts, src_info = self._copy_source_info(
+            ctx, copy_source)
+        vid = src_opts.version_id
+        opts = self._opts_for(ctx.bucket, ctx.qdict)
+        directive = ctx.headers.get("x-amz-metadata-directive", "COPY")
+        self_copy = (sbucket, sobject) == (ctx.bucket, ctx.object)
+        if directive == "REPLACE":
+            opts.user_defined = extract_user_metadata(ctx.headers)
+        else:
+            # Retention and hold never copy from the source (the
+            # destination's come from this request), nor do the internal
+            # markers.
+            opts.user_defined = {
+                k: v for k, v in src_info.user_defined.items()
+                if k not in _LOCK_HEADERS
+                and not k.startswith("x-mtpu-internal-")}
+        # A copy writes a new object: the same refusals as a PUT (lock
+        # headers; no quota is configured, so its check passes).
+        self._refuse_unported_headers(ctx)
+        if self_copy and not vid and directive != "REPLACE":
+            raise S3Error(
+                "InvalidRequest",
+                "This copy request is illegal because it is being made "
+                "to the same object without changing metadata.")
+        if self_copy and not vid and not opts.versioned:
+            # An unversioned REPLACE self-copy changes metadata only:
+            # re-putting the bytes would deadlock the writer lock against
+            # its own locked source read (srcInfo.metadataOnly).
+            try:
+                mod_time_ns = self.ol.update_object_metadata(
+                    ctx.bucket, ctx.object, src_info.version_id or "",
+                    opts.user_defined, replace_user_meta=True)
+            except StorageError as exc:
+                raise from_object_error(exc) from exc
+            src_info.mod_time_ns = mod_time_ns or src_info.mod_time_ns
+            return self._copy_result(src_info)
+        try:
+            if self_copy:
+                # The source read finishes into a spool before the
+                # destination takes the object's write lock.
+                with tempfile.SpooledTemporaryFile(max_size=8 << 20) as spool:
+                    self.ol.get_object(sbucket, sobject, spool,
+                                       opts=src_opts)
+                    size = spool.seek(0, io.SEEK_END)
+                    spool.seek(0)
+                    oi = self.ol.put_object(ctx.bucket, ctx.object, spool,
+                                            size, opts)
+            else:
+                # Source to destination in 1 MiB pulls: a copy of many
+                # GiB is never held whole.
+                reader = _RangeCopyReader(self.ol, sbucket, sobject, 0,
+                                          src_info.size, src_opts)
+                oi = self.ol.put_object(ctx.bucket, ctx.object, reader,
+                                        src_info.size, opts)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        return self._copy_result(oi)
+
+    @staticmethod
+    def _copy_result(oi) -> Response:
+        root = _xml_root("CopyObjectResult")
+        ET.SubElement(root, "LastModified").text = iso8601(oi.mod_time_ns)
+        ET.SubElement(root, "ETag").text = f'"{oi.etag}"'
+        headers = {}
+        if oi.version_id and oi.version_id != "null":
+            headers["x-amz-version-id"] = oi.version_id
+        return Response.xml(root, headers=headers)
+
+    @staticmethod
+    def _copy_source_conditions(ctx, src_info) -> None:
+        """x-amz-copy-source-if-{match,none-match,modified-since,
+        unmodified-since} on the copy's source: every failure is 412,
+        never 304 (checkCopyObjectPreconditions)."""
+        mod_s = src_info.mod_time_ns // 10 ** 9
+        im = ctx.headers.get("x-amz-copy-source-if-match", "")
+        if im and not _etag_matches(im, src_info.etag):
+            raise S3Error("PreconditionFailed", "x-amz-copy-source-if-match")
+        inm = ctx.headers.get("x-amz-copy-source-if-none-match", "")
+        if inm and _etag_matches(inm, src_info.etag):
+            raise S3Error("PreconditionFailed",
+                          "x-amz-copy-source-if-none-match")
+        ims = ctx.headers.get("x-amz-copy-source-if-modified-since", "")
+        if ims and (t := _parse_http_date(ims)) is not None and mod_s <= t:
+            raise S3Error("PreconditionFailed",
+                          "x-amz-copy-source-if-modified-since")
+        ius = ctx.headers.get("x-amz-copy-source-if-unmodified-since", "")
+        if ius and (t := _parse_http_date(ius)) is not None and mod_s > t:
+            raise S3Error("PreconditionFailed",
+                          "x-amz-copy-source-if-unmodified-since")
 
     @staticmethod
     def _conditional_headers(ctx, oi):
@@ -491,6 +946,11 @@ class S3ApiHandlers:
                                "STANDARD") != "STANDARD":
             headers["x-amz-storage-class"] = \
                 oi.user_defined["x-amz-storage-class"]
+        ntags = len(urllib.parse.parse_qsl(
+            oi.user_defined.get(S3ApiHandlers.TAGS_META_KEY, ""),
+            keep_blank_values=True))
+        if ntags:
+            headers["x-amz-tagging-count"] = str(ntags)
         for qk, hk in _RESPONSE_OVERRIDES.items():
             if qk in ctx.qdict:
                 headers[hk] = ctx.qdict[qk]
@@ -561,6 +1021,128 @@ class S3ApiHandlers:
                 raise api from exc
         return Response(204, headers)
 
+    # ---------- object tagging (PutObjectTaggingHandler and the rest);
+    # the tags live in the version's metadata ----------
+
+    def _tag_target_info(self, ctx):
+        """The version a tagging or ACL call addresses; a delete marker
+        as the latest is NoSuchKey, as for GET."""
+        opts = self._opts_for(ctx.bucket, ctx.qdict)
+        try:
+            oi = self.ol.get_object_info(ctx.bucket, ctx.object, opts)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        if oi.delete_marker:
+            raise S3Error("NoSuchKey", ctx.object)
+        return oi, opts
+
+    def get_object_tagging(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        oi, _ = self._tag_target_info(ctx)
+        tags = urllib.parse.parse_qsl(
+            oi.user_defined.get(self.TAGS_META_KEY, ""),
+            keep_blank_values=True)
+        root = ET.Element("Tagging")
+        ts = ET.SubElement(root, "TagSet")
+        for k, v in tags:
+            tag = ET.SubElement(ts, "Tag")
+            ET.SubElement(tag, "Key").text = k
+            ET.SubElement(tag, "Value").text = v
+        headers = {}
+        if oi.version_id and oi.version_id != "null":
+            headers["x-amz-version-id"] = oi.version_id
+        return Response.xml(root, headers=headers)
+
+    def put_object_tagging(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        _, opts = self._tag_target_info(ctx)
+        try:
+            root = ET.fromstring(ctx.body)
+        except ET.ParseError as exc:
+            raise S3Error("MalformedXML", str(exc)) from exc
+        tags: list[tuple[str, str]] = []
+        for tag in root.iter():
+            if not tag.tag.endswith("Tag"):
+                continue
+            k = v = None
+            for sub in tag:
+                if sub.tag.endswith("Key"):
+                    k = (sub.text or "").strip()
+                elif sub.tag.endswith("Value"):
+                    v = sub.text or ""
+            if k is None or v is None:
+                raise S3Error("InvalidTag", "tag missing Key or Value")
+            tags.append((k, v))
+        self._validate_tags(tags)
+        self._update_tags(ctx, opts, urllib.parse.urlencode(tags))
+        return Response(200)
+
+    def delete_object_tagging(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        _, opts = self._tag_target_info(ctx)
+        self._update_tags(ctx, opts, "")
+        return Response(204)
+
+    def _update_tags(self, ctx, opts, encoded: str) -> None:
+        try:
+            self.ol.update_object_metadata(ctx.bucket, ctx.object,
+                                           opts.version_id,
+                                           {self.TAGS_META_KEY: encoded})
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+
+    # ---------- canned ACLs (cmd/acl-handlers.go): the private,
+    # owner-FULL_CONTROL model; policies are the real authorization ----
+
+    def get_acl(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        if ctx.object:
+            self._tag_target_info(ctx)
+        root = ET.Element("AccessControlPolicy")
+        owner = ET.SubElement(root, "Owner")
+        ET.SubElement(owner, "ID").text = "minio-tpu"
+        ET.SubElement(owner, "DisplayName").text = "minio-tpu"
+        acl = ET.SubElement(root, "AccessControlList")
+        grant = ET.SubElement(acl, "Grant")
+        grantee = ET.SubElement(grant, "Grantee")
+        grantee.set("xmlns:xsi", "http://www.w3.org/2001/XMLSchema-instance")
+        grantee.set("xsi:type", "CanonicalUser")
+        ET.SubElement(grantee, "ID").text = "minio-tpu"
+        ET.SubElement(grant, "Permission").text = "FULL_CONTROL"
+        return Response.xml(root)
+
+    def put_acl(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        if ctx.object:
+            # A missing or delete-marked key is NoSuchKey, as for GET.
+            self._tag_target_info(ctx)
+        canned = ctx.headers.get("x-amz-acl", "private")
+        if canned != "private":
+            raise S3Error("NotImplemented",
+                          "only the private canned ACL is supported")
+        if ctx.body:
+            # Only the owner's FULL_CONTROL grant can be held; any other
+            # grant is refused, never dropped.
+            try:
+                root = ET.fromstring(ctx.body)
+            except ET.ParseError as exc:
+                raise S3Error("MalformedXML", str(exc)) from exc
+            perms = [(el.text or "").strip()
+                     for el in root.iter() if el.tag.endswith("Permission")]
+            if not perms or any(p != "FULL_CONTROL" for p in perms) \
+                    or len(perms) > 1:
+                raise S3Error("NotImplemented",
+                              "custom grants are not supported")
+        return Response(200)
+
+    # The object ACL verbs answer as the bucket's; their own names make
+    # the server authorize s3:GetObjectAcl / s3:PutObjectAcl.
+    def get_object_acl(self, ctx) -> Response:
+        return self.get_acl(ctx)
+
+    def put_object_acl(self, ctx) -> Response:
+        return self.put_acl(ctx)
+
     # ---------- multipart ----------
 
     def new_multipart_upload(self, ctx) -> Response:
@@ -570,6 +1152,7 @@ class S3ApiHandlers:
         self._refuse_unported_headers(ctx)
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
+        self._apply_tagging_header(ctx, opts)
         self._apply_storage_class(ctx)
         self._apply_codec(ctx, opts)
         try:
@@ -593,8 +1176,10 @@ class S3ApiHandlers:
             raise S3Error("InvalidArgument", "partNumber") from exc
         if not 1 <= part_number <= MAX_PARTS:
             raise S3Error("InvalidArgument", f"partNumber {part_number}")
-        if "x-amz-copy-source" in ctx.headers:
-            raise S3Error("NotImplemented", "UploadPartCopy")
+        copy_source = ctx.headers.get("x-amz-copy-source", "")
+        if copy_source:
+            return self._upload_part_copy(ctx, upload_id, part_number,
+                                          copy_source)
         size = ctx.content_length
         if size is None:
             raise S3Error("MissingContentLength")
@@ -609,6 +1194,38 @@ class S3ApiHandlers:
         except StorageError as exc:
             raise from_object_error(exc) from exc
         return Response(200, {"ETag": f'"{pi.etag}"'})
+
+    def _upload_part_copy(self, ctx, upload_id: str, part_number: int,
+                          copy_source: str) -> Response:
+        """UploadPartCopy (CopyObjectPartHandler): the part's bytes are a
+        range of the source, read in 1 MiB pulls."""
+        sbucket, sobject, src_opts, src_info = self._copy_source_info(
+            ctx, copy_source)
+        rng = ctx.headers.get("x-amz-copy-source-range", "")
+        offset, length = 0, src_info.size
+        if rng:
+            # Strictly "bytes=first-last" inside the source: unlike an
+            # HTTP Range, a suffix, open or overlong range is refused.
+            m = re.fullmatch(r"bytes=(\d+)-(\d+)", rng)
+            if not m:
+                raise S3Error("InvalidArgument", rng)
+            first, last = int(m.group(1)), int(m.group(2))
+            if first > last or last >= src_info.size:
+                raise S3Error("InvalidArgument", rng)
+            offset, length = first, last - first + 1
+        if length > MAX_PART_SIZE:
+            raise S3Error("EntityTooLarge")
+        reader = _RangeCopyReader(self.ol, sbucket, sobject, offset, length,
+                                  src_opts)
+        try:
+            pi = self.ol.put_object_part(ctx.bucket, ctx.object, upload_id,
+                                         part_number, reader, length)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        root = _xml_root("CopyPartResult")
+        ET.SubElement(root, "LastModified").text = iso8601(pi.mod_time_ns)
+        ET.SubElement(root, "ETag").text = f'"{pi.etag}"'
+        return Response.xml(root)
 
     def complete_multipart_upload(self, ctx) -> Response:
         self._check_bucket(ctx.bucket)

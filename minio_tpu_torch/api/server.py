@@ -8,9 +8,12 @@ authenticated and authorized, and its body is wrapped in the verifier
 its signature asks for (aws-chunked decoding, or x-amz-content-sha256),
 before the handler runs.
 
-The routes of the slice are the bucket calls, ListObjects v1 and v2,
-Put/Get/Head/DeleteObject, the multipart calls and the admin heal; every
-other route answers NotImplemented.
+The routes of the slice are the bucket calls, versioning, bucket policy
+and tagging, the canned bucket answers and ACLs, ListObjects v1 and v2,
+ListObjectVersions, Put/Copy/Get/Head/DeleteObject, DeleteObjects,
+object tagging, the multipart calls with UploadPartCopy and the admin
+heal. A copy is authorized twice: the write on its destination, and
+s3:GetObject on its source. Every other route answers NotImplemented.
 """
 
 from __future__ import annotations
@@ -30,7 +33,12 @@ from . import sign
 from .admin import ADMIN_PREFIX, AdminHandlers
 from .auth import AUTH_STREAMING, authenticate, authorize
 from .errors import API_ERRORS, S3Error, error_xml
-from .handlers import Response, S3ApiHandlers, valid_object_name
+from .handlers import (
+    Response,
+    S3ApiHandlers,
+    parse_copy_source,
+    valid_object_name,
+)
 
 # Buckets the S3 data plane never serves: the internal metadata buckets
 # and the "minio" route namespace (isMinioReservedBucket).
@@ -42,8 +50,17 @@ _SAFE_UPLOAD_ID = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}")
 
 _EMPTY_SHA256 = hashlib.sha256(b"").hexdigest()
 
-# S3 action names of the routes (pkg/iam/policy/action.go).
+# S3 action names of the routes (pkg/iam/policy/action.go); a PUT, POST
+# or DELETE of a bucket configuration takes its mutating action.
 _ACTIONS = {
+    "listen_notification": "s3:ListenBucketNotification",
+    "get_object_tagging": "s3:GetObjectTagging",
+    "put_object_tagging": "s3:PutObjectTagging",
+    "delete_object_tagging": "s3:DeleteObjectTagging",
+    "get_acl": "s3:GetBucketAcl",
+    "put_acl": "s3:PutBucketAcl",
+    "get_object_acl": "s3:GetObjectAcl",
+    "put_object_acl": "s3:PutObjectAcl",
     "list_buckets": "s3:ListAllMyBuckets",
     "make_bucket": "s3:CreateBucket",
     "head_bucket": "s3:ListBucket",
@@ -51,8 +68,24 @@ _ACTIONS = {
     "get_bucket_location": "s3:GetBucketLocation",
     "list_objects_v1": "s3:ListBucket",
     "list_objects_v2": "s3:ListBucket",
+    "list_object_versions": "s3:ListBucketVersions",
+    "delete_multiple_objects": "s3:DeleteObject",
+    "put_bucket_policy": "s3:PutBucketPolicy",
+    "get_bucket_policy": "s3:GetBucketPolicy",
+    "delete_bucket_policy": "s3:DeleteBucketPolicy",
+    "bucket_versioning": "s3:GetBucketVersioning",
+    "bucket_tagging": "s3:GetBucketTagging",
+    "bucket_lifecycle": "s3:GetLifecycleConfiguration",
+    "bucket_encryption": "s3:GetEncryptionConfiguration",
+    "bucket_object_lock": "s3:GetBucketObjectLockConfiguration",
+    "bucket_replication": "s3:GetReplicationConfiguration",
+    "bucket_notification": "s3:GetBucketNotification",
     "put_object": "s3:PutObject",
     "get_object": "s3:GetObject",
+    "object_retention": "s3:GetObjectRetention",
+    "object_legal_hold": "s3:GetObjectLegalHold",
+    "select_object_content": "s3:GetObject",
+    "restore_object": "s3:RestoreObject",
     "head_object": "s3:GetObject",
     "delete_object": "s3:DeleteObject",
     "new_multipart_upload": "s3:PutObject",
@@ -62,6 +95,27 @@ _ACTIONS = {
     "list_object_parts": "s3:ListMultipartUploadParts",
     "list_multipart_uploads": "s3:ListBucketMultipartUploads",
 }
+
+_MUTATING_SUBRESOURCE_ACTIONS = {
+    "bucket_versioning": "s3:PutBucketVersioning",
+    "bucket_tagging": "s3:PutBucketTagging",
+    "bucket_lifecycle": "s3:PutLifecycleConfiguration",
+    "bucket_encryption": "s3:PutEncryptionConfiguration",
+    "bucket_object_lock": "s3:PutBucketObjectLockConfiguration",
+    "bucket_replication": "s3:PutReplicationConfiguration",
+    "bucket_notification": "s3:PutBucketNotification",
+    "object_retention": "s3:PutObjectRetention",
+    "object_legal_hold": "s3:PutObjectLegalHold",
+}
+
+# Routes minio_tpu serves that the port does not yet: answered
+# NotImplemented once the request is authenticated and authorized.
+_UNPORTED_ROUTES = frozenset({
+    "listen_notification", "bucket_lifecycle", "bucket_encryption",
+    "bucket_object_lock", "bucket_replication", "bucket_notification",
+    "object_retention", "object_legal_hold", "select_object_content",
+    "restore_object",
+})
 
 # S3 header limits (setRequestHeaderSizeLimitHandler): 8 KiB of headers,
 # 2 KiB of user metadata.
@@ -173,61 +227,65 @@ class RequestContext:
         return self._body
 
 
-# Bucket and object subresources by method: minio_tpu serves most (ACLs,
-# policies, bucket configurations, tagging, retention), rejects the rest
-# (rejectUnsupportedAPIs, cmd/api-router.go:87-176). The port serves
-# none of them.
-_BUCKET_SUBS = {
-    "GET": ("cors", "website", "accelerate", "requestPayment", "logging",
-            "policyStatus", "acl", "policy", "versioning", "tagging",
-            "lifecycle", "encryption", "object-lock", "replication",
-            "notification", "versions", "events", "metrics",
-            "publicAccessBlock", "ownershipControls", "intelligent-tiering",
-            "analytics"),
-    "PUT": ("acl", "policy", "versioning", "tagging", "lifecycle",
-            "encryption", "object-lock", "replication", "notification",
-            "cors", "metrics", "website", "logging", "accelerate",
-            "requestPayment", "publicAccessBlock", "ownershipControls",
-            "intelligent-tiering", "analytics"),
-    "DELETE": ("policy", "website", "tagging", "lifecycle", "encryption",
-               "replication", "cors", "metrics", "logging", "accelerate",
-               "requestPayment", "acl", "publicAccessBlock",
-               "ownershipControls", "intelligent-tiering", "analytics"),
-    "HEAD": ("acl",),
-}
-_OBJECT_SUBS = {
-    "GET": ("retention", "legal-hold", "tagging", "acl", "torrent"),
-    "PUT": ("retention", "legal-hold", "tagging", "acl", "torrent"),
-    "DELETE": ("tagging", "acl", "torrent"),
-}
-
-
 def route(ctx: RequestContext) -> str:
     """(method, bucket/object, query) -> the handler's name, minio_tpu's
-    decision tree (cmd/api-router.go:143-455). A subresource route gets a
-    name no handler has, and the server answers it NotImplemented."""
+    decision tree (cmd/api-router.go:143-455)."""
     m, q = ctx.method, ctx.qdict
     if not ctx.bucket:
         if m == "GET":
             return "list_buckets"
         raise S3Error("MethodNotAllowed", "service endpoint")
+    _check_rejected_apis(m, q, bool(ctx.object))
     if not ctx.object:
-        if m == "GET" and "location" in q:
-            return "get_bucket_location"
-        for sub in _BUCKET_SUBS.get(m, ()):
-            if sub in q:
-                return f"{m.lower()}_bucket_{sub}"
         if m == "GET":
+            if "location" in q:
+                return "get_bucket_location"
+            # Canned answers (cmd/dummy-handlers.go) for SDK probes.
+            for sub, op in (("cors", "get_bucket_cors"),
+                            ("website", "get_bucket_website"),
+                            ("accelerate", "get_bucket_accelerate"),
+                            ("requestPayment", "get_bucket_request_payment"),
+                            ("logging", "get_bucket_logging"),
+                            ("policyStatus", "get_bucket_policy_status")):
+                if sub in q:
+                    return op
+            if "acl" in q:
+                return "get_acl"
+            if "policy" in q:
+                return "get_bucket_policy"
+            for sub in ("versioning", "tagging", "lifecycle", "encryption",
+                        "object-lock", "replication", "notification"):
+                if sub in q:
+                    return f"bucket_{sub.replace('-', '_')}"
             if "uploads" in q:
                 return "list_multipart_uploads"
+            if "versions" in q:
+                return "list_object_versions"
+            if "events" in q:
+                return "listen_notification"
             if q.get("list-type") == "2":
                 return "list_objects_v2"
             return "list_objects_v1"
         if m == "PUT":
+            if "acl" in q:
+                return "put_acl"
+            if "policy" in q:
+                return "put_bucket_policy"
+            for sub in ("versioning", "tagging", "lifecycle", "encryption",
+                        "object-lock", "replication", "notification"):
+                if sub in q:
+                    return f"bucket_{sub.replace('-', '_')}"
             return "make_bucket"
         if m == "HEAD":
             return "head_bucket"
         if m == "DELETE":
+            if "policy" in q:
+                return "delete_bucket_policy"
+            if "website" in q:
+                return "delete_bucket_website"
+            for sub in ("tagging", "lifecycle", "encryption", "replication"):
+                if sub in q:
+                    return f"bucket_{sub}"
             return "delete_bucket"
         if m == "POST":
             if "delete" in q:
@@ -236,17 +294,32 @@ def route(ctx: RequestContext) -> str:
                     "multipart/form-data"):
                 return "post_policy_object"
         raise S3Error("MethodNotAllowed", f"{m} bucket")
-    if m == "GET" and "uploadId" in q:
-        return "list_object_parts"
-    if m == "PUT" and "partNumber" in q and "uploadId" in q:
-        return "put_object_part"
-    if m == "DELETE" and "uploadId" in q:
-        return "abort_multipart_upload"
-    for sub in _OBJECT_SUBS.get(m, ()):
-        if sub in q:
-            return f"{m.lower()}_object_{sub}"
-    if m in ("GET", "HEAD", "PUT", "DELETE"):
-        return f"{m.lower()}_object"
+    if m == "GET":
+        if "uploadId" in q:
+            return "list_object_parts"
+        if "retention" in q:
+            return "object_retention"
+        if "legal-hold" in q:
+            return "object_legal_hold"
+        if "tagging" in q:
+            return "get_object_tagging"
+        if "acl" in q:
+            return "get_object_acl"
+        return "get_object"
+    if m == "HEAD":
+        return "head_object"
+    if m == "PUT":
+        if "partNumber" in q and "uploadId" in q:
+            return "put_object_part"
+        if "retention" in q:
+            return "object_retention"
+        if "legal-hold" in q:
+            return "object_legal_hold"
+        if "tagging" in q:
+            return "put_object_tagging"
+        if "acl" in q:
+            return "put_object_acl"
+        return "put_object"
     if m == "POST":
         if "uploads" in q:
             return "new_multipart_upload"
@@ -257,7 +330,41 @@ def route(ctx: RequestContext) -> str:
         if "restore" in q:
             return "restore_object"
         raise S3Error("MethodNotAllowed", f"POST {ctx.object}")
+    if m == "DELETE":
+        if "uploadId" in q:
+            return "abort_multipart_upload"
+        if "tagging" in q:
+            return "delete_object_tagging"
+        return "delete_object"
     raise S3Error("MethodNotAllowed", m)
+
+
+# S3 APIs minio_tpu refuses up front with NotImplemented
+# (rejectUnsupportedAPIs, cmd/api-router.go:87-176); PUT ?acl stays
+# served (the canned ACL).
+_REJECTED_BUCKET_SUBS = {
+    "GET": ("metrics", "publicAccessBlock", "ownershipControls",
+            "intelligent-tiering", "analytics"),
+    "PUT": ("cors", "metrics", "website", "logging", "accelerate",
+            "requestPayment", "publicAccessBlock", "ownershipControls",
+            "intelligent-tiering", "analytics"),
+    "DELETE": ("cors", "metrics", "logging", "accelerate",
+               "requestPayment", "acl", "publicAccessBlock",
+               "ownershipControls", "intelligent-tiering", "analytics"),
+    "HEAD": ("acl",),
+}
+_REJECTED_OBJECT_SUBS = {
+    "GET": ("torrent",),
+    "PUT": ("torrent",),
+    "DELETE": ("torrent", "acl"),
+}
+
+
+def _check_rejected_apis(method: str, q: dict, is_object: bool) -> None:
+    table = _REJECTED_OBJECT_SUBS if is_object else _REJECTED_BUCKET_SUBS
+    for sub in table.get(method, ()):
+        if sub in q:
+            raise S3Error("NotImplemented", f"{method} ?{sub}")
 
 
 def _reserved_metadata_check(ctx: RequestContext) -> None:
@@ -413,8 +520,23 @@ class S3Server:
             raise S3Error("NotImplemented", name)
         auth_result = authenticate(self.iam, ctx.method, ctx.path, ctx.query,
                                    ctx.raw_headers)
-        authorize(self.iam, auth_result, _ACTIONS.get(name, "s3:*"))
-        if name not in _ACTIONS:
+        action = _ACTIONS.get(name, "s3:*")
+        if ctx.method in ("PUT", "POST", "DELETE"):
+            action = _MUTATING_SUBRESOURCE_ACTIONS.get(name, action)
+        bucket_policy = None
+        if ctx.bucket:
+            bucket_policy = self.handlers.bm.get(ctx.bucket).policy()
+        authorize(self.iam, bucket_policy, auth_result, action, ctx.bucket,
+                  ctx.object)
+        # A copy reads a second object: s3:GetObject on its source too.
+        if name in ("put_object", "put_object_part"):
+            copy_source = ctx.headers.get("x-amz-copy-source", "")
+            if copy_source:
+                sbucket, sobject, _ = parse_copy_source(copy_source)
+                _check_reserved_bucket(sbucket)
+                authorize(self.iam, self.handlers.bm.get(sbucket).policy(),
+                          auth_result, "s3:GetObject", sbucket, sobject)
+        if name in _UNPORTED_ROUTES:
             raise S3Error("NotImplemented", name)
         if auth_result.auth == AUTH_STREAMING:
             self._wrap_streaming_body(ctx)

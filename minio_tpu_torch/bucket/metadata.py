@@ -1,10 +1,11 @@
-"""BucketMetadataSys, the part of minio_tpu/bucket/metadata.py the
-slice's requests reach (MinIO's cmd/bucket-metadata-sys.go): one JSON
-blob a bucket, stored as the object `buckets/<bucket>/metadata.json` of
-the `.minio.sys` bucket through the object layer, and cached. The blob
-and its xl.meta are byte for byte minio_tpu's. The routes that set the
-fields are not ported; the S3 handlers refuse a bucket whose stored
-configuration they would have to honour.
+"""BucketMetadataSys, the port's copy of minio_tpu/bucket/metadata.py
+(MinIO's cmd/bucket-metadata-sys.go): one JSON blob a bucket, stored as
+the object `buckets/<bucket>/metadata.json` of the `.minio.sys` bucket
+through the object layer, and cached. The blob and its xl.meta are byte
+for byte minio_tpu's. The port honours the versioning status, the
+bucket policy and the tagging blob; the S3 handlers refuse a bucket
+whose other stored configurations (lifecycle, SSE, quota, object lock,
+notification, replication) they would have to honour.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import io
 import json
 import threading
 import time
+import xml.etree.ElementTree as ET
 
+from ..iam.policy import Policy
 from ..utils.errors import ErrBucketNotFound, StorageError
 
 META_BUCKET = ".minio.sys"
@@ -47,6 +50,36 @@ class BucketMetadata:
         for f in cls.FIELDS:
             setattr(bm, f, d.get(f, ""))
         return bm
+
+    # --- parsed views ---
+
+    def _versioning_status(self) -> str:
+        """The stored VersioningConfiguration's Status, read whatever its
+        namespace and whitespace, as the PUT handler accepts it."""
+        if not self.versioning_xml:
+            return ""
+        try:
+            root = ET.fromstring(self.versioning_xml)
+        except ET.ParseError:
+            return ""
+        status = ""
+        for el in root.iter():
+            if el.tag.endswith("Status"):
+                status = (el.text or "").strip()
+        return status
+
+    @property
+    def versioning_enabled(self) -> bool:
+        return self._versioning_status() == "Enabled"
+
+    @property
+    def versioning_suspended(self) -> bool:
+        return self._versioning_status() == "Suspended"
+
+    def policy(self) -> Policy | None:
+        if not self.policy_json:
+            return None
+        return Policy.parse(self.policy_json)
 
 
 class BucketMetadataSys:
@@ -89,6 +122,13 @@ class BucketMetadataSys:
             )
         with self._lock:
             self._cache[bm.name] = bm
+
+    def update(self, bucket: str, field: str, value: str) -> None:
+        if field not in BucketMetadata.FIELDS:
+            raise ValueError(f"unknown bucket metadata field {field!r}")
+        bm = self.get(bucket)
+        setattr(bm, field, value)
+        self.save(bm)
 
     def delete(self, bucket: str) -> None:
         with self._lock:

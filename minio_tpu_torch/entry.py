@@ -11,7 +11,11 @@ set size, with a heal of one lost drive through the repair plane.
 `s3_put_get_heal()` drives the S3 server over HTTP on localhost: signed
 PUTs (aws-chunked, multipart, small objects), listing, GETs, lost
 drives, degraded GETs and an admin heal; `s3_codec_put_get()` one PUT
-with the x-mtpu-codec header.
+with the x-mtpu-codec header. `s3_core()` drives the S3 object core:
+versioned PUTs, a delete marker, versioned GETs with drives lost,
+CopyObject from the degraded source, UploadPartCopy, a metadata-only
+self-copy, tagging, DeleteObjects, a bucket policy with anonymous
+requests, and the heals of every version.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from .erasure.streaming import (
     heal_stream,
 )
 from .api.client import S3Client
+from .api.handlers import copy_reads_snapshot
 from .object import erasure_objects
 from .object.sets import ErasureSets
 from .object.types import ObjectOptions
@@ -48,6 +53,7 @@ from .ops import gf, highwayhash_torch, host_feed, rs_cuda
 from .ops.rs import apply_gf_matrix
 from .server import Server
 from .storage.local import LocalStorage
+from .storage.xlmeta import XLMeta
 from .utils import ceil_frac
 from .utils.device import resolve_device
 from .utils.errors import ErrFileCorrupt, ErrFileNotFound
@@ -74,6 +80,7 @@ def counters() -> dict:
     snap.update(streaming.stats_snapshot())
     snap.update({f"h2d_{k}": v for k, v in host_feed.h2d_snapshot().items()})
     snap.update({f"repair_{k}": v for k, v in repair.stats_snapshot().items()})
+    snap.update({f"copy_{k}": v for k, v in copy_reads_snapshot().items()})
     snap["kernel_gf_launches"] = rs_cuda.LAUNCHES.value
     snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES.value
     return snap
@@ -715,5 +722,340 @@ def s3_put_get_heal(root, size: int, device="cuda",
         out["healed_files"] = len(originals)
     finally:
         server.stop()
+    out["checks"] = checks
+    return out
+
+
+ENABLED_XML = (b"<VersioningConfiguration><Status>Enabled</Status>"
+               b"</VersioningConfiguration>")
+
+
+def part_copy_ranges(size: int) -> list[tuple[int, int]]:
+    """The three x-amz-copy-source-range spans (first, last) s3_core's
+    UploadPartCopy takes from a `size`-byte source: whole blocks to a
+    quarter of it, then to three quarters plus 7 bytes, then the rest,
+    so that the last two parts end in ragged blocks."""
+    block = erasure_objects.BLOCK_SIZE_V2
+    quarter = size // 4 // block * block
+    if quarter == 0:
+        raise ValueError(f"a {size}-byte source has fewer than 4 blocks "
+                         f"of {block} B")
+    cuts = (0, quarter, 3 * quarter + 7, size)
+    return [(a, b - 1) for a, b in zip(cuts, cuts[1:])]
+
+
+def _listed_versions(client: S3Client, bucket: str, prefix: str,
+                     page: int) -> tuple[list, int]:
+    """Every (key, version id, delete marker, latest) of a paged
+    ListObjectVersions walk, and the number of pages."""
+    entries, key_marker, vid_marker, pages = [], "", "", 0
+    while True:
+        q = [("versions", ""), ("prefix", prefix), ("max-keys", str(page))]
+        if key_marker:
+            q += [("key-marker", key_marker),
+                  ("version-id-marker", vid_marker)]
+        status, _, body = client.request("GET", f"/{bucket}", q)
+        if status != 200:
+            raise AssertionError(f"versions: {status} {body[:200]!r}")
+        pages += 1
+        for kind, block in re.findall(
+                rb"<(Version|DeleteMarker)>(.*?)</\1>", body, re.S):
+            entries.append((
+                re.search(rb"<Key>(.*?)</Key>", block).group(1).decode(),
+                re.search(rb"<VersionId>(.*?)</VersionId>",
+                          block).group(1).decode(),
+                kind == b"DeleteMarker",
+                b"<IsLatest>true</IsLatest>" in block))
+        if b"<IsTruncated>true</IsTruncated>" not in body:
+            return entries, pages
+        key_marker = re.search(rb"<NextKeyMarker>(.*?)<",
+                               body).group(1).decode()
+        vid_marker = re.search(rb"<NextVersionIdMarker>(.*?)<",
+                               body).group(1).decode()
+
+
+def _part_digests(root: Path, bucket: str, prefix: str = "") -> dict:
+    """SHA-256 of every part file of the bucket's objects under `prefix`
+    on the 16 drives."""
+    return {p: hashlib.sha256(p.read_bytes()).hexdigest()
+            for i in range(1, 17)
+            for p in (root / f"d{i}" / bucket).glob(f"{prefix}**/part.*")
+            if p.is_file()}
+
+
+def _journal(root: Path, drive: int, bucket: str, name: str):
+    """(version id, mod time, delete marker) of each version in a drive's
+    xl.meta of the object, None when it has none."""
+    path = root / f"d{drive}" / bucket / name / "xl.meta"
+    if not path.is_file():
+        return None
+    return [(v["vid"], v["mt"], v["del"])
+            for v in XLMeta.from_bytes(path.read_bytes()).versions]
+
+
+def _wipe(root: Path, bucket: str) -> None:
+    """Every object of the bucket lost on the drives of S3_WIPED."""
+    for i in S3_WIPED:
+        for entry in (root / f"d{i + 1}" / bucket).iterdir():
+            shutil.rmtree(entry)
+
+
+def s3_core(root, size: int, device="cuda", small_count: int = 256,
+            small_size: int = 1 << 10, page: int = 100,
+            seed: int = 0) -> dict:
+    """Drive the S3 object core over HTTP on localhost: a Server over 16
+    fresh drive directories under `root` (one 12+4 set), one client
+    signing with the port's api/sign.py, the object writes stamped
+    dense-gf8 (x-mtpu-codec), and in order:
+
+    1. MakeBucket ver, PUT ?versioning Enabled, GET ?versioning;
+       MakeBucket dst, unversioned;
+    2. two PUTs of ver/big, `size` bytes each: v1 = payload A, then
+       v2 = payload B with x-amz-tagging; ListObjectVersions;
+    3. DELETE ver/big (a delete marker); a GET (404); GETs of v1 and v2
+       by versionId;
+    4. ver's objects lost on drives 0, 5, 12 and 15; a degraded GET of
+       v1 by versionId;
+    5. CopyObject of ver/big?versionId=v1 to dst/copy from the degraded
+       source; a GET of it;
+    6. a multipart upload of dst/parts from three UploadPartCopy parts
+       of v2 (part_copy_ranges); Complete; a GET of it;
+    7. a self-copy of dst/copy with x-amz-metadata-directive REPLACE,
+       metadata only: its part files keep their bytes;
+    8. tagging of v1: put, get, delete; a HEAD of v2 (its tag count);
+    9. `small_count` PUTs of `small_size` bytes under small/ in ver, one
+       POST ?delete of all of them, ListObjectsV2 of ver (empty: every
+       latest version is a delete marker), ListObjectVersions of small/
+       in pages of `page` (2 x small_count entries);
+    10. a bucket policy on dst letting anonymous requests GET public/*:
+        anonymous GETs of dst/public/x (200) and dst/copy (403), an
+        anonymous PUT (403), and after DELETE ?policy the first GET
+        again (403);
+    11. dst's objects lost on the same drives; an admin heal of dst
+        polled to its end; heal_object of ver/big at v1, v2 and the
+        marker (the heal walk visits latest versions only); every part
+        file of both buckets then equal to its pre-loss copy by SHA-256,
+        and each healed drive's journal of ver/big equal to a surviving
+        drive's.
+
+    Returns each step's seconds and counter deltas (`counters()`, with
+    the copy pulls and bytes read), the bytes each copy read and wrote,
+    and the checks, each True when it held."""
+    dev = resolve_device(device)
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    payload_a, payload_b = rng.bytes(size), rng.bytes(size)
+    small = rng.bytes(small_size)
+    out: dict = {"size": size, "k": 12, "m": 4,
+                 "wiped_drives": list(S3_WIPED), "small_count": small_count,
+                 "part_copy_ranges": part_copy_ranges(size),
+                 "seconds": {}, "counters": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    dense = {"x-mtpu-codec": "dense-gf8"}
+    server = Server([str(root / "d{1...16}")], port=0,
+                    root_user=S3_ACCESS, root_password=S3_SECRET,
+                    default_parity=4, device=dev).start()
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+        big = "/ver/big"
+
+        def versioning():
+            return [c.request("PUT", "/ver")[0],
+                    c.request("PUT", "/ver", [("versioning", "")],
+                              body=ENABLED_XML)[0],
+                    c.request("GET", "/ver", [("versioning", "")]),
+                    c.request("PUT", "/dst")[0]]
+
+        got = phase("versioning", versioning)
+        checks["versioning_ok"] = (got[:2] == [200, 200] and got[3] == 200
+                                   and b"<Status>Enabled</Status>"
+                                   in got[2][2])
+
+        # 2. Two versions, the second tagged.
+        _, h, _ = phase("put_v1", lambda: c.request(
+            "PUT", big, headers=dense, body=payload_a))
+        v1 = h.get("x-amz-version-id", "")
+        _, h, _ = phase("put_v2", lambda: c.request(
+            "PUT", big, headers={**dense, "x-amz-tagging":
+                                 "team=storage&copy=none"},
+            body=payload_b))
+        v2 = h.get("x-amz-version-id", "")
+        listed, _ = phase("list_versions", lambda: _listed_versions(
+            c, "ver", "big", page))
+        checks["two_versions_ok"] = bool(v1 and v2 and v1 != v2) and \
+            listed == [("big", v2, False, True), ("big", v1, False, False)]
+
+        # 3. A delete marker over both.
+        status, h, _ = phase("delete_marker", lambda: c.request("DELETE",
+                                                                big))
+        marker = h.get("x-amz-version-id", "")
+        checks["delete_marker_ok"] = (status == 204 and h.get(
+            "x-amz-delete-marker") == "true" and marker not in ("", v1, v2))
+        status, _, body = phase("get_marked", lambda: c.request("GET", big))
+        checks["get_marked_404"] = (status == 404
+                                    and b"<Code>NoSuchKey</Code>" in body)
+        for name, vid, want in (("get_v1", v1, payload_a),
+                                ("get_v2", v2, payload_b)):
+            status, _, body = phase(name, lambda vid=vid: c.request(
+                "GET", big, [("versionId", vid)]))
+            checks[f"{name}_ok"] = status == 200 and body == want
+
+        # 4. Drives lost; v1 read degraded.
+        ver_digests = _part_digests(root, "ver")
+        _wipe(root, "ver")
+        status, _, body = phase("degraded_get_v1", lambda: c.request(
+            "GET", big, [("versionId", v1)]))
+        checks["degraded_get_v1_ok"] = status == 200 and body == payload_a
+
+        # 5. CopyObject from the degraded source.
+        status, _, body = phase("copy", lambda: c.request(
+            "PUT", "/dst/copy",
+            headers={"x-amz-copy-source": f"{big}?versionId={v1}"}))
+        etag_a = hashlib.md5(payload_a).hexdigest()
+        checks["copy_ok"] = status == 200 and f'"{etag_a}"'.encode() in body
+        status, _, body = phase("get_copy", lambda: c.request("GET",
+                                                              "/dst/copy"))
+        checks["get_copy_ok"] = status == 200 and body == payload_a
+
+        # 6. UploadPartCopy of v2 in three ranges, the last two ragged.
+        def part_copy():
+            status, _, body = c.request("POST", "/dst/parts",
+                                        [("uploads", "")], headers=dense)
+            upload = re.search(rb"<UploadId>(.*?)<", body).group(1).decode()
+            etags = []
+            for n, (first, last) in enumerate(part_copy_ranges(size), 1):
+                status, _, body = c.request(
+                    "PUT", "/dst/parts", [("partNumber", str(n)),
+                                          ("uploadId", upload)],
+                    headers={"x-amz-copy-source": f"{big}?versionId={v2}",
+                             "x-amz-copy-source-range":
+                                 f"bytes={first}-{last}"})
+                if status != 200:
+                    return status, body
+                etags.append(re.search(rb"<ETag>(.*?)</ETag>",
+                                       body).group(1).decode())
+            xml = "<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+                for n, e in enumerate(etags, 1)) + \
+                "</CompleteMultipartUpload>"
+            status, _, body = c.request("POST", "/dst/parts",
+                                        [("uploadId", upload)],
+                                        body=xml.encode())
+            return status, body
+
+        status, _ = phase("part_copy", part_copy)
+        checks["part_copy_ok"] = status == 200
+        status, _, body = phase("get_parts", lambda: c.request(
+            "GET", "/dst/parts"))
+        checks["get_parts_ok"] = status == 200 and body == payload_b
+
+        # 7. A metadata-only self-copy.
+        before = _part_digests(root, "dst", "copy/")
+        status, _, _ = phase("self_copy", lambda: c.request(
+            "PUT", "/dst/copy", headers={
+                "x-amz-copy-source": "/dst/copy",
+                "x-amz-metadata-directive": "REPLACE",
+                "x-amz-meta-note": "replaced"}))
+        _, h, _ = c.request("HEAD", "/dst/copy")
+        checks["self_copy_ok"] = (status == 200 and h.get("x-amz-meta-note")
+                                  == "replaced")
+        checks["self_copy_parts_unchanged"] = bool(before) and \
+            _part_digests(root, "dst", "copy/") == before
+
+        # 8. Tagging of v1.
+        def tagging():
+            q = [("tagging", ""), ("versionId", v1)]
+            xml = (b"<Tagging><TagSet><Tag><Key>tier</Key><Value>cold"
+                   b"</Value></Tag></TagSet></Tagging>")
+            return (c.request("PUT", big, q, body=xml)[0],
+                    c.request("GET", big, q)[2],
+                    c.request("DELETE", big, q)[0],
+                    c.request("GET", big, q)[2],
+                    c.request("HEAD", big, [("versionId", v2)])[1])
+
+        put_s, tags, del_s, tags_after, head_v2 = phase("tagging", tagging)
+        checks["tagging_ok"] = (
+            put_s == 200 and b"<Key>tier</Key>" in tags and del_s == 204
+            and b"<Tag>" not in tags_after
+            and head_v2.get("x-amz-tagging-count") == "2")
+
+        # 9. Small objects, one DeleteObjects, the listings.
+        names = [f"small/obj-{i:04d}" for i in range(small_count)]
+        checks["small_put_ok"] = phase("put_small", lambda: all(
+            c.request("PUT", f"/ver/{n}", headers=dense,
+                      body=small)[0] == 200 for n in names))
+        delete_xml = ("<Delete>" + "".join(
+            f"<Object><Key>{n}</Key></Object>" for n in names)
+            + "</Delete>").encode()
+        status, _, body = phase("delete_objects", lambda: c.request(
+            "POST", "/ver", [("delete", "")], body=delete_xml))
+        checks["delete_objects_ok"] = (status == 200 and body.count(
+            b"<Deleted>") == small_count and b"<Error>" not in body)
+        keys, prefixes, _ = phase("list_after_delete", lambda: _listed(
+            c, "ver", page))
+        checks["list_empty"] = keys == [] and prefixes == []
+        listed, pages = phase("list_versions_small", lambda: _listed_versions(
+            c, "ver", "small/", page))
+        out["version_pages"] = pages
+        checks["list_versions_ok"] = (
+            len(listed) == 2 * small_count
+            and sorted({e[0] for e in listed}) == names
+            and sum(e[2] for e in listed) == small_count
+            and all(e[3] == e[2] for e in listed))
+
+        # 10. A bucket policy and anonymous requests.
+        policy = json.dumps({"Version": "2012-10-17", "Statement": [{
+            "Effect": "Allow", "Principal": {"AWS": ["*"]},
+            "Action": ["s3:GetObject"],
+            "Resource": ["arn:aws:s3:::dst/public/*"]}]}).encode()
+
+        def policy_calls():
+            c.request("PUT", "/dst/public/x", headers=dense, body=small)
+            put = c.request("PUT", "/dst", [("policy", "")], body=policy)[0]
+            anon = [c.request("GET", "/dst/public/x", anonymous=True),
+                    c.request("GET", "/dst/copy", anonymous=True),
+                    c.request("PUT", "/dst/public/y", body=small,
+                              anonymous=True)]
+            deleted = c.request("DELETE", "/dst", [("policy", "")])[0]
+            after = c.request("GET", "/dst/public/x", anonymous=True)
+            return put, anon, deleted, after
+
+        put, anon, deleted, after = phase("policy", policy_calls)
+        checks["policy_ok"] = (
+            put == 204 and deleted == 204
+            and anon[0][0] == 200 and anon[0][2] == small
+            and [a[0] for a in anon[1:]] == [403, 403] and after[0] == 403)
+
+        # 11. dst lost too; the heals.
+        dst_digests = _part_digests(root, "dst")
+        _wipe(root, "dst")
+        state = phase("heal_bucket", lambda: _heal_bucket(c, "dst"))
+        out["heal"] = {k: state[k] for k in ("Summary", "NumScanned",
+                                             "NumHealed", "NumFailed")}
+        checks["heal_bucket_ok"] = (state["Summary"] == "finished"
+                                    and state["NumFailed"] == 0)
+        ol = server.object_layer
+        heals = phase("heal_versions", lambda: [
+            ol.heal_object("ver", "big", vid) for vid in (v1, v2, marker)])
+        checks["heal_versions_ok"] = all(len(h["healed"]) == len(S3_WIPED)
+                                         for h in heals)
+    finally:
+        server.stop()
+    checks["healed_identical"] = bool(ver_digests) and bool(dst_digests) \
+        and all(p.is_file() and hashlib.sha256(p.read_bytes()).hexdigest()
+                == h for p, h in {**ver_digests, **dst_digests}.items())
+    survivor = next(i for i in range(1, 17) if i - 1 not in S3_WIPED)
+    journal = _journal(root, survivor, "ver", "big")
+    checks["healed_journals_ok"] = len(journal) == 3 and all(
+        _journal(root, i + 1, "ver", "big") == journal for i in S3_WIPED)
+    out["healed_files"] = len(ver_digests) + len(dst_digests)
+    out["copy_bytes"] = {
+        name: {"pulls": out["counters"][name]["copy_pulls"],
+               "read": out["counters"][name]["copy_bytes"],
+               "written": sum(p.stat().st_size for i in range(1, 17)
+                              for p in (root / f"d{i}" / "dst").glob(
+                                  f"{obj}/*/part.*"))}
+        for name, obj in (("copy", "copy"), ("part_copy", "parts"))}
     out["checks"] = checks
     return out

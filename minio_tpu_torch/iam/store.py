@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from .policy import Args
+
 
 @dataclass
 class Credentials:
@@ -26,7 +28,7 @@ class IAMSys:
             return self.root
         return None
 
-    def is_allowed(self, account: str) -> bool:
+    def is_allowed(self, args: Args) -> bool:
         """Authorization: the root may do everything, and there is no
         other account."""
-        return account == self.root.access_key
+        return args.account == self.root.access_key

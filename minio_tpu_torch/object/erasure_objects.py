@@ -1,9 +1,10 @@
 """ErasureObjects: one erasure set, object operations over k+m disks with
 quorum semantics. The port's copy of minio_tpu/object/erasure_objects.py
 (MinIO's erasureObjects, cmd/erasure-object.go), cut to PutObject,
-GetObject, DeleteObject, HealObject, the bucket calls, the raw listing
-walk and (from object/multipart.py) the multipart calls, on the port's
-erasure streams and kernels.
+GetObject, DeleteObject(s) with delete markers, the metadata-only
+update of a version (tags, a REPLACE self-copy), HealObject, the bucket
+calls, the raw listing walk and (from object/multipart.py) the
+multipart calls, on the port's erasure streams and kernels.
 
 PUT: order the disks by the object's hash order, stage bitrot-framed
 shards under .mtpu.sys/tmp (or in memory for an inline object), encode
@@ -38,13 +39,16 @@ from ..erasure.bitrot import (
 from ..erasure.codec import cached_erasure
 from ..erasure.streaming import decode_stream, encode_stream, heal_stream
 from ..storage.fileinfo import ChecksumInfo, ErasureInfo, FileInfo, new_uuid
+from ..storage.diskcheck import ROBUST
 from ..storage.local import SYSTEM_META_BUCKET, small_file_threshold
+from ..utils import fanout as fanout_policy
 from ..utils.device import resolve_device
 from ..utils.errors import (
     OBJECT_OP_IGNORED_ERRS,
     ErrBadDigest,
     ErrBucketNotFound,
     ErrDiskNotFound,
+    ErrDiskOpTimeout,
     ErrErasureReadQuorum,
     ErrFileNotFound,
     ErrFileVersionNotFound,
@@ -63,6 +67,7 @@ from ..utils.errors import (
 )
 from ..utils.nslock import NamespaceLock
 from .metadata import (
+    IO_POOL,
     common_mod_time,
     fanout,
     find_file_info_in_quorum,
@@ -78,6 +83,41 @@ from .types import ObjectInfo, ObjectOptions, TeeMD5Reader
 BLOCK_SIZE_V2 = 1 << 20  # erasure block size of new objects (blockSizeV2)
 
 _BITROT = BitrotAlgorithm.HIGHWAYHASH256S
+
+
+_IO_COMPENSATOR = fanout_policy.StragglerCompensator(IO_POOL)
+
+
+def _quorum_fanout(attempt, disks: list, errs: list, quorum: int) -> None:
+    """The quorum-wait fan-out of the delete paths: attempt(i), which
+    raises on failure, for every disk, errs[i] its error; returns once
+    `quorum` succeeded and a straggler grace passed. A disk still in
+    flight then is detached with ErrDiskOpTimeout (quorum-ignored, like
+    an offline disk), and MRF heals what it missed. One core runs the
+    attempts in turn."""
+    n = len(disks)
+    if fanout_policy.SINGLE_CORE:
+        for i in range(n):
+            try:
+                attempt(i)
+            except (StorageError, OSError) as exc:
+                errs[i] = exc
+        return
+    pending = set(range(n))
+
+    def record(i, err):
+        if err is not None:
+            errs[i] = err
+
+    def on_detach(i):
+        errs[i] = ErrDiskOpTimeout(f"disk {i} straggling past quorum")
+
+    fanout_policy.QuorumFanout(IO_POOL, _IO_COMPENSATOR).dispatch(
+        attempt, pending, (), quorum, ROBUST.op_deadline_s,
+        ROBUST.straggler_grace_s,
+        count_ok=lambda: sum(1 for j in range(n)
+                             if errs[j] is None and j not in pending),
+        record=record, on_detach=on_detach)
 
 
 def _close_sinks(sinks) -> None:
@@ -589,28 +629,45 @@ class ErasureObjects(MultipartMixin):
 
     def _delete_object(self, bucket: str, object_: str,
                        opts: ObjectOptions) -> ObjectInfo:
-        write_quorum = self.set_drive_count // 2 + 1
+        n = self.set_drive_count
+        write_quorum = n // 2 + 1
+
+        def on_disk(op):
+            def attempt(i):
+                if self.disks[i] is None:
+                    raise ErrDiskNotFound(f"disk {i}")
+                op(self.disks[i])
+            return attempt
+
         if opts.versioned and not opts.version_id:
             # A versioned delete without a version writes a delete marker.
             marker = FileInfo(volume=bucket, name=object_,
                               version_id=new_uuid(), deleted=True,
                               mod_time_ns=opts.mod_time_ns or time.time_ns())
-            errs = self._on_every_disk(
-                lambda _, d: d.write_metadata(bucket, object_, marker))
+            errs: list = [None] * n
+            _quorum_fanout(on_disk(lambda d: d.write_metadata(
+                bucket, object_, marker)), self.disks, errs, write_quorum)
             err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
                                            write_quorum)
             if err is not None:
                 raise err
             if any(e is not None for e in errs):
+                # The marker's own version id: heal replicates that exact
+                # version, even after a newer write lands.
                 self.queue_mrf(bucket, object_, marker.version_id)
             return ObjectInfo(bucket=bucket, name=object_,
                               version_id=marker.version_id,
                               delete_marker=True)
 
+        # A targeted delete, or an untargeted one on an unversioned or
+        # suspended bucket: the version is removed (under suspension the
+        # null version, "").
         fi = FileInfo(volume=bucket, name=object_,
                       version_id=opts.version_id)
-        errs = self._on_every_disk(
-            lambda _, d: d.delete_version(bucket, object_, fi))
+        errs = [None] * n
+        _quorum_fanout(on_disk(lambda d: d.delete_version(bucket, object_,
+                                                          fi)),
+                       self.disks, errs, write_quorum)
         err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
                                        write_quorum)
         if err is not None:
@@ -621,6 +678,68 @@ class ErasureObjects(MultipartMixin):
             self.queue_mrf(bucket, object_, opts.version_id)
         return ObjectInfo(bucket=bucket, name=object_,
                           version_id=opts.version_id)
+
+    def delete_objects(self, bucket: str, objects: list[str],
+                       opts: ObjectOptions | None = None) -> list:
+        """DeleteObject of each name with the same options: the error of
+        each, None where it went."""
+        out = []
+        for o in objects:
+            try:
+                self.delete_object(bucket, o, opts)
+                out.append(None)
+            except StorageError as exc:
+                out.append(exc)
+        return out
+
+    # ------------------------------------------------------------------
+    # metadata-only updates (updateObjectMeta)
+
+    def update_object_metadata(self, bucket: str, object_: str,
+                               version_id: str, updates: dict,
+                               replace_user_meta: bool = False
+                               ) -> int | None:
+        """Merge `updates` into a version's metadata on every online disk;
+        `replace_user_meta` first drops its x-amz-meta-* keys and stamps
+        a new mod time (a REPLACE self-copy). No shard byte moves. Returns
+        the new mod time in ns, or None when it was left as it was."""
+        # The read-modify-write of every disk's xl.meta must not
+        # interleave with a PUT or heal of the object.
+        with self._locked(bucket, object_, writer=True):
+            return self._update_object_metadata(bucket, object_, version_id,
+                                                updates, replace_user_meta)
+
+    def _update_object_metadata(self, bucket: str, object_: str,
+                                version_id: str, updates: dict,
+                                replace_user_meta: bool) -> int | None:
+        # With its inline data: rewriting an inline version without it
+        # would lose the object.
+        fi, fis, _ = self._read_quorum_file_info(bucket, object_, version_id,
+                                                 read_data=True)
+        if replace_user_meta:
+            new_meta = {k: v for k, v in fi.metadata.items()
+                        if not k.startswith("x-amz-meta-")}
+        else:
+            new_meta = dict(fi.metadata)
+        new_meta.update(updates)
+        new_mod_time = time.time_ns() if replace_user_meta else None
+
+        def do(i):
+            disk, meta = self.disks[i], fis[i]
+            if disk is None or meta is None:
+                return
+            m = FileInfo.from_dict(meta.to_dict())
+            m.volume, m.name = bucket, object_
+            m.metadata = dict(new_meta)
+            if new_mod_time is not None:
+                m.mod_time_ns = new_mod_time
+            try:
+                disk.update_metadata(bucket, object_, m)
+            except (StorageError, OSError):
+                pass  # best effort a disk; heal brings it in line
+
+        fanout(do, len(self.disks))
+        return new_mod_time
 
     # ------------------------------------------------------------------
     # heal (healObject, cmd/erasure-healing.go)

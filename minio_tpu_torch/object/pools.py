@@ -1,8 +1,9 @@
 """ErasureServerPools, the top of the object layer, the port's copy of
 the part of minio_tpu/object/pools.py the S3 server reaches (MinIO's
 cmd/erasure-server-pool.go): each object goes to a pool (the one that
-holds it, else the one with the most free space), listings merge the
-pools' sorted walks through the metacache, and heals go to every pool.
+holds it, else the one with the most free space), listings (of latest
+versions, and of every version) merge the pools' sorted walks through
+the metacache, and heals go to every pool.
 """
 
 from __future__ import annotations
@@ -22,8 +23,14 @@ from ..utils.errors import (
     StorageError,
 )
 from .metacache import MetacacheManager, StaleListingCache
+from ..storage.fileinfo import FileInfo
 from .sets import ErasureSets
-from .types import ListObjectsInfo, ObjectInfo, ObjectOptions
+from .types import (
+    ListObjectsInfo,
+    ListObjectVersionsInfo,
+    ObjectInfo,
+    ObjectOptions,
+)
 
 
 class ErasureServerPools:
@@ -62,6 +69,10 @@ class ErasureServerPools:
     def _bump_gen(self, bucket: str) -> None:
         with self._gen_lock:
             self._list_gen[bucket] = self._list_gen.get(bucket, 0) + 1
+
+    def invalidate_listings(self, bucket: str) -> None:
+        """Drop the bucket's cached listings (a mutation made elsewhere)."""
+        self._bump_gen(bucket)
 
     # --- pool routing ---
 
@@ -195,6 +206,27 @@ class ErasureServerPools:
                 last_exc = exc
         raise last_exc or ErrObjectNotFound(f"{bucket}/{object_}")
 
+    def delete_objects(self, bucket, objects, opts=None):
+        return [self._del_one(bucket, o, opts) for o in objects]
+
+    def _del_one(self, bucket, o, opts):
+        try:
+            self.delete_object(bucket, o, opts)
+            return None
+        except StorageError as exc:
+            return exc
+
+    def update_object_metadata(self, bucket, object_, version_id, updates,
+                               replace_user_meta=False):
+        last_exc = None
+        for pool in self.pools:
+            try:
+                return pool.update_object_metadata(
+                    bucket, object_, version_id, updates, replace_user_meta)
+            except (ErrObjectNotFound, ErrVersionNotFound) as exc:
+                last_exc = exc
+        raise last_exc or ErrObjectNotFound(f"{bucket}/{object_}")
+
     # --- listing (cmd/erasure-server-pool.go:876,
     # cmd/metacache-server-pool.go:59-239) ---
 
@@ -267,6 +299,80 @@ class ErasureServerPools:
         out.prefixes = sorted(prefixes)
         return out
 
+    def list_object_versions(self, bucket: str, prefix: str = "",
+                             key_marker: str = "",
+                             version_id_marker: str = "",
+                             delimiter: str = "",
+                             max_keys: int = 1000) -> ListObjectVersionsInfo:
+        """ListObjectVersions: every version, objects and delete markers,
+        keys ascending and each key's versions newest first
+        (cmd/bucket-listobjects-handlers.go:214-352), paged from the same
+        metacache stream as list_objects: each xl.meta blob holds the
+        key's whole journal."""
+        self._check_bucket(bucket)
+        if max_keys <= 0:
+            return ListObjectVersionsInfo()  # S3: empty, not truncated
+        gen = self._list_gen.get(bucket, 0)
+        stream_factory = self._merged_stream_factory(bucket, prefix)
+        out = ListObjectVersionsInfo()
+        prefixes: set[str] = set()
+        # Page from just before key_marker, so that version_id_marker can
+        # resume inside that key.
+        cursor = key_marker[:-1] if key_marker else ""
+        vid_skip = version_id_marker
+        truncated = False
+        while not truncated:
+            try:
+                entries, exhausted = self._metacache.page(
+                    bucket, prefix, gen, cursor, max_keys + 1,
+                    stream_factory)
+            except StaleListingCache:
+                gen = self._list_gen.get(bucket, 0)
+                continue
+            for name, meta_blob in entries:
+                cursor = name
+                if key_marker and name < key_marker:
+                    continue
+                if key_marker and name == key_marker and not vid_skip:
+                    continue  # the marker key was listed whole
+                if delimiter:
+                    rest = name[len(prefix):]
+                    if delimiter in rest:
+                        prefixes.add(
+                            prefix + rest.split(delimiter, 1)[0] + delimiter)
+                        continue
+                try:
+                    meta = XLMeta.from_bytes(meta_blob)
+                except StorageError:
+                    continue  # an unreadable journal is left out
+                versions = meta.versions
+                if key_marker and name == key_marker and vid_skip:
+                    # Resume after version_id_marker within this key.
+                    idx = next((i + 1 for i, v in enumerate(versions)
+                                if (v["vid"] or "null") == vid_skip),
+                               len(versions))
+                    versions = versions[idx:]
+                    vid_skip = ""
+                for v in versions:
+                    if len(out.versions) >= max_keys:
+                        truncated = out.is_truncated = True
+                        last = out.versions[-1] if out.versions else None
+                        out.next_key_marker = last.name if last else name
+                        out.next_version_id_marker = (
+                            (last.version_id or "null") if last else "")
+                        break
+                    fi = FileInfo.from_dict(v)
+                    fi.volume, fi.name = bucket, name
+                    fi.is_latest = meta.versions[0]["vid"] == v["vid"]
+                    out.versions.append(ObjectInfo.from_file_info(
+                        fi, bucket, name, versioned=True))
+                if truncated:
+                    break
+            if truncated or exhausted or not entries:
+                break
+        out.prefixes = sorted(prefixes)
+        return out
+
     # --- multipart: a new upload goes where a PUT would; an upload is
     # found by its id in whichever pool holds it ---
 
@@ -335,6 +441,21 @@ class ErasureServerPools:
 
     def heal_bucket(self, bucket):
         return [p.heal_bucket(bucket) for p in self.pools]
+
+    def health(self) -> bool:
+        """Whether the cluster takes writes: every set of every pool has
+        write quorum of its disks online (Health, cmd/erasure-server-
+        pool.go:1705-1786, cut to the quorum test)."""
+        for pool in self.pools:
+            for es in pool.sets:
+                online = sum(1 for d in es.disks
+                             if d is not None and d.is_online())
+                write_quorum = len(es.disks) - es.default_parity
+                if es.default_parity == len(es.disks) - es.default_parity:
+                    write_quorum += 1
+                if online < write_quorum:
+                    return False
+        return True
 
     def heal_format(self):
         for pool in self.pools:

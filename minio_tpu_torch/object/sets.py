@@ -203,6 +203,21 @@ class ErasureSets:
         return self.get_hashed_set(object_).delete_object(bucket, object_,
                                                           opts)
 
+    def delete_objects(self, bucket, objects, opts=None):
+        return [self._delete_one(bucket, o, opts) for o in objects]
+
+    def _delete_one(self, bucket, object_, opts):
+        try:
+            self.get_hashed_set(object_).delete_object(bucket, object_, opts)
+            return None
+        except StorageError as exc:
+            return exc
+
+    def update_object_metadata(self, bucket, object_, version_id, updates,
+                               replace_user_meta=False):
+        return self.get_hashed_set(object_).update_object_metadata(
+            bucket, object_, version_id, updates, replace_user_meta)
+
     def heal_object(self, bucket, object_, version_id="",
                     remove_dangling=False):
         return self.get_hashed_set(object_).heal_object(

@@ -1,7 +1,7 @@
 """Object-layer API types, the port's copy of the part of
 minio_tpu/object/types.py that PutObject, GetObject, DeleteObject,
-HealObject, ListObjects and the multipart calls use (MinIO's
-cmd/object-api-datatypes.go).
+HealObject, ListObjects, ListObjectVersions and the multipart calls
+use (MinIO's cmd/object-api-datatypes.go).
 """
 
 from __future__ import annotations
@@ -23,8 +23,11 @@ class ObjectOptions:
 
     version_id: str = ""
     versioned: bool = False
+    version_suspended: bool = False
     user_defined: dict = field(default_factory=dict)
+    delete_marker: bool = False
     no_lock: bool = False
+    part_number: int = 0
     # Commit mod time in ns; 0 stamps the time of the commit.
     mod_time_ns: int = 0
     # Hex MD5 the client declared (Content-MD5): checked against the
@@ -87,6 +90,18 @@ class ListObjectsInfo:
     is_truncated: bool = False
     next_marker: str = ""
     objects: list[ObjectInfo] = field(default_factory=list)
+    prefixes: list[str] = field(default_factory=list)
+
+
+@dataclass
+class ListObjectVersionsInfo:
+    """A ListObjectVersions page (ListObjectVersionsInfo): objects and
+    delete markers, keys ascending, each key's versions newest first."""
+
+    is_truncated: bool = False
+    next_key_marker: str = ""
+    next_version_id_marker: str = ""
+    versions: list[ObjectInfo] = field(default_factory=list)
     prefixes: list[str] = field(default_factory=list)
 
 

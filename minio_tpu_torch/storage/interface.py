@@ -56,6 +56,9 @@ class StorageAPI(abc.ABC):
     @abc.abstractmethod
     def disk_info(self) -> DiskInfo: ...
 
+    @abc.abstractmethod
+    def is_online(self) -> bool: ...
+
     # --- volumes ---
 
     @abc.abstractmethod
@@ -91,7 +94,21 @@ class StorageAPI(abc.ABC):
                      read_data: bool = False) -> FileInfo: ...
 
     @abc.abstractmethod
+    def update_metadata(self, volume: str, path: str,
+                        fi: FileInfo) -> None:
+        """Rewrite an existing version's journal entry with fi."""
+
+    @abc.abstractmethod
+    def list_versions(self, volume: str, path: str) -> FileInfoVersions: ...
+
+    @abc.abstractmethod
     def delete_version(self, volume: str, path: str, fi: FileInfo) -> None: ...
+
+    @abc.abstractmethod
+    def delete_versions(self, volume: str,
+                        versions: list[FileInfo]) -> list:
+        """Delete each version (fi.name is its object); the error of
+        each, None where it went."""
 
     @abc.abstractmethod
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,

@@ -38,9 +38,10 @@ from ..utils.errors import (
     ErrVolumeExists,
     ErrVolumeNotEmpty,
     ErrVolumeNotFound,
+    StorageError,
 )
 from .fileinfo import FileInfo
-from .interface import DiskInfo, StorageAPI, VolInfo
+from .interface import DiskInfo, FileInfoVersions, StorageAPI, VolInfo
 from .xlmeta import XLMeta
 
 # Reserved system volume (MinIO's .minio.sys).
@@ -106,6 +107,9 @@ class LocalStorage(StorageAPI):
     def set_online(self, online: bool):
         """Fault injection: an offline disk raises ErrDiskNotFound."""
         self._online = online
+
+    def is_online(self) -> bool:
+        return self._online
 
     # --- identity ---
 
@@ -289,6 +293,26 @@ class LocalStorage(StorageAPI):
             fi.data = {}
         return fi
 
+    def update_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
+        self._require_online()
+        with self._lock:
+            meta = self._read_meta(volume, path)
+            meta.find_version(fi.version_id)  # must exist
+            meta.add_version(fi)
+            self._write_meta(volume, path, meta)
+
+    def list_versions(self, volume: str, path: str) -> FileInfoVersions:
+        """Every version of the journal, newest first. As minio_tpu's, an
+        entry with the null version id resolves through to_file_info's
+        "" = latest, so the null version reads as a second copy of the
+        latest one whenever it is not the latest itself."""
+        self._require_online()
+        meta = self._read_meta(volume, path)
+        out = FileInfoVersions(volume=volume, name=path)
+        for v in meta.versions:
+            out.versions.append(meta.to_file_info(volume, path, v["vid"]))
+        return out
+
     def delete_version(self, volume: str, path: str, fi: FileInfo) -> None:
         """Remove one version; drop the object directory when the journal
         empties (DeleteVersion)."""
@@ -306,6 +330,16 @@ class LocalStorage(StorageAPI):
                 shutil.rmtree(self._file_path(volume, path),
                               ignore_errors=True)
                 self._cleanup_empty_dirs(volume, path)
+
+    def delete_versions(self, volume: str, versions: list[FileInfo]) -> list:
+        errs = []
+        for fi in versions:
+            try:
+                self.delete_version(volume, fi.name, fi)
+                errs.append(None)
+            except (StorageError, OSError) as exc:
+                errs.append(exc)
+        return errs
 
     def _cleanup_empty_dirs(self, volume: str, path: str):
         vol = self._vol_path(volume)

@@ -16,7 +16,7 @@ import torch
 
 from minio_tpu_torch.entry import (object_codec_put_get_heal,
                                    object_put_get_heal, put_get_heal,
-                                   s3_put_get_heal)
+                                   s3_core, s3_put_get_heal)
 from minio_tpu_torch.erasure import device_engine, registry
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
@@ -237,6 +237,23 @@ def test_s3_put_get_heal_on_card(cuda, tmp_path):
         c = res["counters"][phase]
         assert c["kernel_gf_launches"] == 0, phase
         assert c["kernel_hash_launches"] > 0, phase
+
+
+def test_s3_core_on_card(cuda, tmp_path):
+    """The S3 object core over HTTP at 12+4 and 1 MiB blocks on the card:
+    versioned PUTs, a delete marker, versioned and degraded GETs, a
+    CopyObject from the degraded source, UploadPartCopy, a metadata-only
+    self-copy, tagging, DeleteObjects, a bucket policy and the heal of
+    every version; exact bytes, kernel A launched by the degraded copy and
+    the heals, and no kernel by the self-copy."""
+    res = s3_core(tmp_path, 4 * (1 << 20) + 12_345, device=cuda,
+                  small_count=8, page=3)
+    assert all(res["checks"].values()), res["checks"]
+    for phase in ("copy", "heal_bucket", "heal_versions", "degraded_get_v1"):
+        assert res["counters"][phase]["kernel_gf_launches"] > 0, phase
+    c = res["counters"]["self_copy"]
+    assert c["kernel_gf_launches"] == c["kernel_hash_launches"] == 0
+    assert res["copy_bytes"]["copy"]["pulls"] == 5
 
 
 @pytest.mark.parametrize("length", [1, 33, 4096 + 22, 87382])
