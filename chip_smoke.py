@@ -18,7 +18,13 @@ Phases, each of which must pass (nothing is caught):
     degraded GETs' and heal's reconstructions and its repair matrix, and
     at the widest msr-pm geometries (254+2, 128+128, 200+56 piggyback;
     8+2, 6+3, 5+5 coupled-layer); kernel B also at 4h's new chunk
-    lengths (hash, grouped verify at k and k+m readers);
+    lengths (hash, grouped verify at k and k+m readers); for phase 4j
+    (check_self_heal_kernels and path_reconstructions) the one-target
+    heal of each of the 16 shards and the degraded GETs of its outage
+    objects, under dense-gf8, cauchy-xor and msr-pm (the server picks the
+    codec of objects sent with no header), and msr-pm 12+4's repair
+    matrix of every shard that has one, at the shard lengths of its
+    objects;
     kernel B on contiguous rows and on framed buffers at pitch 32 + L for
     the same shard lengths and short ones, at chunk starts 0..15 mod 16,
     its verify entry on good and corrupted frames, and its grouped verify
@@ -106,13 +112,37 @@ Phases, each of which must pass (nothing is caught):
     least once a pull: the source is degraded) and the heals, neither
     kernel in the self-copy. Prints {"s3_core": ...} with each step's
     seconds and launches and the bytes each copy read and wrote;
+ 4j. the self-healing services of a running server (entry.self_heal): a
+    Server over 16 drive directories (one 12+4 set, 1 MiB blocks)
+    started whole, so its own loops run (the MRF drain every 5 s, the
+    disk monitor every 1 s, the fresh-drive healer every 10 s, the
+    scanner). Over HTTP: 6 objects of 256 MiB + 12,345 B with no codec
+    header, 2 with x-mtpu-codec: msr-pm, the 256 small objects of 4e, a
+    versioned key with two versions and a delete marker. Drive d3
+    offline until the monitor pulls it, two more objects (one msr-pm) PUT
+    on 15 drives and queued in the MRF, d3 back: the seconds from its
+    return to an empty MRF, d3's shards verified, and both objects read
+    exactly with d1, d6, d13 and d16 offline. Then d8 emptied while the
+    server runs: the fresh-drive healer's loop reformats and sweeps it
+    (seconds from the wipe, the sweep's own seconds, versions healed,
+    part-file bytes rebuilt, the repair plane's STATS at 8.0 bytes read a
+    byte healed with no fallback, the pacer's grants, one a heal), every
+    file of d8 back. Two scanner cycles (its loop stopped): usage equal
+    to the admin datausage walk, the second skipping both buckets through
+    the update tracker, the admin usage snapshot over HTTP. Kernel A's
+    wrapper also counts its launches by shape. Prints {"self_heal": ...};
+    one traced run (object_self_heal at 64 MiB + 12,345 B) gives the idle
+    share. 3b: kernel A and B at the shard lengths of the objects the
+    server wrote under .minio.sys, known only after the run;
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
     of 12 readers x 8 frames; kernel A also at 4h's msr-pm encode
-    shapes [8, 24, 43,691] -> 8 and [8, 64, 16,384] -> 64) and print one
-    JSON line {"kernels": [...]}, whose launches are those of phases 4,
-    4c, 4e, 4h and 4i (by path in "launches_by_path");
+    shapes [8, 24, 43,691] -> 8 and [8, 64, 16,384] -> 64, and at 4j's
+    heal shapes, the one-target reconstruction [8, 12, 87,382] -> 1 and
+    the msr-pm repair window [5, 16, 43,691] -> 2) and print one JSON line
+    {"kernels": [...]}, whose launches are those of phases 4, 4c, 4e, 4h,
+    4i and 4j (by path in "launches_by_path");
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -164,6 +194,8 @@ WIDE_MSR = ((254, 2), (128, 128), (200, 56), (8, 2), (6, 3), (5, 5))
 CORE_SMALL_COUNT, CORE_SMALL_SIZE = 256, 1 << 10
 CORE_OBJECTS = (("ver", "big"), ("dst", "copy"), ("dst", "parts"),
                 ("dst", "public/x"))
+# Phase 4j: the self-healing services of a running Server (entry.self_heal).
+SELF_HEAL_CODECS = ("dense-gf8", "cauchy-xor", "msr-pm")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 
@@ -235,7 +267,29 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
         data_lost = tuple(s for s in lost if s < K)
         if read_degraded and data_lost:
             recs.add((lost, data_lost))
-    return sorted(recs)
+    return sorted(recs | set(self_heal_reconstructions()))
+
+
+def self_heal_reconstructions() -> list[tuple[tuple, tuple]]:
+    """(unavailable, rebuilt) of phase 4j's reconstructions, under any
+    codec: the one-target heal of each of the 16 shards (the MRF drain
+    rebuilds the shard of d3, the sweep that of d8, which an object's
+    distribution decides), and the degraded GETs of the two outage
+    objects with d1, d6, d13 and d16 offline (their data shards among
+    those drives' rebuilt)."""
+    from minio_tpu_torch.entry import (S3_BUCKET, SELF_HEAL_OFFLINE,
+                                       self_heal_names)
+    from minio_tpu_torch.object.metadata import hash_order
+
+    recs = [((t,), (t,)) for t in range(K + M)]
+    *_, outage_dense, outage_msr = self_heal_names(6, 2, SMALL_COUNT)
+    for name in (outage_dense, outage_msr):
+        dist = hash_order(f"{S3_BUCKET}/{name}", K + M)
+        lost = tuple(sorted(dist[d - 1] - 1 for d in SELF_HEAL_OFFLINE))
+        data_lost = tuple(s for s in lost if s < K)
+        if data_lost:
+            recs.append((lost, data_lost))
+    return recs
 
 
 def codec_cell(cell):
@@ -286,20 +340,10 @@ def check_codec_kernels(rng, errs: dict) -> None:
     [nb, T, S/alpha]), at the widest msr-pm geometries, and kernel B at
     the cells' new chunk lengths."""
     from minio_tpu_torch.erasure import registry, repair
-    from minio_tpu_torch.ops import gf, highwayhash_torch as hh, regen, rs
-    from minio_tpu_torch.ops import rs_cuda
+    from minio_tpu_torch.ops import highwayhash_torch as hh, regen
 
     def gf_err(mat, shapes) -> int:
-        bm = gf.to_device_bitmat(gf.bit_matrix(mat), "cuda")
-        err = 0
-        for shape in shapes:
-            x = rand(shape, rng)
-            got = rs_cuda.apply_gf_matrix_cuda(bm, x)
-            want = rs._apply_bits_plain(bm, x)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(got, want))
-        errs["gf_apply"] = max(errs["gf_apply"], err)
-        return err
+        return gf_matrix_err(rng, errs, mat, shapes)
 
     for cell in CODEC_CELLS:
         codec, k, m, lost, target, erasure = codec_cell(cell)
@@ -355,6 +399,112 @@ def check_codec_kernels(rng, errs: dict) -> None:
             err = grouped_verify_case(rng, groups, BATCH, s)
             errs["hh256_verify_grouped"] = max(errs["hh256_verify_grouped"],
                                                err)
+
+
+def gf_matrix_err(rng, errs: dict, mat, shapes) -> int:
+    """Kernel A against its plain version with GF matrix `mat` on random
+    shards of each shape; the max abs difference, also kept in errs."""
+    from minio_tpu_torch.ops import gf, rs, rs_cuda
+
+    bm = gf.to_device_bitmat(gf.bit_matrix(mat), "cuda")
+    err = 0
+    for shape in shapes:
+        x = rand(shape, rng)
+        got = rs_cuda.apply_gf_matrix_cuda(bm, x)
+        want = rs._apply_bits_plain(bm, x)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+    errs["gf_apply"] = max(errs["gf_apply"], err)
+    return err
+
+
+def self_heal_lengths(erasure) -> list[int]:
+    """The shard lengths phase 4j gives the kernels under a codec: a full
+    block's and the last block's of its objects (256 MiB + 12,345 B and
+    the small sizes), in the codec's rounding."""
+    return sorted({erasure.shard_size()} | {
+        erasure.chunk_size(size % BLOCK)
+        for size in (OBJECT_SIZE, *SMALL_SIZES) if size % BLOCK})
+
+
+def check_self_heal_kernels(rng, errs: dict) -> None:
+    """Phase 3 for phase 4j under the codecs its objects may carry (the
+    server picks one for the objects with no codec header; msr-pm on the
+    others): kernel A at each of self_heal_reconstructions() under
+    cauchy-xor and msr-pm (dense-gf8's are in path_reconstructions()),
+    in the codec's view [B, k*alpha, S/alpha], and at msr-pm 12+4's
+    repair matrix of every shard that has one, on [nb, T, S/alpha] as
+    the repair plane windows it."""
+    from minio_tpu_torch.erasure import registry, repair
+    from minio_tpu_torch.erasure.codec import cached_erasure
+
+    for codec in SELF_HEAL_CODECS[1:]:
+        entry = registry.get(codec)
+        erasure = cached_erasure(K, M, BLOCK, codec, "cuda")
+        a = erasure.subshards
+        lengths = self_heal_lengths(erasure)
+        shapes = [(b, K * a, ln // a) for ln in lengths for b in (1, BATCH)]
+        for unavailable, targets in self_heal_reconstructions():
+            present = [i for i in range(K + M) if i not in unavailable]
+            mat = entry.reconstruct_matrix(K, M, present, list(targets))
+            err = gf_matrix_err(rng, errs, mat, shapes)
+            log(f"gf_apply {codec} {K}+{M} reconstruct {targets} from "
+                f"{present[:K]} -> {mat.shape[0]} rows at [B, {K * a}, "
+                f"S/{a}] for B in (1, {BATCH}), S in {lengths}: "
+                f"max_abs_err {err}")
+        if entry.repair_plan is None:
+            continue
+        for target in range(K + M):
+            plan = entry.repair_plan(K, M, target)
+            if plan is None:
+                log(f"gf_apply {codec} {K}+{M} repair of shard {target}: "
+                    "no plan (the dense reconstruction heals it)")
+                continue
+            step = max(1, repair._WINDOW_BYTES // (
+                plan.total_symbols * (erasure.shard_size() // a)))
+            rshapes = [(nb, plan.total_symbols, ln // a) for ln in lengths
+                       for nb in (1, step)]
+            err = gf_matrix_err(rng, errs, plan.matrix, rshapes)
+            log(f"gf_apply {codec} {K}+{M} repair of shard {target} "
+                f"[{plan.alpha}, {plan.total_symbols}] at {rshapes}: "
+                f"max_abs_err {err}")
+
+
+def check_system_object_kernels(rng, errs: dict, sizes: dict) -> None:
+    """Phase 3b, after phase 4j: the objects the server wrote under
+    .minio.sys (the scanner's usage, the update tracker's filter, bucket
+    metadata) have sizes known only after the run. Kernel A's encode
+    under dense-gf8 and cauchy-xor, and kernel B's hash and grouped
+    verify, at their shard lengths, exact."""
+    from minio_tpu_torch.erasure import registry
+    from minio_tpu_torch.erasure.codec import cached_erasure
+    from minio_tpu_torch.ops import highwayhash_torch as hh
+
+    erasure = cached_erasure(K, M, BLOCK, "dense-gf8", "cuda")
+    lengths = sorted({erasure.chunk_size(size % BLOCK) for size in
+                      sizes.values() if size % BLOCK} - {0})
+    for codec in SELF_HEAL_CODECS[:2]:
+        mat = registry.get(codec).parity_matrix(K, M)
+        err = gf_matrix_err(rng, errs, mat, [(1, K, ln) for ln in lengths])
+        log(f"gf_apply {codec} encode at the .minio.sys objects' shard "
+            f"lengths {lengths} ({sizes}): max_abs_err {err}")
+    for ln in lengths:
+        x = rand((K + M, ln), rng)
+        got = hh.hash256_batch(x)
+        want = hh._hash256_plain(x, hh.MAGIC_KEY)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["highwayhash256"] = max(errs["highwayhash256"], err)
+        log(f"highwayhash256 hash256_batch {tuple(x.shape)}: "
+            f"max_abs_err {err}")
+        for groups in (K, K + M):
+            err = grouped_verify_case(rng, groups, 1, ln)
+            errs["hh256_verify_grouped"] = max(errs["hh256_verify_grouped"],
+                                               err)
+    bad = {k: v for k, v in errs.items() if v != 0}
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"at the .minio.sys lengths: {bad}")
 
 
 def grouped_verify_case(rng, groups: int, n: int, s: int) -> int:
@@ -521,6 +671,7 @@ def check_kernels(rng) -> dict:
             errs["hh256_verify_grouped"] = max(errs["hh256_verify_grouped"],
                                                err)
     check_codec_kernels(rng, errs)
+    check_self_heal_kernels(rng, errs)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -559,6 +710,7 @@ def reset_counts() -> None:
     from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
 
     rs_cuda.LAUNCHES.reset()
+    rs_cuda.LAUNCHES_BY_SHAPE.reset()
     highwayhash_torch.LAUNCHES.reset()
     device_engine.reset_stats()
 
@@ -568,6 +720,13 @@ def read_counts() -> dict:
 
     return {"gf_apply": rs_cuda.LAUNCHES.value,
             "highwayhash256": highwayhash_torch.LAUNCHES.value}
+
+
+def read_shape_counts() -> dict:
+    """Kernel A's launches by shape, "{R}x{K}", counted by its wrapper."""
+    from minio_tpu_torch.ops import rs_cuda
+
+    return rs_cuda.LAUNCHES_BY_SHAPE.snapshot()
 
 
 def run_main_path() -> dict:
@@ -1069,6 +1228,76 @@ def run_s3_core() -> tuple[dict, dict]:
     return line, launches
 
 
+# Phase 4j's steps, and whether each launches kernel A (kernel B launches
+# in every one: each writes, verifies or rebuilds).
+SELF_HEAL_STEPS = {"load": True, "outage_put": True, "mrf_drain": True,
+                   "outage_degraded_get": True, "sweep": True,
+                   "scan_cycle": True, "scan_cycle_2": True}
+
+
+def run_self_heal() -> tuple[dict, dict, dict]:
+    """Phase 4j: entry.self_heal, the self-healing services of a running
+    Server. Kernel A's launches are also read by shape, (rows out) x
+    (rows in), from its wrapper's count. Returns the {"self_heal": ...}
+    line, the launches, and the sizes of the objects the server wrote
+    under .minio.sys."""
+    from minio_tpu_torch.entry import self_heal
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = self_heal(tmp, OBJECT_SIZE, device="cuda",
+                        small_count=SMALL_COUNT, small_sizes=SMALL_SIZES,
+                        seed=40)
+        launches = read_counts()
+        tally = read_shape_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    if sum(tally.values()) != launches["gf_apply"]:
+        raise AssertionError(f"kernel A's launches by shape {tally} do not "
+                             f"add up to its {launches['gf_apply']}")
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"self-heal checks failed: {failed} "
+                             f"(sweep {res.get('sweep')})")
+    per_phase = {}
+    for ph, want_gf in SELF_HEAL_STEPS.items():
+        c = res["counters"][ph]
+        gf_n, hh_n = c["kernel_gf_launches"], c["kernel_hash_launches"]
+        per_phase[ph] = {"gf_apply": gf_n, "highwayhash256": hh_n,
+                         "hedged_reads": c["hedged_reads_total"]}
+        if hh_n <= 0 or (gf_n > 0) != want_gf:
+            raise AssertionError(f"self heal {ph}: kernel A launched {gf_n} "
+                                 f"times, kernel B {hh_n}")
+        log(f"4j {ph}: {res['seconds'][ph]:.4f} s, launches A {gf_n} "
+            f"B {hh_n}")
+    for key in ("outage_pulled", "reconnect", "return_to_empty_mrf",
+                "wipe_to_healed", "detect"):
+        log(f"4j {key}: {res['seconds'][key]:.4f} s")
+    log(f"4j codecs the server stamped: {res['codecs']}")
+    log(f"4j sweep: {res['sweep']}")
+    log(f"4j kernel A launches by (rows out)x(rows in): {tally}")
+    line = {"object_size": res["size"], "k": K, "m": M,
+            "outage_drive": res["outage_drive"],
+            "wiped_drive": res["wiped_drive"],
+            "offline_drives": res["offline_drives"],
+            "objects": res["objects"], "codecs": res["codecs"],
+            "mrf_queued": res["mrf_queued"], "seconds": res["seconds"],
+            "launches": per_phase, "gf_apply_by_shape": tally,
+            "sweep": res["sweep"], "usage": res["usage"],
+            "checks": res["checks"]}
+    return line, launches, res["system_objects"]
+
+
+def traced_self_heal(tmp, size) -> bool:
+    from minio_tpu_torch.entry import object_self_heal
+
+    res = object_self_heal(tmp, size, device="cuda", seed=41)
+    return all(res["checks"].values())
+
+
 def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5: kernel, plain and bound times at the main shapes.
     `launches` holds each kernel's launches by main path."""
@@ -1122,6 +1351,46 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
             f"{rows_out} cold: {ms:.5f} ms a launch, plain {plain_ms:.5f} "
             f"ms, bound {bound:.5f} ms ({100 * bound / ms:.1f}% of bound)")
 
+    # Kernel A at phase 4j's heal shapes: the dense one-target
+    # reconstruction [8, 12, 87,382] -> 1 and msr-pm 12+4's repair matrix
+    # [alpha, T] on a window [nb, T, 43,691] of the repair plane.
+    from minio_tpu_torch.erasure import repair
+
+    heal_shapes = []
+    one = gf.to_device_bitmat(gf.bit_matrix(gf.reconstruct_matrix(
+        K, M, list(range(1, K + M)), [0])), "cuda")
+    msr = registry.get("msr-pm")
+    a = msr.alpha(K, M)
+    sub = cached_erasure(K, M, BLOCK, "msr-pm", "cuda").shard_size() // a
+    plan = msr.repair_plan(K, M, 3)
+    nb = max(1, repair._WINDOW_BYTES // (plan.total_symbols * sub))
+    rep_bm = gf.to_device_bitmat(gf.bit_matrix(plan.matrix), "cuda")
+    for name, bm, shape in (
+            ("one-target reconstruction 12+4", one, (BATCH, K, SHARD)),
+            (f"msr-pm 12+4 repair of shard 3 [{plan.alpha}, "
+             f"{plan.total_symbols}]", rep_bm,
+             (nb, plan.total_symbols, sub))):
+        xs = [rand(shape, rng) for _ in range(8)]
+        ms = time_graph(lambda x, bm=bm: rs_cuda.apply_gf_matrix_cuda(bm, x),
+                        xs, 200)
+        plain_ms = time_calls(lambda x, bm=bm: rs._apply_bits_plain(bm, x),
+                              xs, 10)
+        rows_out, rows_in = bm.shape[0] // 8, shape[1]
+        nbytes = shape[0] * (rows_in + rows_out) * shape[2] + bm.numel()
+        ops = 2 * (8 * rows_out) * (8 * rows_in) * shape[0] * shape[2]
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S)
+        heal_shapes.append({
+            "name": name, "shape": list(shape), "rows_out": rows_out,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / INT8_OPS_PER_S else "operations",
+            "launches_4j": launches["gf_by_shape"].get(
+                f"{rows_out}x{rows_in}", 0)})
+        log(f"gf_apply {name} {list(shape)} -> {rows_out} cold: {ms:.5f} ms "
+            f"a launch, plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
+            f"({100 * bound / ms:.1f}% of bound), launches in 4j "
+            f"{heal_shapes[-1]['launches_4j']}")
+
     packets = SHARD // 32
 
     def hash_fn(x):
@@ -1171,12 +1440,13 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
          "also_replaces": "minio_tpu/ops/rs.py:29",
          "checked": True, "launches": sum(launches["gf_apply"].values()),
          "launches_by_path": launches["gf_apply"],
+         "launches_4j_by_shape": launches["gf_by_shape"],
          "max_abs_err": errs["gf_apply"], "ms": gf_ms,
          "call_ms": gf_call_ms, "plain_ms": gf_plain_ms, "bound_ms": gf_bound,
          "bound_by": "bytes" if gf_bytes / HBM_BYTES_PER_S
          >= gf_ops / INT8_OPS_PER_S else "operations",
          "library_ms": None, "shape": [BATCH, K, SHARD],
-         "codec_shapes": codec_shapes},
+         "codec_shapes": codec_shapes, "heal_shapes": heal_shapes},
         {"name": "highwayhash256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/highwayhash.cu",
          "replaces": "minio_tpu/ops/highwayhash_jax.py:279",
@@ -1243,12 +1513,19 @@ def main() -> int:
     t0 = time.perf_counter()
     core_line, core_launches = run_s3_core()
     log(f"S3 object core phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    heal_line, heal_launches, system_objects = run_self_heal()
+    log(f"self-heal phase {time.perf_counter() - t0:.1f} s")
+    check_system_object_kernels(rng, errs, system_objects)
+    heal_line["trace"] = trace_path("self heal", traced_self_heal)
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
                       "codecs": codec_launches[name],
-                      "s3_core": core_launches[name]}
+                      "s3_core": core_launches[name],
+                      "self_heal": heal_launches[name]}
                for name in launches}
+    by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     gc.callbacks.remove(on_gc)
     log(f"collector passes over 20 ms in the main paths (generation, s): "
         f"{PAUSES}")
@@ -1262,6 +1539,7 @@ def main() -> int:
     print(json.dumps({"pipelined": drivers_line}), flush=True)
     print(json.dumps({"codecs": codecs_line}), flush=True)
     print(json.dumps({"s3_core": core_line}), flush=True)
+    print(json.dumps({"self_heal": heal_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -496,7 +496,7 @@ class S3Server:
                                        ctx.query, ctx.raw_headers)
             if auth_result.auth == AUTH_STREAMING:
                 raise S3Error("NotImplemented", "streaming admin request")
-            self.admin.authorize(auth_result)
+            self.admin.authorize(auth_result, name)
             return getattr(self.admin, name)(ctx)
         if ctx.path == "/crossdomain.xml" or ctx.path.startswith("/minio/"):
             # Health, metrics, console and the rest of the minio route

@@ -15,7 +15,11 @@ with the x-mtpu-codec header. `s3_core()` drives the S3 object core:
 versioned PUTs, a delete marker, versioned GETs with drives lost,
 CopyObject from the degraded source, UploadPartCopy, a metadata-only
 self-copy, tagging, DeleteObjects, a bucket policy with anonymous
-requests, and the heals of every version.
+requests, and the heals of every version. `self_heal()` drives the
+self-healing services of a whole running server: a drive outage with
+writes (the MRF drain on reconnect), a replaced drive (the fresh-drive
+sweep) and the scanner; `object_self_heal()` the same services on the
+object layer, called directly.
 """
 
 from __future__ import annotations
@@ -486,7 +490,11 @@ def s3_codec_put_get(root, size: int, codec: str, device="cuda",
     key = f"/{S3_BUCKET}/codec.bin"
     server = Server([str(root / "d{1...16}")], port=0,
                     root_user=S3_ACCESS, root_password=S3_SECRET,
-                    default_parity=4, device=dev).start()
+                    default_parity=4, device=dev)
+    # The S3 plane alone: the background services (Server.start()) would
+    # heal this entry's degraded objects and write the scanner's usage
+    # object meanwhile, which its launch counts and checks do not expect.
+    server.s3.start()
     try:
         c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
         checks["make_bucket_ok"] = c.request("PUT", f"/{S3_BUCKET}")[0] == 200
@@ -606,7 +614,11 @@ def s3_put_get_heal(root, size: int, device="cuda",
     checks: dict = {}
     server = Server([str(root / "d{1...16}")], port=0,
                     root_user=S3_ACCESS, root_password=S3_SECRET,
-                    default_parity=4, device=dev).start()
+                    default_parity=4, device=dev)
+    # The S3 plane alone: the background services (Server.start()) would
+    # heal this entry's degraded objects and write the scanner's usage
+    # object meanwhile, which its launch counts and checks do not expect.
+    server.s3.start()
     try:
         c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
         b = f"/{S3_BUCKET}"
@@ -855,7 +867,11 @@ def s3_core(root, size: int, device="cuda", small_count: int = 256,
     dense = {"x-mtpu-codec": "dense-gf8"}
     server = Server([str(root / "d{1...16}")], port=0,
                     root_user=S3_ACCESS, root_password=S3_SECRET,
-                    default_parity=4, device=dev).start()
+                    default_parity=4, device=dev)
+    # The S3 plane alone: the background services (Server.start()) would
+    # heal this entry's degraded objects and write the scanner's usage
+    # object meanwhile, which its launch counts and checks do not expect.
+    server.s3.start()
     try:
         c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
         big = "/ver/big"
@@ -1057,5 +1073,415 @@ def s3_core(root, size: int, device="cuda", small_count: int = 256,
                               for p in (root / f"d{i}" / "dst").glob(
                                   f"{obj}/*/part.*"))}
         for name, obj in (("copy", "copy"), ("part_copy", "parts"))}
+    out["checks"] = checks
+    return out
+
+
+def _wait_for(cond, timeout_s: float, what: str, poll_s: float = 0.005):
+    """Poll cond() until it is true; returns the monotonic time it first
+    held. Raises TimeoutError after `timeout_s`."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        now = time.monotonic()
+        if cond():
+            return now
+        if now > deadline:
+            raise TimeoutError(f"{what}: not within {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def repairable_names(bucket: str, prefix: str, count: int, drive: int,
+                     k: int, drives: int) -> list[str]:
+    """The first `count` names prefix + "0", "1", ... whose shard on drive
+    index `drive` is a data shard under their distribution: msr-pm's
+    piggyback plans cover data shards only, so a heal of that drive alone
+    takes the repair plane."""
+    from .object.metadata import hash_order
+
+    out, i = [], 0
+    while len(out) < count:
+        name = f"{prefix}{i}"
+        if hash_order(f"{bucket}/{name}", drives)[drive] - 1 < k:
+            out.append(name)
+        i += 1
+    return out
+
+
+def _drive_files(root: Path, drive: str, buckets) -> dict:
+    """SHA-256 of every file under `buckets` on drive directory `drive`,
+    by path relative to the drive."""
+    base = root / drive
+    return {str(p.relative_to(base)): hashlib.sha256(p.read_bytes())
+            .hexdigest()
+            for b in buckets for p in sorted((base / b).rglob("*"))
+            if p.is_file()}
+
+
+def _journal_versions(path: Path) -> list:
+    """(version id, mod time, delete marker, data dir, size) of each
+    version in an xl.meta file."""
+    return [(v["vid"], v["mt"], v["del"], v.get("dd"), v.get("size"))
+            for v in XLMeta.from_bytes(path.read_bytes()).versions]
+
+
+def _replace_drive(disk: LocalStorage, path: Path) -> None:
+    """A replaced drive: an empty directory at the same mount point, the
+    same LocalStorage object re-opened on it."""
+    shutil.rmtree(path)
+    disk.__init__(str(path), endpoint=disk.endpoint(), device=disk.device)
+
+
+SELF_HEAL_OUTAGE = 3    # drive d3 goes offline during writes
+SELF_HEAL_WIPED = 8     # drive d8 is replaced by an empty one
+SELF_HEAL_OFFLINE = (1, 6, 13, 16)  # drives off for the check of d3's shards
+SELF_HEAL_VERSIONED = ("ver", "doc")
+
+
+def self_heal_names(big_count: int, msr_count: int, small_count: int):
+    """The keys self_heal writes in S3_BUCKET: (dense, msr-pm, small,
+    outage dense, outage msr-pm). The msr-pm ones are chosen so that the
+    replaced drive holds a data shard of each (its repair plan exists)."""
+    msr = repairable_names(S3_BUCKET, "msr/obj-", msr_count + 1,
+                           SELF_HEAL_WIPED - 1, 12, 16)
+    return ([f"big/obj-{i}" for i in range(big_count)], msr[:msr_count],
+            s3_object_names(small_count)[2:], "outage/dense", msr[-1])
+
+
+def self_heal(root, size: int, device="cuda", big_count: int = 6,
+              msr_count: int = 2, small_count: int = 256,
+              small_sizes=SMALL_SIZES, seed: int = 0) -> dict:
+    """Drive the self-healing services of a running Server over HTTP: a
+    Server over 16 fresh drive directories d1..d16 under `root` (one 12+4
+    set, 1 MiB blocks) started whole (Server.start(): the MRF drain every
+    5 s, the disk monitor every 1 s, the fresh-drive healer every 10 s,
+    the scanner), a client signing with the port's api/sign.py, and:
+
+    1. load: `big_count` objects of `size` bytes with no codec header
+       (the server's choice), `msr_count` with x-mtpu-codec: msr-pm,
+       `small_count` small ones (sizes cycling over `small_sizes`), and a
+       versioned bucket whose key holds two versions and a delete marker;
+    2. outage: drive d3 offline until the monitor's loop pulls it, two
+       more objects of `size` (one msr-pm) PUT on the other 15 drives
+       (queued in the MRF), d3 back: the monitor's reconnect drains the
+       MRF. Then d3's shard of both is verified (verify_file), and with
+       d1, d6, d13 and d16 offline, so that d3's shards are needed, both
+       are read back exactly over HTTP;
+    3. replacement: d8 emptied and re-opened while the server runs; the
+       fresh-drive healer's loop reformats and sweeps it: every file
+       hashed before is back, the tracker (healing.json) is gone, the
+       msr-pm objects took the repair plane at its plan's ratio, and the
+       pacer granted one token a heal, none at its deadline;
+    4. the scanner, its loop stopped: one cycle whose per-bucket usage
+       equals the admin datausage walk, a second that skips both
+       unchanged buckets through the tracker, and the admin usage
+       snapshot over HTTP.
+
+    Returns seconds, counter deltas, the sweep's numbers and the checks,
+    each True when it held."""
+    from .background import healpace
+
+    dev = resolve_device(device)
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    bigs, msrs, smalls, outage_dense, outage_msr = self_heal_names(
+        big_count, msr_count, small_count)
+    payloads = {name: rng.bytes(size) for name in
+                bigs + msrs + [outage_dense, outage_msr]}
+    for i, name in enumerate(smalls):
+        payloads[name] = rng.bytes(small_sizes[i % len(small_sizes)])
+    versions = [rng.bytes(small_sizes[2 % len(small_sizes)]),
+                rng.bytes(small_sizes[-1])]
+    vbucket, vkey = SELF_HEAL_VERSIONED
+    out: dict = {"size": size, "k": 12, "m": 4, "outage_drive":
+                 f"d{SELF_HEAL_OUTAGE}", "wiped_drive": f"d{SELF_HEAL_WIPED}",
+                 "offline_drives": [f"d{i}" for i in SELF_HEAL_OFFLINE],
+                 "objects": {"dense": bigs, "msr-pm": msrs,
+                             "small": len(smalls),
+                             "outage": [outage_dense, outage_msr],
+                             "versioned": f"{vbucket}/{vkey}"},
+                 "seconds": {}, "counters": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    server = Server([str(root / "d{1...16}")], port=0,
+                    root_user=S3_ACCESS, root_password=S3_SECRET,
+                    default_parity=4, device=dev).start()
+    pool = server.object_layer.pools[0]
+    es = pool.sets[0]
+    drive = {n: pool.disks[n - 1] for n in range(1, 17)}  # d1..d16
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+        b = f"/{S3_BUCKET}"
+        msr_header = {"x-mtpu-codec": "msr-pm"}
+
+        def put(name, headers=None) -> bool:
+            status, h, _ = c.request("PUT", f"{b}/{name}", headers=headers,
+                                     body=payloads[name])
+            return status == 200 and h.get("ETag") == \
+                f'"{hashlib.md5(payloads[name]).hexdigest()}"'
+
+        def load() -> bool:
+            ok = c.request("PUT", b)[0] == 200
+            ok &= all(put(n) for n in bigs)
+            ok &= all(put(n, msr_header) for n in msrs)
+            ok &= all(put(n) for n in smalls)
+            ok &= c.request("PUT", f"/{vbucket}")[0] == 200
+            ok &= c.request("PUT", f"/{vbucket}", [("versioning", "")],
+                            body=ENABLED_XML)[0] == 200
+            for body in versions:
+                ok &= c.request("PUT", f"/{vbucket}/{vkey}",
+                                body=body)[0] == 200
+            ok &= c.request("DELETE", f"/{vbucket}/{vkey}")[0] == 204
+            return ok
+
+        checks["load_ok"] = phase("load", load)
+        out["codecs"] = {name: drive[1].read_version(
+            S3_BUCKET, name).erasure.codec for name in bigs + msrs}
+        checks["msr_stamped"] = all(out["codecs"][n] == "msr-pm"
+                                    for n in msrs)
+
+        # 2. The outage: the monitor's own loop pulls d3.
+        slot = SELF_HEAL_OUTAGE - 1
+        t0 = time.monotonic()
+        drive[SELF_HEAL_OUTAGE].set_online(False)
+        out["seconds"]["outage_pulled"] = _wait_for(
+            lambda: es.disks[slot] is None, 10, "d3 pulled") - t0
+        checks["outage_put_ok"] = phase("outage_put", lambda: put(
+            outage_dense) and put(outage_msr, msr_header))
+        queued = es.mrf_stats()["pending"]
+        out["mrf_queued"] = queued
+        checks["mrf_queued_ok"] = queued == 2
+        healed0 = server.mrf.healed_total
+        _sync(dev)
+        before = counters()
+        t_return = time.monotonic()
+        drive[SELF_HEAL_OUTAGE].set_online(True)
+        t_slot = _wait_for(lambda: es.disks[slot] is not None, 10,
+                           "d3 reconnected")
+        t_done = _wait_for(
+            lambda: (es.mrf_stats()["pending"] == 0
+                     and server.mrf.healed_total >= healed0 + queued),
+            30, "MRF drained")
+        _sync(dev)
+        out["counters"]["mrf_drain"] = _delta(before, counters())
+        out["seconds"]["return_to_empty_mrf"] = t_done - t_return
+        out["seconds"]["reconnect"] = t_slot - t_return
+        out["seconds"]["mrf_drain"] = t_done - t_slot
+
+        def shard_verified(name) -> bool:
+            fi = drive[SELF_HEAL_OUTAGE].read_version(S3_BUCKET, name)
+            drive[SELF_HEAL_OUTAGE].verify_file(S3_BUCKET, name, fi)
+            return True
+
+        checks["outage_shards_verified"] = (
+            shard_verified(outage_dense) and shard_verified(outage_msr))
+        for n in SELF_HEAL_OFFLINE:
+            drive[n].set_online(False)
+        gets = phase("outage_degraded_get", lambda: [
+            c.request("GET", f"{b}/{name}")
+            for name in (outage_dense, outage_msr)])
+        checks["outage_get_ok"] = all(
+            status == 200 and body == payloads[name]
+            for (status, _, body), name in zip(gets, (outage_dense,
+                                                      outage_msr)))
+        for n in SELF_HEAL_OFFLINE:
+            drive[n].set_online(True)
+        # Every drive back in its slot, and the MRF entries the degraded
+        # GETs queued drained, before the replacement.
+        _wait_for(lambda: all(d is not None for d in es.disks)
+                  and es.mrf_stats()["pending"] == 0, 30,
+                  "drives back and MRF empty")
+
+        # 3. The replacement: d8 emptied while the server runs.
+        wiped = f"d{SELF_HEAL_WIPED}"
+        user = (S3_BUCKET, vbucket)
+        originals = _drive_files(root, wiped, user)
+        fmt = hashlib.sha256((root / wiped / ".mtpu.sys" / "format.json")
+                             .read_bytes()).hexdigest()
+        multi = f"{vbucket}/{vkey}/xl.meta"
+        journal = _journal_versions(root / wiped / multi)
+        n_versions = sum(len(server.object_layer.list_object_versions(
+            bk, max_keys=100000).versions) for bk in user)
+        pace0 = healpace.pacer().snapshot()
+        repair0 = repair.stats_snapshot()
+        _sync(dev)
+        before = counters()
+        t_wipe = time.monotonic()
+        _replace_drive(drive[SELF_HEAL_WIPED], root / wiped)
+        tracker = root / wiped / ".mtpu.sys" / "healing.json"
+        t_tracker = _wait_for(tracker.is_file, 30, "healing.json written")
+        endpoint = drive[SELF_HEAL_WIPED].endpoint()
+        t_healed = _wait_for(
+            lambda: endpoint in server.fresh_disk_healer.healed_disks, 120,
+            f"{wiped} healed")
+        _sync(dev)
+        out["counters"]["sweep"] = _delta(before, counters())
+        out["seconds"]["wipe_to_healed"] = t_healed - t_wipe
+        out["seconds"]["detect"] = t_tracker - t_wipe
+        out["seconds"]["sweep"] = t_healed - t_tracker
+        healed_files = _drive_files(root, wiped, user)
+        pace1 = healpace.pacer().snapshot()
+        repair1 = repair.stats_snapshot()
+        rep = {k: repair1[k] - repair0[k] for k in repair1}
+        part_bytes = sum((root / wiped / p).stat().st_size
+                         for p in healed_files
+                         if p.rsplit("/", 1)[-1].startswith("part."))
+        out["sweep"] = {
+            "versions_healed": n_versions,
+            "part_bytes_rebuilt": part_bytes,
+            "part_bytes_per_s": part_bytes / out["seconds"]["sweep"],
+            "repair": {**rep, "bytes_read_per_byte_healed": (
+                rep["bytes_read"] / rep["bytes_written"]
+                if rep["bytes_written"] else None)},
+            "pacer": pace1,
+            "pacer_grants": pace1["grants_total"] - pace0["grants_total"],
+            "pacer_deadline_grants": (pace1["deadline_grants_total"]
+                                      - pace0["deadline_grants_total"]),
+        }
+        # Every file back equal, but the versioned key's journal: a heal
+        # writes each version's is-latest flag as it reads it, and the
+        # delete marker's erasure stamp from the version it copies, so
+        # its bytes differ from the survivors' (minio_tpu's heal does the
+        # same); its versions must be the same.
+        out["sweep"]["files_differing"] = sorted(
+            p for p in originals if healed_files.get(p) != originals[p])
+        checks["files_restored"] = (
+            set(healed_files) == set(originals)
+            and out["sweep"]["files_differing"] in ([], [multi]))
+        checks["journal_versions_restored"] = (
+            _journal_versions(root / wiped / multi) == journal)
+        checks["format_restored"] = hashlib.sha256(
+            (root / wiped / ".mtpu.sys" / "format.json").read_bytes()
+        ).hexdigest() == fmt
+        checks["tracker_removed"] = not tracker.exists()
+        ratio = out["sweep"]["repair"]["bytes_read_per_byte_healed"]
+        # The repair plane serves every msr-pm object with part files
+        # whose shard on the replaced drive has a plan (a data shard).
+        out["sweep"]["repairable"] = sum(
+            1 for name in bigs + msrs + smalls + [outage_dense, outage_msr]
+            for fi in [drive[1].read_version(S3_BUCKET, name)]
+            if fi.erasure.codec == "msr-pm" and fi.data_dir
+            and fi.erasure.distribution[SELF_HEAL_WIPED - 1] - 1 < 12)
+        checks["repair_plane_ok"] = (
+            rep["parts_repaired"] == out["sweep"]["repairable"]
+            >= msr_count + 1 and rep["fallbacks"] == 0 and ratio == 8.0)
+        checks["pacer_one_grant_a_heal"] = (
+            out["sweep"]["pacer_grants"] == n_versions
+            and out["sweep"]["pacer_deadline_grants"] == 0)
+
+        # 4. The scanner, its 60 s loop stopped so the cycles are ours.
+        server.scanner.stop()
+        checks["scanner_loop_stopped"] = not server.scanner._thread.is_alive()
+        usage = phase("scan_cycle", server.scanner.scan_cycle)
+        status, _, body = c.request("GET", "/minio/admin/v3/datausage")
+        walk = json.loads(body)["bucketsUsage"] if status == 200 else {}
+        checks["scan_equals_walk"] = bool(walk) and walk == {
+            bk: {"objectsCount": u.objects_count, "size": u.objects_size}
+            for bk, u in usage.buckets_usage.items()}
+        phase("scan_cycle_2", server.scanner.scan_cycle)
+        checks["second_cycle_skips"] = (
+            server.scanner.buckets_skipped_last_cycle == len(walk))
+        status, _, body = c.request("GET", "/minio/admin/v3/usage",
+                                    [("histogram", "true")])
+        snap = json.loads(body) if status == 200 else {}
+        checks["usage_over_http"] = (
+            status == 200
+            and snap["objectsTotalCount"] == usage.objects_total_count
+            and snap["objectsTotalSize"] == usage.objects_total_size
+            and all("sizeHistogram" in v
+                    for v in snap["bucketsUsage"].values()))
+        out["usage"] = snap
+        out["system_objects"] = {
+            oi.name: oi.size for oi in server.object_layer.list_objects(
+                ".minio.sys", max_keys=1000).objects}
+    finally:
+        server.stop()
+    out["checks"] = checks
+    return out
+
+
+def object_self_heal(root, size: int, device="cuda", drives: int = 16,
+                     parity: int = 4, seed: int = 0) -> dict:
+    """The self-healing services on the object layer, called directly (no
+    HTTP, no service loops): `drives` fresh drive directories d0.. under
+    `root` as one set of parity `parity` (ErasureServerPools), and
+
+    1. a dense and an msr-pm object of `size` bytes PUT;
+    2. drive d1 offline, pulled by a DiskMonitor after two failed probes;
+       a dense and an msr-pm object PUT on the rest (queued in the MRF);
+       d1 back: the monitor's reconnect drains the MRF through an
+       MRFHealer;
+    3. drive d2 emptied and re-opened; FreshDiskHealer.check_once()
+       reformats and sweeps it.
+
+    The msr-pm objects' shards on d2 are data shards, so the sweep
+    repairs them through the repair plane. Returns each step's seconds
+    and counter deltas, the checks (d1 holds a verified shard of the
+    outage objects; every file of d2 back equal; the tracker gone; the
+    repair plane used with no fallback), and `files`: the SHA-256 of
+    every file under the drives' bucket, by path, to compare runs."""
+    from .background import DiskMonitor, FreshDiskHealer, MRFHealer
+    from .object.pools import ErasureServerPools
+
+    dev = resolve_device(device)
+    root = Path(root)
+    bucket = OBJECT_BUCKET
+    k = drives - parity
+    disks = [LocalStorage(str(root / f"d{i}"), endpoint=f"d{i}", device=dev)
+             for i in range(drives)]
+    sets = ErasureSets(disks, drives, default_parity=parity, device=dev)
+    sets.init_format()
+    ol = ErasureServerPools([sets], device=dev)
+    ol.make_bucket(bucket)
+    es = sets.sets[0]
+    rng = np.random.default_rng(seed)
+    msr = repairable_names(bucket, "msr-", 2, 2, k, drives)
+    names = {"dense-0": "dense-gf8", msr[0]: "msr-pm",
+             "outage-dense": "dense-gf8", msr[1]: "msr-pm"}
+    payloads = {n: rng.bytes(size) for n in names}
+    out: dict = {"size": size, "k": k, "m": parity, "seconds": {},
+                 "counters": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+
+    def put(name):
+        ol.put_object(bucket, name, io.BytesIO(payloads[name]), size,
+                      ObjectOptions(codec=names[name]))
+
+    phase("put", lambda: [put(n) for n in ("dense-0", msr[0])])
+    mrf = MRFHealer(ol)
+    mon = DiskMonitor(ol, mrf_healer=mrf)
+    disks[1].set_online(False)
+    mon.check_once()
+    checks["pulled"] = mon.check_once()["offline"] == ["d1"]
+    phase("outage_put", lambda: [put(n) for n in ("outage-dense", msr[1])])
+    checks["mrf_queued"] = es.mrf_stats()["pending"] == 2
+    disks[1].set_online(True)
+    res = phase("mrf_drain", mon.check_once)
+    checks["reconnect_drained"] = (res["reconnected"] == ["d1"]
+                                   and es.mrf_stats()["pending"] == 0
+                                   and mrf.healed_total == 2)
+    for n in ("outage-dense", msr[1]):
+        disks[1].verify_file(bucket, n, disks[1].read_version(bucket, n))
+    checks["outage_shards_verified"] = True
+
+    originals = _drive_files(root, "d2", (bucket,))
+    repair0 = repair.stats_snapshot()
+    _replace_drive(disks[2], root / "d2")
+    healer = FreshDiskHealer(ol)
+    checks["swept"] = phase("sweep", healer.check_once) == ["d2"]
+    rep = {key: v - repair0[key] for key, v in repair.stats_snapshot().items()}
+    out["repair"] = rep
+    checks["files_restored"] = _drive_files(root, "d2", (bucket,)) == \
+        originals
+    checks["tracker_removed"] = not (root / "d2" / ".mtpu.sys" /
+                                     "healing.json").exists()
+    checks["repair_plane_ok"] = (rep["parts_repaired"] == 2
+                                 and rep["fallbacks"] == 0)
+    checks["get_ok"] = all(ol.get_object_bytes(bucket, n) == payloads[n]
+                           for n in names)
+    out["files"] = {f"d{i}/{p}": h for i in range(drives)
+                    for p, h in _drive_files(root, f"d{i}",
+                                             (bucket,)).items()}
+    ol.close()
     out["checks"] = checks
     return out

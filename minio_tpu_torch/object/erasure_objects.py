@@ -38,6 +38,7 @@ from ..erasure.bitrot import (
 )
 from ..erasure.codec import cached_erasure
 from ..erasure.streaming import decode_stream, encode_stream, heal_stream
+from ..observability import ioflow
 from ..storage.fileinfo import ChecksumInfo, ErasureInfo, FileInfo, new_uuid
 from ..storage.diskcheck import ROBUST
 from ..storage.local import SYSTEM_META_BUCKET, small_file_threshold
@@ -50,6 +51,7 @@ from ..utils.errors import (
     ErrDiskNotFound,
     ErrDiskOpTimeout,
     ErrErasureReadQuorum,
+    ErrFileCorrupt,
     ErrFileNotFound,
     ErrFileVersionNotFound,
     ErrInvalidArgument,
@@ -151,8 +153,10 @@ class ErasureObjects(MultipartMixin):
         self.set_index = set_index
         self.pool_index = pool_index
         # Objects a read or a partial write found in need of heal
-        # (MinIO's MRF queue); drain_mrf hands them to a healer.
+        # (MinIO's MRF queue), each with its queue time; drain_mrf hands
+        # them to a healer (background/heal.py).
         self._mrf: list[tuple[str, str, str]] = []
+        self._mrf_times: list[float] = []
         self._mrf_lock = threading.Lock()
         self._ns_lock = NamespaceLock()
 
@@ -196,14 +200,34 @@ class ErasureObjects(MultipartMixin):
             except (StorageError, OSError):
                 pass  # nothing staged there, or the disk is gone
 
-    def queue_mrf(self, bucket: str, object_: str, version_id: str = ""):
+    def queue_mrf(self, bucket: str, object_: str, version_id: str = "",
+                  enqueued_at: float | None = None):
+        """enqueued_at: the entry's first time (time.monotonic()), which
+        a failed heal requeues with, so a stuck repair keeps aging."""
         with self._mrf_lock:
             self._mrf.append((bucket, object_, version_id))
+            self._mrf_times.append(time.monotonic() if enqueued_at is None
+                                   else enqueued_at)
 
-    def drain_mrf(self) -> list[tuple[str, str, str]]:
+    def drain_mrf(self, with_times: bool = False) -> list[tuple]:
+        """Take every queued entry: (bucket, object, version id), with
+        its queue time last when `with_times`."""
         with self._mrf_lock:
             out, self._mrf = self._mrf, []
+            times, self._mrf_times = self._mrf_times, []
+        if with_times:
+            return [(b, o, v, t) for (b, o, v), t in zip(out, times)]
         return out
+
+    def mrf_stats(self) -> dict:
+        """The queue's depth and the age in seconds of its oldest entry
+        (a requeued entry keeps its first time, so it may not be first)."""
+        with self._mrf_lock:
+            depth = len(self._mrf)
+            oldest = min(self._mrf_times) if self._mrf_times else None
+        return {"pending": depth,
+                "oldest_age_s": (round(time.monotonic() - oldest, 3)
+                                 if oldest is not None else 0.0)}
 
     def _on_every_disk(self, op, disks: list | None = None) -> list:
         """Run op(i, disk) for every disk (the set's, or `disks` in shard
@@ -749,8 +773,13 @@ class ErasureObjects(MultipartMixin):
         """Rebuild the shards of the disks whose copy of the version is
         missing, stale or the wrong size. Returns {"healed": [endpoints
         rewritten], "dangling": whether too few shards were left}."""
-        # Heal rewrites shards and metadata: no PUT or delete meanwhile.
-        with self._locked(bucket, object_, writer=True):
+        # Every heal (admin sequence, MRF drain, scanner sample,
+        # fresh-drive sweep) passes here: tagged "heal", paced, and under
+        # the write lock (no PUT or delete meanwhile). The pace slot comes
+        # before the lock: a heal yielding to foreground pressure must not
+        # hold the lock a foreground PUT of the object needs.
+        with ioflow.tag("heal"), fanout_policy.heal_slot(), \
+                self._locked(bucket, object_, writer=True):
             return self._heal_object(bucket, object_, version_id,
                                      remove_dangling)
 
@@ -770,24 +799,42 @@ class ErasureObjects(MultipartMixin):
 
         # A disk is available when its version agrees and its part files
         # exist at their framed size (disksWithAllParts); a flipped byte
-        # is found by GET and verify_file, not here.
+        # is found by GET and verify_file, not here. A disk that answered
+        # without a usable copy (no xl.meta or no such version, another
+        # version, a part file missing or cut short) is counted absent;
+        # a pulled disk or any other error proves nothing.
         available = [False] * len(self.disks)
+        absent = 0
         for i, fi in enumerate(fis):
-            if fi is None or self.disks[i] is None:
+            if self.disks[i] is None:
+                continue
+            if fi is None:
+                if isinstance(errs[i], (ErrFileNotFound,
+                                        ErrFileVersionNotFound)):
+                    absent += 1
                 continue
             if (fi.mod_time_ns != mt or fi.data_dir != dd
                     or fi.deleted != ref_fi.deleted):
+                absent += 1
                 continue
             try:
                 if not fi.deleted:
                     self.disks[i].check_parts(bucket, object_, fi)
+            except (ErrFileNotFound, ErrFileCorrupt):
+                absent += 1
+                continue
             except (StorageError, ValueError, OSError):
                 continue
             available[i] = True
 
         n_avail = sum(available)
         if n_avail < data_blocks and not ref_fi.deleted:
-            if remove_dangling:
+            # Dangling only when more than parity disks answered that the
+            # version is gone (MinIO's isObjectDangling): then no disk's
+            # return can bring back read quorum. Too few shards on the
+            # disks that are up is an outage, not garbage. (minio_tpu
+            # counts a pulled disk as a missing shard and deletes.)
+            if remove_dangling and absent > ref_fi.erasure.parity_blocks:
                 try:
                     self.delete_object(bucket, object_, ObjectOptions(
                         version_id=version_id, no_lock=True))

@@ -56,6 +56,10 @@ class ErasureServerPools:
         self._list_gen: dict[str, int] = {}
         self._gen_lock = threading.Lock()
         self._metacache = MetacacheManager()
+        # The DataUpdateTracker (background/tracker.py) the server sets:
+        # every write marks its bucket, so the scanner skips unchanged
+        # buckets.
+        self.update_tracker = None
         # Buckets seen to exist lately: a positive lasts a moment, so an
         # object call does not stat the bucket on every disk; a negative
         # is never kept, and delete_bucket forgets the bucket.
@@ -67,12 +71,15 @@ class ErasureServerPools:
         self._metacache.close()
 
     def _bump_gen(self, bucket: str) -> None:
-        with self._gen_lock:
-            self._list_gen[bucket] = self._list_gen.get(bucket, 0) + 1
+        self.invalidate_listings(bucket)
+        if self.update_tracker is not None:
+            self.update_tracker.mark(bucket)
 
     def invalidate_listings(self, bucket: str) -> None:
-        """Drop the bucket's cached listings (a mutation made elsewhere)."""
-        self._bump_gen(bucket)
+        """Drop the bucket's cached listings (a mutation made elsewhere):
+        no tracker mark."""
+        with self._gen_lock:
+            self._list_gen[bucket] = self._list_gen.get(bucket, 0) + 1
 
     # --- pool routing ---
 
@@ -114,6 +121,8 @@ class ErasureServerPools:
     def make_bucket(self, bucket: str):
         for pool in self.pools:
             pool.make_bucket(bucket)
+        if self.update_tracker is not None:
+            self.update_tracker.mark(bucket)
 
     def delete_bucket(self, bucket: str, force: bool = False):
         self._forget_bucket(bucket)
@@ -124,6 +133,8 @@ class ErasureServerPools:
         self._forget_bucket(bucket)
         self._metacache.invalidate_bucket(bucket)
         self._list_gen.pop(bucket, None)
+        if self.update_tracker is not None:
+            self.update_tracker.mark(bucket)
 
     def bucket_exists(self, bucket: str) -> bool:
         return any(p.bucket_exists(bucket) for p in self.pools)

@@ -74,6 +74,27 @@ class LaunchCounter:
             self._n = value
 
 
+class ShapeLaunchCounter:
+    """A kernel's launches by shape key, counted beside its LaunchCounter
+    where it launches and nowhere else."""
+
+    def __init__(self):
+        self._n: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, key: str) -> None:
+        with self._lock:
+            self._n[key] = self._n.get(key, 0) + 1
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = {}
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

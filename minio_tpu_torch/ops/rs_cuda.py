@@ -21,6 +21,8 @@ from . import _build
 # Kernel launches made by this process: the smoke run reads it to show
 # that the main path went through the kernel.
 LAUNCHES = _build.LaunchCounter()
+# The same launches by shape, "{R}x{K}" (rows out x rows in).
+LAUNCHES_BY_SHAPE = _build.ShapeLaunchCounter()
 
 _MAX_SMEM = 232_448  # shared memory one block may use on Hopper (227 KB)
 
@@ -65,4 +67,5 @@ def apply_gf_matrix_cuda(bitmat: torch.Tensor,
         "gf_apply_launch",
     )
     LAUNCHES.add()
+    LAUNCHES_BY_SHAPE.add(f"{r}x{k}")
     return out

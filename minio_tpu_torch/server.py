@@ -2,9 +2,12 @@
 that a single-node erasure deployment runs (MinIO's serverMain,
 cmd/server-main.go): the self-tests of the erasure code and the bitrot
 hash on the device, the drives and one pool of erasure sets per
-ellipses argument, the root credential, the bucket metadata and the S3
-server. FS mode, distributed endpoints, TLS, the scanner, the config
-and KMS subsystems, events and metrics are not ported.
+ellipses argument, the root credential, the bucket metadata, the S3
+server and the background services that keep the sets healthy (the MRF
+drain, the disk monitor, fresh-drive back-fill, the data scanner with
+its update tracker; MinIO's initAutoHeal and initDataScanner). FS mode,
+distributed endpoints, TLS, the config and KMS subsystems, events and
+metrics are not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ import numpy as np
 import torch
 
 from .api.server import S3Server
+from .background import (
+    DataScanner,
+    DataUpdateTracker,
+    DiskMonitor,
+    FreshDiskHealer,
+    MRFHealer,
+)
 from .bucket.metadata import BucketMetadataSys
 from .erasure.codec import Erasure
 from .iam.store import IAMSys
@@ -104,8 +114,23 @@ class Server:
         self.object_layer = ErasureServerPools(pools, device=self.device)
         self.iam = IAMSys(self.root_user, self.root_password)
         self.bucket_meta = BucketMetadataSys(self.object_layer)
+        # The background services (initAutoHeal, initDataScanner), in
+        # minio_tpu's order. Every write marks the update tracker, and
+        # the scanner skips the buckets it finds unmarked.
+        self.mrf = MRFHealer(self.object_layer)
+        self.update_tracker = DataUpdateTracker(self.object_layer)
+        self.object_layer.update_tracker = self.update_tracker
+        self.scanner = DataScanner(self.object_layer,
+                                   tracker=self.update_tracker)
+        # Disk liveness: offline detection, and the MRF drained on a
+        # reconnect (monitorAndConnectEndpoints).
+        self.disk_monitor = DiskMonitor(self.object_layer,
+                                        mrf_healer=self.mrf)
+        # Replaced-drive detection and the resumable back-fill.
+        self.fresh_disk_healer = FreshDiskHealer(self.object_layer)
         self.s3 = S3Server(self.object_layer, self.iam, self.bucket_meta,
                            host=address, port=port, device=self.device)
+        self.s3.admin.scanner = self.scanner
         self._stop = threading.Event()
 
     @staticmethod
@@ -127,11 +152,21 @@ class Server:
         return fmt["id"] if fmt is not None else new_uuid()
 
     def start(self) -> "Server":
+        """Start the background services, then the S3 server."""
+        self.mrf.start()
+        self.disk_monitor.start()
+        self.fresh_disk_healer.start()
+        self.update_tracker.load()
+        self.scanner.start()
         self.s3.start()
         return self
 
     def stop(self) -> None:
         self.s3.stop()
+        self.scanner.stop()
+        self.mrf.stop()
+        self.disk_monitor.stop()
+        self.fresh_disk_healer.stop()
         self.object_layer.close()
 
     @property

@@ -6,9 +6,9 @@ local (syscall-only) per-drive work to a thread pool buys no parallelism
 and costs a dispatch per task, and stage threads only add hand-offs.
 Tests force either choice by setting `fanout.SINGLE_CORE`; the drivers
 read it at each call. `QuorumFanout` is the quorum-wait and detach
-protocol of the shard-write fan-out. minio_tpu's admission and heal
-pacing slots (`encode_slot`, `decode_slot`, `heal_slot`) are not ported
-yet.
+protocol of the shard-write fan-out. `heal_slot` is every heal's token
+from the heal pacer; minio_tpu's admission slots (`encode_slot`,
+`decode_slot`) are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +32,16 @@ def _note_late_drop(err) -> None:
     key = "errors" if err is not None else "results"
     with _late_mu:
         LATE_DROPS[key] += 1
+
+
+def heal_slot():
+    """Every object heal's read and re-encode section takes a token from
+    the heal pacer's background budget: it yields while foreground disk
+    p99 is high, and is always granted within the pace deadline, so
+    pressure slows the MRF drain and never wedges it."""
+    from ..background.healpace import pacer
+
+    return pacer().heal_slot()
 
 
 def is_local_sink(sink) -> bool:

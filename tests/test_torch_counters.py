@@ -9,6 +9,7 @@ import sys
 import threading
 
 import pytest
+import torch
 
 from minio_tpu_torch.entry import counters
 from minio_tpu_torch.ops import _build, highwayhash_torch, rs_cuda
@@ -70,3 +71,36 @@ def test_entry_counters_read_the_kernels_counts():
         == 5
     rs_cuda.LAUNCHES.add(-3)
     highwayhash_torch.LAUNCHES.add(-5)
+
+
+def test_shape_counter_counts_by_key_from_many_threads():
+    counter = _build.ShapeLaunchCounter()
+    start = threading.Barrier(THREADS)
+
+    def launch(key):
+        start.wait()
+        for _ in range(COUNTS // 10):
+            counter.add(key)
+
+    threads = [threading.Thread(target=launch, args=(f"{i % 2 + 1}x12",))
+               for i in range(THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    want = THREADS // 2 * (COUNTS // 10)
+    assert counter.snapshot() == {"1x12": want, "2x12": want}
+    counter.reset()
+    assert counter.snapshot() == {}
+
+
+def test_gf_wrapper_counts_no_launch_it_does_not_make():
+    """Kernel A's wrapper counts only where it launches: a CPU tensor or
+    a shape it refuses raises before the launch and counts nothing."""
+    before = (rs_cuda.LAUNCHES.value, rs_cuda.LAUNCHES_BY_SHAPE.snapshot())
+    bitmat = torch.zeros((8, 96), dtype=torch.int8)
+    shards = torch.zeros((1, 12, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        rs_cuda.apply_gf_matrix_cuda(bitmat, shards)
+    assert (rs_cuda.LAUNCHES.value,
+            rs_cuda.LAUNCHES_BY_SHAPE.snapshot()) == before

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from minio_tpu_torch.entry import (object_codec_put_get_heal,
-                                   object_put_get_heal, put_get_heal,
-                                   s3_core, s3_put_get_heal)
+                                   object_put_get_heal, object_self_heal,
+                                   put_get_heal, s3_core, s3_put_get_heal)
 from minio_tpu_torch.erasure import device_engine, registry
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
@@ -330,3 +330,38 @@ def test_pipelined_put_recycles_two_pinned_buffers(cuda, monkeypatch):
     serial = put(True)
     for i in range(k + m):
         assert piped[i] == serial[i], f"shard {i} differs"
+
+
+def test_self_heal_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """An MRF drain after a drive outage and a fresh-drive sweep (msr-pm
+    objects through the repair plane) on the card at 12+4 and small
+    blocks: every check holds, both kernels launch in the drain and the
+    sweep, and every file of the 16 drives equals the same run on the
+    CPU (ids and the clock made alike for both runs)."""
+    import random
+    import time as time_mod
+    import types
+    import uuid as uuid_mod
+
+    from minio_tpu_torch.object import erasure_objects
+    from minio_tpu_torch.storage import fileinfo
+
+    monkeypatch.setenv("MTPU_INLINE_THRESHOLD", "4096")
+    monkeypatch.setattr(erasure_objects, "BLOCK_SIZE_V2", 12 * 4096)
+    clock = types.SimpleNamespace(
+        time_ns=lambda: 1_700_000_000_000_000_000,
+        monotonic=time_mod.monotonic)
+    monkeypatch.setattr(erasure_objects, "time", clock)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        rng = random.Random(5)
+        monkeypatch.setattr(fileinfo, "uuid", types.SimpleNamespace(
+            uuid4=lambda: uuid_mod.UUID(int=rng.getrandbits(128),
+                                        version=4)))
+        res = object_self_heal(tmp_path / str(dev), 300_001, device=dev)
+        assert all(res["checks"].values()), (dev, res["checks"])
+        runs[str(dev)] = res
+    for phase in ("mrf_drain", "sweep"):
+        c = runs["cuda"]["counters"][phase]
+        assert c["kernel_gf_launches"] > 0 and c["kernel_hash_launches"] > 0
+    assert runs["cuda"]["files"] == runs["cpu"]["files"]
