@@ -4,8 +4,9 @@
 
 Phases, each of which must pass (nothing is caught):
  1. the card's name and power limit, the torch and CUDA versions;
- 2. build both kernels from minio_tpu_torch/csrc with nvcc for sm_90a and
-    print ptxas's register/shared-memory report;
+ 2. build every kernel source of minio_tpu_torch/csrc (gf_apply.cu,
+    highwayhash.cu, aes_gcm.cu; one nvcc each, all at once) for sm_90a
+    and print ptxas's register/shared-memory report;
  3. hold each kernel against its plain PyTorch version on the card, with
     exact equality, tolerance 0 (integer arithmetic; the plain GF
     version's float32 matmul is exact with TF32 off): kernel A at every
@@ -30,7 +31,13 @@ Phases, each of which must pass (nothing is caught):
     its verify entry on good and corrupted frames, and its grouped verify
     entry at every path shard length (fetches of 8 frames from 12 and
     from 16 readers in one launch, a short last chunk in a second, bad
-    first and last chunks in several groups);
+    first and last chunks in several groups); kernels C and D
+    (AES-256-GCM seal and open, check_aes_kernels) against the plain
+    version at plaintext lengths 0, 1, 15, 16, 17, 12,345 and 65,536
+    with AADs of 3 B, 8 B and a KMS context, at batches of 1, 16, 256
+    and 4,097 packages, with flipped nonce, ciphertext, tag and AAD
+    bytes (the ok flags false exactly there), and at known answers made
+    with the `cryptography` package;
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object, on the pipelined drivers (this host has
     more than one core): PUT, healthy GET, shards 0, 5, 12 and 15 lost,
@@ -134,15 +141,31 @@ Phases, each of which must pass (nothing is caught):
     one traced run (object_self_heal at 64 MiB + 12,345 B) gives the idle
     share. 3b: kernel A and B at the shard lengths of the objects the
     server wrote under .minio.sys, known only after the run;
+ 4k. server-side encryption over HTTP (entry.s3_sse): a Server over 16
+    drive directories (one 12+4 set, 1 MiB blocks), its S3 plane alone,
+    MTPU_ALLOW_INSECURE_SSEC=1 (no TLS), a KMS key made through the
+    admin route; for each of SSE-S3, SSE-C and SSE-KMS a 256 MiB +
+    12,345 B object (4,097 packages, 268,562,517 B stored) PUT streamed,
+    GET and a ranged GET (exact bytes, compared piece by piece), HEAD
+    with the SSE answers, drives 0, 5, 12 and 15 lost, a degraded GET,
+    HealObject (every xl.meta and part file equal to its original),
+    a GET again; then a CopyObject SSE-C -> SSE-S3 and a GET of it, and
+    a GET with a wrong SSE-C key (AccessDenied). Counters zeroed just
+    before and read just after; each PUT must launch kernel C, each GET
+    kernel D, each heal kernels A and B and never C or D. Prints each
+    step's seconds, GB/s of logical object and launches, the peak
+    resident-set growth of each PUT and GET, and {"sse": ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
     of 12 readers x 8 frames; kernel A also at 4h's msr-pm encode
     shapes [8, 24, 43,691] -> 8 and [8, 64, 16,384] -> 64, and at 4j's
     heal shapes, the one-target reconstruction [8, 12, 87,382] -> 1 and
-    the msr-pm repair window [5, 16, 43,691] -> 2) and print one JSON line
+    the msr-pm repair window [5, 16, 43,691] -> 2; kernels C and D at 16,
+    127 (the port's batch) and 4,097 packages) and print one JSON line
     {"kernels": [...]}, whose launches are those of phases 4, 4c, 4e, 4h,
-    4i and 4j (by path in "launches_by_path");
+    4i, 4j and 4k (by path in "launches_by_path"); every kernel must
+    have launched on the main paths;
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -153,6 +176,7 @@ from __future__ import annotations
 import gc
 import json
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -198,6 +222,63 @@ CORE_OBJECTS = (("ver", "big"), ("dst", "copy"), ("dst", "parts"),
 SELF_HEAL_CODECS = ("dense-gf8", "cauchy-xor", "msr-pm")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
+# 32-bit integer operations: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# (H100 SXM; NVIDIA's Hopper white paper).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The least 32-bit operations a 16-byte AES-GCM block needs: 14 rounds of
+# 16 table lookups, each with its XOR, and GHASH's product as 32 nibble
+# steps of two lookups and two XORs.
+AES_GCM_OPS_PER_BLOCK = 14 * 16 * 2 + 32 * 4
+# Phase 3 of kernels C and D: plaintext lengths (32: an object key or a
+# KMS data key), AADs (minio_tpu's: a package's <Q sequence number,
+# b"OEK" of an object-key seal, a KMS context), batches of 64 KiB
+# packages, the last 12,345 B: 1 MiB, 4k's closing launch of 32 full
+# packages and the tail, and the 256 MiB + 12,345 B object's 4,097; the
+# port's own batch (packages_per_launch) is added where it runs.
+AES_LENGTHS = (0, 1, 15, 16, 17, 32, 12_345, 65_536)
+AES_AADS = (b"OEK", struct.pack("<Q", 7),
+            json.dumps({"bucket": "smoke"}, sort_keys=True).encode())
+AES_BATCHES = (1, 16, 33, 256, 4097)
+PACKAGE = 64 << 10
+# AES-256-GCM known answers (key, nonce, plaintext, AAD, ciphertext ||
+# tag), made with the `cryptography` package's AESGCM; the card's machine
+# has no such package, so these hold kernels C and D to it directly.
+AES_GCM_KAT = (
+    ("1477b739cbad978d79979138218bd7308ebd0b8cd5a499e19aef425fe8b61728",
+     "e25b2ce1ae867c17a9e6025f",
+     "",
+     "",
+     "8725d1d22699b7cb29bea268002d81f7"),
+    ("baf3a8c3e0dd35c6e0ef9609d336e2824dd7a184102cd0593a117dd5853bb3ad",
+     "c72ff7d560430f7e743f0185",
+     "54",
+     "4f454b",
+     "db7cdcbfb2680ad74d0ab9605b7c1a86ba"),
+    ("4b58845427d9ab405efdd687911636bf0237b27cb01042f2231e2be89a30754a",
+     "71507c78789e5b0943aafac8",
+     "15785b95db1d8c2a6845c4a2351bfed8e5",
+     "0500000000000000",
+     "8be36f0658fec76ab8903652abd6dab728cc32820b6e59137d106e6d81e73ba0c7"),
+    ("e1bcb446e8c9d9fff7e0eb5d5a12b0c1590e2ada4c0fa21dda894dc27ef6f17b",
+     "34ac0f252ca4179dd44be880",
+     "288946f3b5040e8a41ae8507e452ef0b5ebbd17e6a5935a40dde95efd3f5eac8"
+     "288946f3b5040e8a41ae8507e452ef0b5ebbd17e6a5935a40dde95efd3f5eac8",
+     "7b226275636b6574223a2022736d6f6b65227d",
+     "b0870b7bc4cfd14004c0a25a683b4d62925399a0e30accbcbb02e84dea5ede8a"
+     "00292b9e86bd0e4dd562201ae6a9741a2cc221066f909891ccb20e331833ee59"
+     "d62b67cb41a8862d09bb92cc72c2f4b2"),
+    ("81179e1703e0609de8a1a5e9e702d0283dc2c06ba75baa0349bb654f883193ed",
+     "da64e05495ed3f63886b5393",
+     "54b2acf6e544a610d9cfa218141b9fcf4ebdd4e1cae6f369ef995635bc2f06d2"
+     "54b2acf6e544a610d9cfa218141b9fcf4ebdd4e1cae6f369ef995635bc2f06d2"
+     "54b2acf6e544a610d9cfa218141b9fcf4ebdd4e1cae6f369ef995635bc2f06d2"
+     "54b2acf6",
+     "",
+     "441e327b42a808a6fe2890cdae910aefc3dc741d18da4cd175307ebb457175df"
+     "d38e144c06773ca94f7eb8e67c4fef109ab858a2c61b5ef3f31d762fd2d0dbfd"
+     "867b4b7ff00ca19b70a6eaddb34bfad8f5ecd4e27a70ca273464559aef03f7b5"
+     "58a2b54398f43f6e8d3bacc47a4edfa6190cffac"),
+)
 
 
 def log(*args) -> None:
@@ -672,11 +753,114 @@ def check_kernels(rng) -> dict:
                                                err)
     check_codec_kernels(rng, errs)
     check_self_heal_kernels(rng, errs)
+    check_aes_kernels(rng, errs)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
     return errs
+
+
+def aes_batch(rng, lengths, aads):
+    """Packages of random plaintext on the card, back to back, with
+    random nonces and the given AADs: (seal descriptor, plaintext,
+    nonces [P, 12], AADs, wire size)."""
+    from minio_tpu_torch.ops.aes_gcm import OVERHEAD, seal_desc
+
+    desc = seal_desc(lengths, [len(a) for a in aads])
+    p, n = len(desc), int(desc[:, 1].sum())
+    aad = torch.from_numpy(np.frombuffer(b"".join(aads), dtype=np.uint8)
+                           .copy()).cuda()
+    return (torch.from_numpy(desc).cuda(), rand((n,), rng),
+            rand((p, 12), rng), aad, n + OVERHEAD * p)
+
+
+def aes_case(key: bytes, batch, label: str, errs: dict,
+             flips=()) -> None:
+    """Kernel C against the plain seal, then kernel D against the plain
+    open on the kernel's wire with the bytes of `flips` (package, part)
+    flipped, part one of nonce, ct, tag, aad: the ok flags must be false
+    exactly at the flipped packages, and where none is flipped the
+    plaintext must come back whole."""
+    from minio_tpu_torch.ops import aes_gcm as plain, aes_gcm_cuda as kc
+
+    desc, data, nonces, aad, n = batch
+    wire = kc.seal_cuda(key, data, desc, nonces, aad, n)
+    want = plain.seal_plain(key, data, desc, nonces, aad, n)
+    torch.cuda.synchronize()
+    seal_err = max_abs_err(wire, want)
+    odesc = plain.open_desc(desc)
+    aad = aad.clone()
+    rows = desc.cpu().numpy()
+    for pkg, part in flips:
+        in_off, ln, aad_off, _, out_off = (int(v) for v in rows[pkg])
+        pos = {"nonce": out_off + 5, "ct": out_off + 12 + ln // 2,
+               "tag": out_off + 12 + ln + 15}.get(part)
+        if pos is None:
+            aad[aad_off] ^= 1
+        else:
+            wire[pos] ^= 0x80
+    got, ok = kc.open_cuda(key, wire, odesc, aad, data.numel())
+    want_pt, want_ok = plain.open_plain(key, wire, odesc, aad, data.numel())
+    torch.cuda.synchronize()
+    open_err = max_abs_err(got, want_pt)
+    flags = ok.bool().cpu().tolist()
+    expect = [i not in {f[0] for f in flips} for i in range(len(rows))]
+    if flags != expect or want_ok.cpu().tolist() != expect:
+        raise AssertionError(f"aes_gcm {label}: ok flags {flags}, plain "
+                             f"{want_ok.cpu().tolist()}, want {expect}")
+    if not flips and not torch.equal(got, data):
+        raise AssertionError(f"aes_gcm {label}: open did not give the "
+                             "plaintext back")
+    log(f"aes_gcm {label}: seal max_abs_err {seal_err}, open max_abs_err "
+        f"{open_err}, ok flags as expected")
+    errs["aes_gcm_seal"] = max(errs["aes_gcm_seal"], seal_err)
+    errs["aes_gcm_open"] = max(errs["aes_gcm_open"], open_err)
+
+
+def check_aes_kernels(rng, errs: dict) -> None:
+    """Phase 3 for kernels C and D: every length of AES_LENGTHS with every
+    AAD of AES_AADS in one batch; batches of AES_BATCHES full packages
+    (the last 12,345 B) and one of the port's batch (all full) with <Q
+    sequence AADs; flipped nonce, ciphertext, tag and AAD bytes; the
+    known answers of AES_GCM_KAT."""
+    from minio_tpu_torch.api.transforms import packages_per_launch
+    from minio_tpu_torch.ops import aes_gcm_cuda as kc
+
+    errs.update({"aes_gcm_seal": 0, "aes_gcm_open": 0, "aes_gcm_kat": 0})
+    key = rng.bytes(32)
+    pairs = [(ln, a) for ln in AES_LENGTHS for a in AES_AADS]
+    aes_case(key, aes_batch(rng, [p[0] for p in pairs],
+                            [p[1] for p in pairs]),
+             f"lengths {AES_LENGTHS} x {len(AES_AADS)} AADs", errs)
+    main = packages_per_launch("cuda")
+    for p in sorted({*AES_BATCHES, main}):
+        # 4k seals and opens its batches of `main` full packages.
+        lengths = [PACKAGE] * (p - 1) + [PACKAGE if p == main else 12_345]
+        aads = [struct.pack("<Q", i) for i in range(p)]
+        aes_case(key, aes_batch(rng, lengths, aads), f"batch {p}", errs)
+    lengths = [PACKAGE] * 15 + [12_345]
+    aads = [struct.pack("<Q", i) for i in range(16)]
+    aes_case(key, aes_batch(rng, lengths, aads), "batch 16 tampered", errs,
+             flips=((1, "nonce"), (4, "ct"), (9, "tag"), (13, "aad"),
+                    (15, "ct")))
+    for i, (k, nonce, pt, aad, want) in enumerate(AES_GCM_KAT):
+        k, nonce, pt, aad, want = (bytes.fromhex(x)
+                                   for x in (k, nonce, pt, aad, want))
+        dev = lambda b: torch.from_numpy(  # noqa: E731
+            np.frombuffer(b, dtype=np.uint8).copy()).cuda()
+        desc = torch.tensor([[0, len(pt), 0, len(aad), 0]],
+                            dtype=torch.int64).cuda()
+        wire = kc.seal_cuda(k, dev(pt), desc, dev(nonce).reshape(1, 12),
+                            dev(aad), 28 + len(pt))
+        got, ok = kc.open_cuda(k, dev(nonce + want), desc, dev(aad),
+                               len(pt))
+        torch.cuda.synchronize()
+        good = (bytes(wire.cpu().numpy()) == nonce + want
+                and bytes(got.cpu().numpy()) == pt and bool(ok[0]))
+        errs["aes_gcm_kat"] = max(errs["aes_gcm_kat"], 0 if good else 1)
+        log(f"aes_gcm known answer {i} ({len(pt)} B, AAD {len(aad)} B): "
+            f"{'equal' if good else 'DIFFERENT'}")
 
 
 def settle_heap() -> None:
@@ -707,19 +891,23 @@ def on_gc(phase: str, info: dict) -> None:
 def reset_counts() -> None:
     """Zero every launch counter, just before a main path runs."""
     from minio_tpu_torch.erasure import device_engine
-    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
+    from minio_tpu_torch.ops import aes_gcm_cuda, highwayhash_torch, rs_cuda
 
     rs_cuda.LAUNCHES.reset()
     rs_cuda.LAUNCHES_BY_SHAPE.reset()
     highwayhash_torch.LAUNCHES.reset()
+    aes_gcm_cuda.SEAL_LAUNCHES.reset()
+    aes_gcm_cuda.OPEN_LAUNCHES.reset()
     device_engine.reset_stats()
 
 
 def read_counts() -> dict:
-    from minio_tpu_torch.ops import highwayhash_torch, rs_cuda
+    from minio_tpu_torch.ops import aes_gcm_cuda, highwayhash_torch, rs_cuda
 
     return {"gf_apply": rs_cuda.LAUNCHES.value,
-            "highwayhash256": highwayhash_torch.LAUNCHES.value}
+            "highwayhash256": highwayhash_torch.LAUNCHES.value,
+            "aes_gcm_seal": aes_gcm_cuda.SEAL_LAUNCHES.value,
+            "aes_gcm_open": aes_gcm_cuda.OPEN_LAUNCHES.value}
 
 
 def read_shape_counts() -> dict:
@@ -912,7 +1100,7 @@ def run_codecs() -> tuple[dict, dict]:
 
     data_root = ROOT / ".smoke_data"
     line: dict = {"object_size": OBJECT_SIZE, "cells": {}}
-    launches = {"gf_apply": 0, "highwayhash256": 0}
+    launches = dict.fromkeys(read_counts(), 0)
     for i, (codec, drives, lost, target) in enumerate(CODEC_CELLS):
         k = drives - CODEC_PARITY
         label = f"{codec} {k}+{CODEC_PARITY}"
@@ -1291,6 +1479,74 @@ def run_self_heal() -> tuple[dict, dict, dict]:
     return line, launches, res["system_objects"]
 
 
+# Phase 4k's steps of each mode, and the kernels each must launch: "C"
+# (seal), "D" (open), "AB" (encode or rebuild, and hash); "heal" must
+# launch A and B and never C or D. HEAD, and a GET whose SSE-C key's MD5
+# is not the object's (refused before any unseal, as in minio_tpu),
+# launch none of them.
+SSE_STEPS = {"put": ("C", "AB"), "get": ("D",), "range_get": ("D",),
+             "head": (), "degraded_get": ("D", "AB"), "heal": ("AB",),
+             "get_after_heal": ("D",)}
+SSE_TAIL_STEPS = {"copy_ssec_to_sses3": ("C", "D", "AB"),
+                  "get_copy": ("D",), "wrong_key_get": ()}
+
+
+def run_sse() -> tuple[dict, dict]:
+    """Phase 4k: entry.s3_sse, server-side encryption over HTTP."""
+    from minio_tpu_torch.entry import s3_sse
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_sse(tmp, OBJECT_SIZE, device="cuda", seed=50)
+        launches = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"SSE checks failed: {failed}")
+    steps = {f"{m}:{st}": want for m in res["modes"]
+             for st, want in SSE_STEPS.items()}
+    steps.update(SSE_TAIL_STEPS)
+    per_step, gbps = {}, {}
+    for name, want in steps.items():
+        c = res["counters"][name]
+        n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+             "C": c["kernel_seal_launches"], "D": c["kernel_open_launches"]}
+        per_step[name] = dict(n, hedged_reads=c["hedged_reads_total"])
+        need = {k for w in want for k in w}
+        ok = all(n[k] > 0 for k in need)
+        if name.endswith(":heal"):
+            ok = ok and n["C"] == n["D"] == 0
+        if not want:
+            ok = not any(n.values())
+        if not ok or c["hedged_reads_total"]:
+            raise AssertionError(f"SSE {name}: launches {n}, hedged reads "
+                                 f"{c['hedged_reads_total']}, want "
+                                 f"{''.join(want) or 'none'}")
+        sec = res["seconds"][name]
+        moved = (res["range"][1] if name.endswith("range_get")
+                 else 0 if name.endswith(("head", "wrong_key_get"))
+                 else res["size"])
+        gbps[name] = moved / sec / 1e9
+        log(f"4k {name}: {sec:.4f} s, {gbps[name]:.4f} GB/s of object, "
+            f"launches A {n['A']} B {n['B']} C {n['C']} D {n['D']}")
+    for name, peak in res["rss_peak_bytes"].items():
+        log(f"4k {name}: peak resident set growth {peak / 2**20:.1f} MiB")
+    card = card_line()
+    log(f"4k on {card}")
+    line = {"card": card,
+            "object_size": res["size"], "stored_size": res["stored_size"],
+            "packages": res["packages"], "k": K, "m": M,
+            "wiped_drives": res["wiped_drives"], "range": res["range"],
+            "seconds": res["seconds"], "gbps": gbps, "launches": per_step,
+            "rss_peak_bytes": res["rss_peak_bytes"],
+            "checks": res["checks"]}
+    return line, launches
+
+
 def traced_self_heal(tmp, size) -> bool:
     from minio_tpu_torch.entry import object_self_heal
 
@@ -1469,6 +1725,86 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     ]
 
 
+def aes_timed() -> tuple:
+    """Phase 5's batches of kernels C and D, (packages, inputs, replays):
+    a 1 MiB gather, the port's batch (api/transforms.packages_per_launch)
+    and the 256 MiB + 12,345 B object's 4,097 packages. Inputs cycle past
+    the 50 MB L2 where small."""
+    from minio_tpu_torch.api.transforms import packages_per_launch
+
+    return ((16, 64, 200), (packages_per_launch("cuda"), 8, 50),
+            (4097, 1, 4))
+
+
+def time_aes_kernels(rng, launches: dict, errs: dict) -> list[dict]:
+    """Phase 5 for kernels C and D: CUDA-graph replay at aes_timed(), the
+    plain versions' times, and the bound: the larger of the bytes in and
+    out over HBM_BYTES_PER_S and AES_GCM_OPS_PER_BLOCK a 16-byte block
+    (its plaintext, its AAD and its lengths block) over INT32_OPS_PER_S."""
+    from minio_tpu_torch.api.transforms import packages_per_launch
+    from minio_tpu_torch.ops import aes_gcm as plain, aes_gcm_cuda as kc
+    from minio_tpu_torch.utils.timing import time_calls, time_graph
+
+    key = rng.bytes(32)
+    main_batch = packages_per_launch("cuda")
+    shapes = {"seal": [], "open": []}
+    for p, n_inputs, reps in aes_timed():
+        lengths = [PACKAGE] * (p - 1) + [12_345 if p == 4097 else PACKAGE]
+        aads = [struct.pack("<Q", i) for i in range(p)]
+        batches = [aes_batch(rng, lengths, aads) for _ in range(n_inputs)]
+        desc, _, nonces, aad, n = batches[0]
+        odesc = plain.open_desc(desc)
+        plen = sum(lengths)
+        datas = [b[1] for b in batches]
+        wires = [kc.seal_cuda(key, x, desc, nonces, aad, n) for x in datas]
+        blocks = sum(-(-ln // 16) + 2 for ln in lengths)  # + AAD, lengths
+        ops = blocks * AES_GCM_OPS_PER_BLOCK
+        for kind, fn, plain_fn, inputs in (
+                ("seal",
+                 lambda x: kc.seal_cuda(key, x, desc, nonces, aad, n),
+                 lambda x: plain.seal_plain(key, x, desc, nonces, aad, n),
+                 datas),
+                ("open",
+                 lambda w: kc.open_cuda(key, w, odesc, aad, plen),
+                 lambda w: plain.open_plain(key, w, odesc, aad, plen),
+                 wires)):
+            ms = time_graph(fn, inputs, reps)
+            plain_ms = time_calls(plain_fn, inputs[:1], 1)
+            nbytes = plen + n + desc.numel() * 8 + aad.numel() + (
+                nonces.numel() if kind == "seal" else p)
+            bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                              ops / INT32_OPS_PER_S)
+            shapes[kind].append({
+                "packages": p, "plaintext_bytes": plen, "ms": ms,
+                "us_per_launch": 1e3 * ms, "gbps": plen / ms / 1e6,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / INT32_OPS_PER_S else "operations"})
+            log(f"aes_gcm {kind} {p} packages ({plen} B): {ms:.5f} ms a "
+                f"launch ({plen / ms / 1e6:.2f} GB/s), plain {plain_ms:.3f} "
+                f"ms, bound {bound:.5f} ms ({100 * bound / ms:.1f}% of "
+                "bound)")
+        del batches, datas, wires
+    rows = []
+    for kind, name, line in (("seal", "aes_gcm_seal", 205),
+                             ("open", "aes_gcm_open", 319)):
+        main = next(r for r in shapes[kind] if r["packages"] == main_batch)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "minio_tpu_torch/csrc/aes_gcm.cu",
+            "replaces": f"minio_tpu/api/transforms.py:{line}",
+            "replaces_note": "no TPU kernel: cryptography's AESGCM on the "
+                             "host", "checked": True,
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            "max_abs_err": max(errs[name], errs["aes_gcm_kat"]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "packages": main_batch,
+            "shapes": shapes[kind]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1518,12 +1854,16 @@ def main() -> int:
     log(f"self-heal phase {time.perf_counter() - t0:.1f} s")
     check_system_object_kernels(rng, errs, system_objects)
     heal_line["trace"] = trace_path("self heal", traced_self_heal)
+    t0 = time.perf_counter()
+    sse_line, sse_launches = run_sse()
+    log(f"SSE phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
                       "codecs": codec_launches[name],
                       "s3_core": core_launches[name],
-                      "self_heal": heal_launches[name]}
+                      "self_heal": heal_launches[name],
+                      "s3_sse": sse_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     gc.callbacks.remove(on_gc)
@@ -1533,6 +1873,11 @@ def main() -> int:
     drivers_line["collector_pauses"] = PAUSES
     drivers_line["hedge_windows_restarted"] = RESTARTS
     kernels = time_kernels(rng, by_path, errs)
+    kernels += time_aes_kernels(rng, by_path, errs)
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} never launched on the "
+                                 "main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"object_layer": object_line}), flush=True)
     print(json.dumps({"s3_plane": s3_line}), flush=True)
@@ -1540,6 +1885,7 @@ def main() -> int:
     print(json.dumps({"codecs": codecs_line}), flush=True)
     print(json.dumps({"s3_core": core_line}), flush=True)
     print(json.dumps({"self_heal": heal_line}), flush=True)
+    print(json.dumps({"sse": sse_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

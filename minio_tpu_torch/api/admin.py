@@ -1,7 +1,8 @@
 """The admin routes of the port, its copy of AdminHandlers of
 minio_tpu/api/admin.py: heal (MinIO's /minio/admin/v3/heal,
-cmd/admin-heal-ops.go), datausage (a listing walk) and usage (the data
-scanner's snapshot). The rest of the admin API is not ported: its
+cmd/admin-heal-ops.go), datausage (a listing walk), usage (the data
+scanner's snapshot) and kms (KMSKeyStatusHandler and KES CreateKey over
+the server's LocalKMS). The rest of the admin API is not ported: its
 routes answer NotImplemented.
 """
 
@@ -17,6 +18,7 @@ from ..background.healseq import (
     HealOverlap,
     make_io_gate,
 )
+from ..crypto.kms import KMSError
 from ..iam.policy import Args
 from .errors import S3Error
 from .handlers import Response
@@ -34,21 +36,27 @@ HEAL_MAX_SLEEP_S = 0.01
 # The ported routes, and the IAM action of each, as minio_tpu names them.
 _ROUTES = {("GET", "datausage"): "data_usage_info",
            ("GET", "usage"): "usage_info",
-           ("POST", "heal"): "heal"}
+           ("POST", "heal"): "heal",
+           ("GET", "kms"): "kms_status",
+           ("POST", "kms"): "kms_create_key"}
 ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "usage_info": "admin:DataUsageInfo",
-           "heal": "admin:Heal"}
+           "heal": "admin:Heal",
+           "kms_status": "admin:KMSKeyStatus",
+           "kms_create_key": "admin:KMSCreateKey"}
 
 
 class AdminHandlers:
     """`inflight` returns the S3 requests in flight, which a heal
     sequence yields to. `scanner` is the server's DataScanner, which the
-    usage route serves (None: 503)."""
+    usage route serves (None: 503). `kms` is the server's LocalKMS
+    (None: the kms routes answer NotImplemented)."""
 
-    def __init__(self, object_layer, iam, inflight):
+    def __init__(self, object_layer, iam, inflight, kms=None):
         self.ol = object_layer
         self.iam = iam
         self.inflight = inflight
+        self.kms = kms
         self.heal_state = AllHealState()
         self.scanner = None
 
@@ -175,3 +183,35 @@ class AdminHandlers:
             raise S3Error("InvalidArgument", str(exc)) from exc
         return self._json({"clientToken": seq.token, "clientAddress": "",
                            "startTime": seq.start_time})
+
+    # --- KMS (KMSKeyStatusHandler, cmd/admin-handlers.go, and KES
+    # CreateKey; the server's LocalKMS serves both) ---
+
+    def kms_status(self, ctx) -> Response:
+        """GET /minio/admin/v3/kms/key/status[?key-id=]: a round trip of
+        each key (or one); /kms/key/list: the key names."""
+        if self.kms is None:
+            raise S3Error("NotImplemented", "KMS not configured")
+        if ctx.path.rstrip("/").endswith("/key/list"):
+            return self._json({"keys": self.kms.list_keys()})
+        key_id = ctx.qdict.get("key-id", "")
+        status = self.kms.status()
+        if key_id:
+            keys = [k for k in status["keys"] if k["keyName"] == key_id]
+            if not keys:
+                raise S3Error("NoSuchKey", f"kms key {key_id}")
+            status["keys"] = keys
+        return self._json(status)
+
+    def kms_create_key(self, ctx) -> Response:
+        """POST /minio/admin/v3/kms/key/create?key-id=<name>."""
+        if self.kms is None:
+            raise S3Error("NotImplemented", "KMS not configured")
+        key_id = ctx.qdict.get("key-id", "")
+        if not key_id:
+            raise S3Error("InvalidArgument", "key-id required")
+        try:
+            self.kms.create_key(key_id)
+        except KMSError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        return self._json({"created": key_id})

@@ -1,7 +1,9 @@
 """A minimal signed S3 client over http.client, signing with the port's
 own api/sign.py: SigV4 headers (the payload hashed, or UNSIGNED), the
 aws-chunked streaming signature minio-go uses for PutObject over plain
-HTTP, and SigV2. It drives the S3 server in `entry.s3_put_get_heal`.
+HTTP, and SigV2. It drives the S3 server in `entry.s3_put_get_heal`;
+`put_stream` and `get_stream` move a body in pieces, so a large object
+is never held whole on the client's side (`entry.s3_sse`).
 """
 
 from __future__ import annotations
@@ -80,3 +82,45 @@ class S3Client:
         body = sign.encode_chunked(payload, self.secret_key, cred, amz_date,
                                    seed, chunk_size=chunk_size)
         return self._send("PUT", path, [], headers, body)
+
+    def put_stream(self, path: str, reader, size: int, headers=None
+                   ) -> tuple[int, dict, bytes]:
+        """PUT `size` bytes read from `reader` in pieces of 1 MiB, signed
+        UNSIGNED-PAYLOAD."""
+        headers = dict(headers or {})
+        headers["Content-Length"] = str(size)
+        headers = sign.sign_v4_request(self.secret_key, self.access_key,
+                                       "PUT", self.endpoint, path, [],
+                                       headers, region=REGION,
+                                       payload_hash=sign.UNSIGNED_PAYLOAD)
+        conn = http.client.HTTPConnection(self.endpoint, timeout=TIMEOUT_S,
+                                          blocksize=1 << 20)
+        try:
+            conn.request("PUT", urllib.parse.quote(path), body=reader,
+                         headers=headers)
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
+    def get_stream(self, path: str, sink, query=None, headers=None
+                   ) -> tuple[int, dict, int]:
+        """GET with the body handed to sink(piece) in pieces of at most
+        1 MiB: (status, headers, body bytes)."""
+        query = list(query or [])
+        headers = sign.sign_v4_request(self.secret_key, self.access_key,
+                                       "GET", self.endpoint, path, query,
+                                       dict(headers or {}), region=REGION)
+        qs = urllib.parse.urlencode(query)
+        url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
+        conn = http.client.HTTPConnection(self.endpoint, timeout=TIMEOUT_S)
+        try:
+            conn.request("GET", url, headers=headers)
+            resp = conn.getresponse()
+            n = 0
+            while piece := resp.read(1 << 20):
+                sink(piece)
+                n += len(piece)
+            return resp.status, dict(resp.getheaders()), n
+        finally:
+            conn.close()

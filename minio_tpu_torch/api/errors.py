@@ -71,6 +71,7 @@ API_ERRORS: dict[str, APIError] = {e.code: e for e in [
     _E("InvalidBucketState", "The request is not valid for the current state of the bucket.", HTTPStatus.CONFLICT),
     _E("NoSuchCORSConfiguration", "The CORS configuration does not exist.", HTTPStatus.NOT_FOUND),
     _E("NoSuchWebsiteConfiguration", "The specified bucket does not have a website configuration.", HTTPStatus.NOT_FOUND),
+    _E("ServerSideEncryptionConfigurationNotFoundError", "The server side encryption configuration was not found.", HTTPStatus.NOT_FOUND),
 ]}
 
 

@@ -5,15 +5,22 @@ dummy-handlers.go) on the plain path: the bucket calls, versioning,
 bucket policy and tagging, the canned bucket answers and ACLs,
 ListObjects v1 and v2, ListObjectVersions, PutObject, CopyObject,
 GetObject (whole, ranged, conditional), HeadObject, DeleteObject(s),
-object tagging and the multipart calls with UploadPartCopy.
+object tagging, the multipart calls with UploadPartCopy, and
+server-side encryption (SSE-S3, SSE-C and SSE-KMS through
+api/transforms.py: PutObject, GetObject whole and ranged, HeadObject,
+CopyObject that re-encrypts, and the bucket's ?encryption document,
+stored and applied to no PUT, as minio_tpu does).
 
 Each handler takes the parsed request and returns a Response; the
 server has checked the signature and the action (a copy's source too)
-before. What the port does not serve yet (SSE and compression, object
-lock, quota, lifecycle, replication, events) is refused with
-NotImplemented, never served half: a bucket with such a configuration,
-an object whose bytes need a transform, and the request headers that
-ask for one.
+before. What the port does not serve yet (compression, object lock,
+quota, lifecycle, replication, events) is refused with NotImplemented,
+never served half: a bucket with such a configuration, an object whose
+bytes need a transform the port lacks, and the request headers that ask
+for one. Two SSE cases that minio_tpu gets wrong are refused too: an
+encrypted multipart upload (minio_tpu stores its parts in plaintext)
+and an UploadPartCopy from an encrypted source (minio_tpu copies the
+ciphertext into the part).
 """
 
 from __future__ import annotations
@@ -24,16 +31,17 @@ import datetime
 import io
 import json
 import re
-import tempfile
 import threading
 import urllib.parse
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 
+from ..crypto import sse as ssemod
 from ..erasure import registry
 from ..iam.policy import Policy
 from ..object.types import CompletePart, ObjectOptions
 from ..utils.errors import StorageError
+from . import transforms
 from .errors import S3Error, from_object_error
 
 MAX_OBJECT_SIZE = 5 * 1024 ** 4         # 5 TiB
@@ -45,20 +53,20 @@ MAX_KEY_LENGTH = 1024
 # Bucket configurations whose effect on the data path is not ported: a
 # bucket that has one is not served.
 _UNPORTED_BUCKET_CONFIG = (
-    "lifecycle_xml", "sse_xml", "quota_json", "object_lock_xml",
+    "lifecycle_xml", "quota_json", "object_lock_xml",
     "notification_xml", "replication_xml",
 )
-# Request headers of features not ported.
-_UNPORTED_HEADERS = ("x-amz-server-side-encryption",)
+# The prefix of every SSE request header (SSE-S3, SSE-KMS and SSE-C):
+# the multipart calls refuse them.
+_SSE_HEADER_PREFIX = "x-amz-server-side-encryption"
 _LOCK_HEADERS = (
     "x-amz-object-lock-mode", "x-amz-object-lock-retain-until-date",
     "x-amz-object-lock-legal-hold",
 )
 # Stored metadata of objects whose bytes need a transform the port does
-# not have (compression, SSE) or live on a remote tier.
+# not have (compression) or live on a remote tier.
 _UNPORTED_OBJECT_META = (
-    "x-mtpu-internal-compression", "x-mtpu-internal-sse-algorithm",
-    "x-mtpu-internal-transition-tier",
+    "x-mtpu-internal-compression", "x-mtpu-internal-transition-tier",
 )
 
 
@@ -275,16 +283,31 @@ def _parse_content_md5(headers: dict) -> str:
     return raw.hex()
 
 
+class _Sink:
+    """A writer whose target is set later: a GET's transform chain is
+    built (and its keys checked) before the status line, and bound to
+    the socket when the body streams."""
+
+    def __init__(self):
+        self.dst = None
+
+    def write(self, data) -> int:
+        return self.dst.write(data)
+
+
 class S3ApiHandlers:
-    """The S3 endpoints of the slice, over an ObjectLayer."""
+    """The S3 endpoints of the slice, over an ObjectLayer. `sse_config`
+    holds the SSE-S3 master key and the KMS (None: SSE-S3 and SSE-KMS
+    answer NotImplemented; SSE-C needs none)."""
 
     # A version's tags live in its metadata, url-encoded (UserTags).
     TAGS_META_KEY = "x-mtpu-internal-tags"
     MAX_TAGS = 10
 
-    def __init__(self, object_layer, bucket_meta):
+    def __init__(self, object_layer, bucket_meta, sse_config=None):
         self.ol = object_layer
         self.bm = bucket_meta
+        self.sse_config = sse_config
 
     def _opts_for(self, bucket: str, query: dict) -> ObjectOptions:
         bmeta = self.bm.get(bucket)
@@ -301,9 +324,6 @@ class S3ApiHandlers:
 
     @staticmethod
     def _refuse_unported_headers(ctx) -> None:
-        for h in _UNPORTED_HEADERS:
-            if h in ctx.headers:
-                raise S3Error("NotImplemented", h)
         if any(h in ctx.headers for h in _LOCK_HEADERS):
             # No bucket of the port has an object lock configuration.
             raise S3Error("InvalidRequest",
@@ -535,6 +555,12 @@ class S3ApiHandlers:
 
     def bucket_tagging(self, ctx) -> Response:
         return self._xml_subresource(ctx, "tagging_xml", "NoSuchTagSet")
+
+    def bucket_encryption(self, ctx) -> Response:
+        """?encryption: the document is stored and served; no PUT applies
+        it (minio_tpu's PutObject reads only the request's headers)."""
+        return self._xml_subresource(
+            ctx, "sse_xml", "ServerSideEncryptionConfigurationNotFoundError")
 
     # ---------- listing ----------
 
@@ -785,15 +811,26 @@ class S3ApiHandlers:
         self._apply_tagging_header(ctx, opts)
         self._apply_storage_class(ctx)
         self._apply_codec(ctx, opts)
-        # Checked inside the object layer as the body streams, before the
-        # commit: a bad digest leaves nothing behind.
-        opts.want_md5_hex = _parse_content_md5(ctx.headers)
+        reader, resp_extra = ctx.body_reader, {}
+        want_md5_hex = _parse_content_md5(ctx.headers)
+        if transforms.transforms_active(ctx.headers):
+            # The streaming chain (md5-verify -> encrypt): no stage holds
+            # the object, and a bad plaintext digest aborts the encode
+            # before the commit.
+            reader, size, resp_extra = transforms.build_put_stream(
+                ctx.headers, self.sse_config, ctx.bucket, ctx.object,
+                reader, opts.user_defined, want_md5_hex=want_md5_hex)
+        else:
+            # Checked inside the object layer as the body streams, before
+            # the commit: a bad digest leaves nothing behind.
+            opts.want_md5_hex = want_md5_hex
         try:
-            oi = self.ol.put_object(ctx.bucket, ctx.object, ctx.body_reader,
-                                    size, opts)
+            oi = self.ol.put_object(ctx.bucket, ctx.object, reader, size,
+                                    opts)
         except StorageError as exc:
             raise from_object_error(exc) from exc
         headers = {"ETag": f'"{oi.etag}"'}
+        headers.update(resp_extra)
         if oi.version_id and oi.version_id != "null":
             headers["x-amz-version-id"] = oi.version_id
         return Response(200, headers)
@@ -840,7 +877,10 @@ class S3ApiHandlers:
                 "InvalidRequest",
                 "This copy request is illegal because it is being made "
                 "to the same object without changing metadata.")
-        if self_copy and not vid and not opts.versioned:
+        src_transformed = transforms.is_transformed(src_info.user_defined)
+        dest_transforms = transforms.transforms_active(ctx.headers)
+        if self_copy and not vid and not opts.versioned \
+                and not dest_transforms:
             # An unversioned REPLACE self-copy changes metadata only:
             # re-putting the bytes would deadlock the writer lock against
             # its own locked source read (srcInfo.metadataOnly).
@@ -852,16 +892,34 @@ class S3ApiHandlers:
                 raise from_object_error(exc) from exc
             src_info.mod_time_ns = mod_time_ns or src_info.mod_time_ns
             return self._copy_result(src_info)
+        copy_sse_headers = None
         try:
-            if self_copy:
-                # The source read finishes into a spool before the
-                # destination takes the object's write lock.
-                with tempfile.SpooledTemporaryFile(max_size=8 << 20) as spool:
-                    self.ol.get_object(sbucket, sobject, spool,
-                                       opts=src_opts)
+            if src_transformed or dest_transforms or self_copy:
+                # The logical stream goes to a spool (the source read
+                # finishes before the destination takes the object's
+                # write lock), then through the destination's transform
+                # chain: an encrypted source's sealed key is bound to its
+                # path, so a copy always decrypts and re-encrypts.
+                src_headers = dict(ctx.headers)
+                # The copy-source SSE-C headers address the source.
+                for suffix in ("algorithm", "key", "key-md5"):
+                    v = ctx.headers.get(ssemod.HDR_SSEC_COPY_PREFIX + suffix,
+                                        "")
+                    if v:
+                        src_headers[ssemod.HDR_SSEC_PREFIX + suffix] = v
+                with transforms.decode_to_spool(
+                        self.ol, sbucket, sobject, src_opts,
+                        src_info.user_defined, src_headers,
+                        self.sse_config) as spool:
                     size = spool.seek(0, io.SEEK_END)
                     spool.seek(0)
-                    oi = self.ol.put_object(ctx.bucket, ctx.object, spool,
+                    reader = spool
+                    if dest_transforms:
+                        reader, size, copy_sse_headers = \
+                            transforms.build_put_stream(
+                                ctx.headers, self.sse_config, ctx.bucket,
+                                ctx.object, spool, opts.user_defined)
+                    oi = self.ol.put_object(ctx.bucket, ctx.object, reader,
                                             size, opts)
             else:
                 # Source to destination in 1 MiB pulls: a copy of many
@@ -872,14 +930,14 @@ class S3ApiHandlers:
                                         src_info.size, opts)
         except StorageError as exc:
             raise from_object_error(exc) from exc
-        return self._copy_result(oi)
+        return self._copy_result(oi, copy_sse_headers)
 
     @staticmethod
-    def _copy_result(oi) -> Response:
+    def _copy_result(oi, extra_headers: dict | None = None) -> Response:
         root = _xml_root("CopyObjectResult")
         ET.SubElement(root, "LastModified").text = iso8601(oi.mod_time_ns)
         ET.SubElement(root, "ETag").text = f'"{oi.etag}"'
-        headers = {}
+        headers = dict(extra_headers or {})
         if oi.version_id and oi.version_id != "null":
             headers["x-amz-version-id"] = oi.version_id
         return Response.xml(root, headers=headers)
@@ -975,22 +1033,45 @@ class S3ApiHandlers:
         early = self._conditional_headers(ctx, oi)
         if early is not None:
             return early
-        rng = parse_range(ctx.headers.get("range", ""), oi.size)
-        offset, length = rng if rng else (0, oi.size)
+        logical_size = transforms.actual_object_size(oi.user_defined,
+                                                     oi.size)
+        rng = parse_range(ctx.headers.get("range", ""), logical_size)
+        offset, length = rng if rng else (0, logical_size)
         # The stream serves the advertised version or nothing.
         opts.expected_etag = oi.etag
+        resp_extra: dict = {}
+        if transforms.is_transformed(oi.user_defined):
+            # The decrypt chain onto the socket (NewGetObjectReader): its
+            # keys are checked now, before the status line. A ranged GET
+            # decodes the stored stream from its start, through the
+            # package that ends the window, and ships the window.
+            sink = _Sink()
+            chain, closers, resp_extra = transforms.build_get_chain(
+                oi.user_defined, ctx.headers, self.sse_config, ctx.bucket,
+                ctx.object, sink, offset=offset, length=length)
+            stored = (transforms.stored_prefix(oi.user_defined, oi.size,
+                                               offset, length)
+                      if rng else oi.size)
 
-        def stream(dst):
-            # The decode writes each block to the socket as it is made:
-            # the object is never held whole.
-            self.ol.get_object(ctx.bucket, ctx.object, dst, offset=offset,
-                               length=length, opts=opts)
+            def stream(dst):
+                sink.dst = dst
+                self.ol.get_object(ctx.bucket, ctx.object, chain,
+                                   length=stored, opts=opts)
+                for c in closers:
+                    c.close()
+        else:
+            def stream(dst):
+                # The decode writes each block to the socket as it is
+                # made: the object is never held whole.
+                self.ol.get_object(ctx.bucket, ctx.object, dst,
+                                   offset=offset, length=length, opts=opts)
 
         headers = self._object_headers(ctx, oi)
+        headers.update(resp_extra)
         headers["Content-Length"] = str(length)
         if rng:
             headers["Content-Range"] = (
-                f"bytes {offset}-{offset + length - 1}/{oi.size}")
+                f"bytes {offset}-{offset + length - 1}/{logical_size}")
             return Response(206, headers, body_stream=stream)
         return Response(200, headers, body_stream=stream)
 
@@ -1002,7 +1083,22 @@ class S3ApiHandlers:
         if early is not None:
             return early
         headers = self._object_headers(ctx, oi)
-        headers["Content-Length"] = str(oi.size)
+        headers["Content-Length"] = str(
+            transforms.actual_object_size(oi.user_defined, oi.size))
+        algo = oi.user_defined.get(ssemod.META_ALGORITHM, "")
+        if algo == ssemod.ALGO_SSEC:
+            # An SSE-C object asks for the key even on HEAD.
+            if ssemod.parse_ssec_key(ctx.headers) is None:
+                raise S3Error("InvalidRequest", "SSE-C key required")
+            headers[ssemod.HDR_SSEC_ALGO] = "AES256"
+            headers[ssemod.HDR_SSEC_KEY_MD5] = oi.user_defined.get(
+                ssemod.META_KEY_MD5, "")
+        elif algo == ssemod.ALGO_SSES3:
+            headers[ssemod.HDR_SSE] = "AES256"
+        elif algo == ssemod.ALGO_SSEKMS:
+            headers[ssemod.HDR_SSE] = "aws:kms"
+            headers[ssemod.HDR_SSE_KMS_ID] = oi.user_defined.get(
+                ssemod.META_KMS_KEY_ID, "")
         return Response(200, headers)
 
     def delete_object(self, ctx) -> Response:
@@ -1150,6 +1246,7 @@ class S3ApiHandlers:
         if not valid_object_name(ctx.object):
             raise S3Error("InvalidArgument", ctx.object)
         self._refuse_unported_headers(ctx)
+        self._refuse_multipart_sse(ctx)
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
         self._apply_tagging_header(ctx, opts)
@@ -1166,8 +1263,17 @@ class S3ApiHandlers:
         ET.SubElement(root, "UploadId").text = upload_id
         return Response.xml(root)
 
+    @staticmethod
+    def _refuse_multipart_sse(ctx) -> None:
+        """An encrypted multipart upload is not served: minio_tpu ignores
+        the SSE headers of its calls and stores the parts in plaintext."""
+        if any(h.startswith(_SSE_HEADER_PREFIX) for h in ctx.headers):
+            raise S3Error("NotImplemented",
+                          "server-side encryption of multipart uploads")
+
     def put_object_part(self, ctx) -> Response:
         self._check_bucket(ctx.bucket)
+        self._refuse_multipart_sse(ctx)
         q = ctx.qdict
         upload_id = q.get("uploadId", "")
         try:
@@ -1201,6 +1307,11 @@ class S3ApiHandlers:
         range of the source, read in 1 MiB pulls."""
         sbucket, sobject, src_opts, src_info = self._copy_source_info(
             ctx, copy_source)
+        if ssemod.is_encrypted(src_info.user_defined):
+            # minio_tpu copies the stored ciphertext into the part.
+            raise S3Error("NotImplemented",
+                          f"{sobject}: UploadPartCopy of an encrypted "
+                          "source")
         rng = ctx.headers.get("x-amz-copy-source-range", "")
         offset, length = 0, src_info.size
         if rng:

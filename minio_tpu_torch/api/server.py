@@ -2,24 +2,28 @@
 minio_tpu/api/server.py (MinIO's cmd/http/server.go, the globalHandlers
 filters of cmd/routers.go and the router of cmd/api-router.go) as one
 dispatch pipeline over a threaded HTTP server: each request is parsed,
-checked (reserved metadata and header sizes, SSE-C over plain HTTP, the
-body cap, reserved buckets, object names, upload ids), routed,
+checked (reserved metadata and header sizes, SSE-C over plain HTTP
+unless MTPU_ALLOW_INSECURE_SSEC is set, the body cap, reserved buckets,
+object names, upload ids), routed,
 authenticated and authorized, and its body is wrapped in the verifier
 its signature asks for (aws-chunked decoding, or x-amz-content-sha256),
 before the handler runs.
 
 The routes of the slice are the bucket calls, versioning, bucket policy
 and tagging, the canned bucket answers and ACLs, ListObjects v1 and v2,
-ListObjectVersions, Put/Copy/Get/Head/DeleteObject, DeleteObjects,
-object tagging, the multipart calls with UploadPartCopy and the admin
-heal. A copy is authorized twice: the write on its destination, and
-s3:GetObject on its source. Every other route answers NotImplemented.
+ListObjectVersions, Put/Copy/Get/Head/DeleteObject with server-side
+encryption, the bucket's ?encryption document, DeleteObjects, object
+tagging, the multipart calls with UploadPartCopy, and the admin heal,
+usage and KMS routes. A copy is authorized twice: the write on its
+destination, and s3:GetObject on its source. Every other route answers
+NotImplemented.
 """
 
 from __future__ import annotations
 
 import hashlib
 import io
+import os
 import re
 import sys
 import threading
@@ -27,6 +31,7 @@ import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..crypto import sse as ssemod
 from ..iam.store import IAMSys
 from ..utils.device import resolve_device
 from . import sign
@@ -111,10 +116,9 @@ _MUTATING_SUBRESOURCE_ACTIONS = {
 # Routes minio_tpu serves that the port does not yet: answered
 # NotImplemented once the request is authenticated and authorized.
 _UNPORTED_ROUTES = frozenset({
-    "listen_notification", "bucket_lifecycle", "bucket_encryption",
-    "bucket_object_lock", "bucket_replication", "bucket_notification",
-    "object_retention", "object_legal_hold", "select_object_content",
-    "restore_object",
+    "listen_notification", "bucket_lifecycle", "bucket_object_lock",
+    "bucket_replication", "bucket_notification", "object_retention",
+    "object_legal_hold", "select_object_content", "restore_object",
 })
 
 # S3 header limits (setRequestHeaderSizeLimitHandler): 8 KiB of headers,
@@ -126,8 +130,7 @@ _USER_META_PREFIXES = ("x-amz-meta-", "x-minio-meta-", "x-mtpu-meta-")
 # 5 TiB of object plus 64 MiB of form-data headroom (requestMaxBodySize).
 _MAX_REQUEST_BODY = 5 * 1024 ** 4 + 64 * 1024 ** 2
 
-_SSEC_PREFIXES = ("x-amz-server-side-encryption-customer-",
-                  "x-amz-copy-source-server-side-encryption-customer-")
+_SSEC_PREFIXES = (ssemod.HDR_SSEC_PREFIX, ssemod.HDR_SSEC_COPY_PREFIX)
 
 
 def _check_reserved_bucket(bucket: str) -> None:
@@ -385,19 +388,28 @@ def _reserved_metadata_check(ctx: RequestContext) -> None:
 class S3Server:
     """An ObjectLayer bound to a listening threaded HTTP server. `device`
     is the device of the object layer's kernels: it defaults to the card,
-    raises when there is none, and must be the object layer's."""
+    raises when there is none, and must be the object layer's.
+    `sse_config` (crypto.sse.SSEConfig, on the same device) holds the
+    SSE-S3 master key and the KMS; without it SSE-S3 and SSE-KMS answer
+    NotImplemented and the KMS admin routes too."""
 
     def __init__(self, object_layer, iam: IAMSys, bucket_meta,
-                 host: str = "127.0.0.1", port: int = 0, device="cuda"):
+                 host: str = "127.0.0.1", port: int = 0, device="cuda",
+                 sse_config=None):
         self.device = resolve_device(device)
         if object_layer.device != self.device:
             raise ValueError(f"the object layer runs on "
                              f"{object_layer.device}, not {self.device}")
-        self.handlers = S3ApiHandlers(object_layer, bucket_meta)
+        if sse_config is not None and sse_config.device != self.device:
+            raise ValueError(f"the SSE config runs on {sse_config.device}, "
+                             f"not {self.device}")
+        self.handlers = S3ApiHandlers(object_layer, bucket_meta, sse_config)
         # Requests in flight, which a heal sequence yields to.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
-        self.admin = AdminHandlers(object_layer, iam, lambda: self._inflight)
+        self.admin = AdminHandlers(
+            object_layer, iam, lambda: self._inflight,
+            kms=sse_config.kms if sse_config is not None else None)
         self.iam = iam
         outer = self
 
@@ -484,9 +496,13 @@ class S3Server:
         if ctx.method == "OPTIONS":
             raise S3Error("NotImplemented", "CORS preflight")
         _reserved_metadata_check(ctx)
-        # SSE-C over plain HTTP would put the customer's key on the wire
-        # (setSSETLSHandler); the port serves no TLS.
-        if any(k.startswith(_SSEC_PREFIXES) for k in ctx.headers):
+        # SSE-C over plain HTTP puts the customer's key on the wire
+        # (setSSETLSHandler, matching any customer-key header as
+        # crypto.SSEC.IsRequested). The port serves no TLS, so SSE-C
+        # needs MTPU_ALLOW_INSECURE_SSEC=1, as minio_tpu without TLS: a
+        # deployment whose TLS ends at a proxy in front.
+        if not os.environ.get("MTPU_ALLOW_INSECURE_SSEC", "") and any(
+                k.startswith(_SSEC_PREFIXES) for k in ctx.headers):
             raise S3Error("InsecureSSECustomerRequest", "")
         if ctx.content_length and ctx.content_length > _MAX_REQUEST_BODY:
             raise S3Error("EntityTooLarge", "request body too large")

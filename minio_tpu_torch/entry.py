@@ -19,14 +19,20 @@ requests, and the heals of every version. `self_heal()` drives the
 self-healing services of a whole running server: a drive outage with
 writes (the MRF drain on reconnect), a replaced drive (the fresh-drive
 sweep) and the scanner; `object_self_heal()` the same services on the
-object layer, called directly.
+object layer, called directly. `s3_sse()` drives server-side encryption
+over HTTP: SSE-S3, SSE-C and SSE-KMS PUTs, GETs whole and ranged, HEAD,
+four drives lost, degraded GETs, HealObject (which never decrypts), a
+CopyObject that re-encrypts, and a GET with the wrong SSE-C key.
 """
 
 from __future__ import annotations
 
+import base64
+import contextlib
 import hashlib
 import io
 import json
+import os
 import re
 import shutil
 import threading
@@ -53,7 +59,8 @@ from .api.handlers import copy_reads_snapshot
 from .object import erasure_objects
 from .object.sets import ErasureSets
 from .object.types import ObjectOptions
-from .ops import gf, highwayhash_torch, host_feed, rs_cuda
+from .crypto import sse as ssemod
+from .ops import aes_gcm_cuda, gf, highwayhash_torch, host_feed, rs_cuda
 from .ops.rs import apply_gf_matrix
 from .server import Server
 from .storage.local import LocalStorage
@@ -87,6 +94,8 @@ def counters() -> dict:
     snap.update({f"copy_{k}": v for k, v in copy_reads_snapshot().items()})
     snap["kernel_gf_launches"] = rs_cuda.LAUNCHES.value
     snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES.value
+    snap["kernel_seal_launches"] = aes_gcm_cuda.SEAL_LAUNCHES.value
+    snap["kernel_open_launches"] = aes_gcm_cuda.OPEN_LAUNCHES.value
     return snap
 
 
@@ -1485,3 +1494,266 @@ def object_self_heal(root, size: int, device="cuda", drives: int = 16,
     ol.close()
     out["checks"] = checks
     return out
+
+
+SSE_MODES = ("sse-s3", "sse-c", "sse-kms")
+SSE_KMS_KEY = "smoke-kms-key"
+SSE_C_KEY = bytes(range(32))
+SSE_C_WRONG_KEY = bytes(range(1, 33))
+
+
+def ssec_headers(key: bytes, copy_source: bool = False) -> dict:
+    """The three SSE-C headers of `key` (the copy-source ones when
+    `copy_source`)."""
+    prefix = (ssemod.HDR_SSEC_COPY_PREFIX if copy_source
+              else ssemod.HDR_SSEC_PREFIX)
+    return {prefix + "algorithm": "AES256",
+            prefix + "key": base64.b64encode(key).decode(),
+            prefix + "key-md5": base64.b64encode(
+                hashlib.md5(key).digest()).decode()}
+
+
+def sse_put_headers(mode: str) -> dict:
+    if mode == "sse-s3":
+        return {ssemod.HDR_SSE: "AES256"}
+    if mode == "sse-c":
+        return ssec_headers(SSE_C_KEY)
+    return {ssemod.HDR_SSE: "aws:kms", ssemod.HDR_SSE_KMS_ID: SSE_KMS_KEY,
+            ssemod.HDR_SSE_KMS_CONTEXT: base64.b64encode(
+                json.dumps({"bucket": S3_BUCKET}).encode()).decode()}
+
+
+class _PayloadReader:
+    """A file-like view of bytes, read in pieces (no copy of the whole)."""
+
+    def __init__(self, data: bytes):
+        self._view = memoryview(data)
+        self._pos = 0
+
+    def read(self, n: int = -1) -> bytes:
+        if n is None or n < 0:
+            n = len(self._view) - self._pos
+        out = self._view[self._pos:self._pos + n]
+        self._pos += len(out)
+        return bytes(out)
+
+
+class _Compare:
+    """A GET sink that holds the body to `want` piece by piece."""
+
+    def __init__(self, want: bytes):
+        self._want = memoryview(want)
+        self._pos = 0
+        self.equal = True
+
+    def __call__(self, piece: bytes) -> None:
+        end = self._pos + len(piece)
+        if self._want[self._pos:end] != piece:
+            self.equal = False
+        self._pos = end
+
+    @property
+    def ok(self) -> bool:
+        return self.equal and self._pos == len(self._want)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def _rss_peak(out: dict, name: str, period_s: float = 0.005):
+    """Record under out[name] the peak resident set growth (bytes) of
+    the process while the block runs, sampled every `period_s`."""
+    base = _rss_bytes()
+    peak = [base]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(period_s):
+            peak[0] = max(peak[0], _rss_bytes())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        done.set()
+        t.join()
+        out[name] = max(peak[0], _rss_bytes()) - base
+
+
+def _object_files(root: Path, bucket: str, name: str) -> dict:
+    """SHA-256 of the object's xl.meta and part files on the 16 drives."""
+    return {str(p.relative_to(root)): hashlib.sha256(
+        p.read_bytes()).hexdigest()
+        for i in range(1, 17)
+        for p in sorted((root / f"d{i}" / bucket / name).rglob("*"))
+        if p.is_file()}
+
+
+@contextlib.contextmanager
+def _insecure_ssec():
+    """MTPU_ALLOW_INSECURE_SSEC=1 for the block: the port serves no TLS."""
+    old = os.environ.get("MTPU_ALLOW_INSECURE_SSEC")
+    os.environ["MTPU_ALLOW_INSECURE_SSEC"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MTPU_ALLOW_INSECURE_SSEC", None)
+        else:
+            os.environ["MTPU_ALLOW_INSECURE_SSEC"] = old
+
+
+def sse_range(size: int) -> tuple[int, int]:
+    """The ranged GET's window: from 7 bytes before the middle package
+    boundary, across 48 packages and one erasure block boundary, within
+    the object."""
+    ps = ssemod.PACKAGE_SIZE
+    first = max(0, (size // 2) // ps * ps - 7)
+    return first, min(size - first, 48 * ps + 13)
+
+
+def s3_sse(root, size: int, device="cuda", modes=SSE_MODES,
+           seed: int = 50) -> dict:
+    """Drive server-side encryption over HTTP on localhost: a Server over
+    16 fresh drive directories under `root` (one 12+4 set), its S3 plane
+    alone, MTPU_ALLOW_INSECURE_SSEC=1 while it runs (the port has no
+    TLS). A KMS key is made through the admin route; then for each mode
+    of `modes` (sse-s3, sse-c, sse-kms), on its own seeded `size`-byte
+    object:
+
+    1. PUT streamed from the client in 1 MiB pieces; the stored size in
+       xl.meta must be ssemod.encrypted_size(size);
+    2. GET, and a ranged GET across package and block boundaries, each
+       body held to the payload piece by piece;
+    3. HEAD with the mode's SSE answers and the logical size;
+    4. the object lost on drives 0, 5, 12 and 15, a degraded GET;
+    5. HealObject, after which every xl.meta and part file of the 16
+       drives equals its original by SHA-256 (the heal never decrypts);
+    6. a GET again.
+
+    Then a CopyObject of the sse-c object to an SSE-S3 destination (a
+    decrypt and a re-encrypt) with a GET of the copy, and a GET of the
+    sse-c object with a wrong key (AccessDenied). Returns each step's
+    seconds and counter deltas ("{mode}:{step}"), the peak growth of the
+    process's resident set in each PUT and GET, and the checks."""
+    dev = resolve_device(device)
+    root = Path(root)
+    out: dict = {"size": size, "k": 12, "m": 4, "modes": list(modes),
+                 "wiped_drives": list(S3_WIPED), "seconds": {},
+                 "counters": {}, "rss_peak_bytes": {},
+                 "stored_size": ssemod.encrypted_size(size),
+                 "packages": max(1, -(-size // ssemod.PACKAGE_SIZE))}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    payloads = {m: np.random.default_rng(seed + i).bytes(size)
+                for i, m in enumerate(modes)}
+    first, length = sse_range(size)
+    out["range"] = [first, length]
+    with _insecure_ssec():
+        server = Server([str(root / "d{1...16}")], port=0,
+                        root_user=S3_ACCESS, root_password=S3_SECRET,
+                        default_parity=4, device=dev)
+        # The S3 plane alone, as in s3_put_get_heal: the background
+        # services would heal the lost drives on their own.
+        server.s3.start()
+        try:
+            c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+            checks["make_bucket_ok"] = c.request(
+                "PUT", f"/{S3_BUCKET}")[0] == 200
+            if "sse-kms" in modes:
+                checks["kms_key_ok"] = c.request(
+                    "POST", "/minio/admin/v3/kms/key/create",
+                    [("key-id", SSE_KMS_KEY)])[0] == 200
+            for mode in modes:
+                _sse_object(c, server, root, mode, payloads[mode], phase,
+                            out, checks, first, length)
+            if "sse-c" in modes:
+                _sse_copy_and_wrong_key(c, payloads["sse-c"], phase, out,
+                                        checks)
+        finally:
+            server.stop()
+    out["checks"] = checks
+    return out
+
+
+def _sse_get(c: S3Client, key: str, want: bytes, headers=None, query=None):
+    cmp = _Compare(want)
+    status, h, _ = c.get_stream(key, cmp, query, headers)
+    return status, h, cmp.ok
+
+
+def _sse_object(c, server, root: Path, mode: str, payload: bytes, phase,
+                out: dict, checks: dict, first: int, length: int) -> None:
+    """Steps 1-6 of s3_sse for one mode."""
+    name = f"sse/{mode}.bin"
+    key = f"/{S3_BUCKET}/{name}"
+    get_headers = ssec_headers(SSE_C_KEY) if mode == "sse-c" else {}
+    want_resp = {"sse-s3": {ssemod.HDR_SSE: "AES256"},
+                 "sse-c": {ssemod.HDR_SSEC_ALGO: "AES256"},
+                 "sse-kms": {ssemod.HDR_SSE: "aws:kms",
+                             ssemod.HDR_SSE_KMS_ID: SSE_KMS_KEY}}[mode]
+
+    def has_sse(h: dict) -> bool:
+        lower = {k.lower(): v for k, v in h.items()}
+        return all(lower.get(k) == v for k, v in want_resp.items())
+
+    with _rss_peak(out["rss_peak_bytes"], f"{mode}:put"):
+        status, h, _ = phase(f"{mode}:put", lambda: c.put_stream(
+            key, _PayloadReader(payload), len(payload),
+            sse_put_headers(mode)))
+    checks[f"{mode}:put_ok"] = status == 200 and has_sse(h)
+    fi = LocalStorage(str(root / "d1"), device=server.device).read_version(
+        S3_BUCKET, name)
+    checks[f"{mode}:stored_size_ok"] = (
+        fi.size == ssemod.encrypted_size(len(payload))
+        and fi.metadata.get(ssemod.META_ACTUAL_SIZE) == str(len(payload)))
+    with _rss_peak(out["rss_peak_bytes"], f"{mode}:get"):
+        status, h, ok = phase(f"{mode}:get", lambda: _sse_get(
+            c, key, payload, get_headers))
+    checks[f"{mode}:get_ok"] = status == 200 and ok and has_sse(h)
+    rng = dict(get_headers, Range=f"bytes={first}-{first + length - 1}")
+    status, h, ok = phase(f"{mode}:range_get", lambda: _sse_get(
+        c, key, payload[first:first + length], rng))
+    checks[f"{mode}:range_get_ok"] = status == 206 and ok and h.get(
+        "Content-Range") == (f"bytes {first}-{first + length - 1}/"
+                             f"{len(payload)}")
+    status, h, _ = phase(f"{mode}:head", lambda: c.request(
+        "HEAD", key, headers=get_headers))
+    checks[f"{mode}:head_ok"] = (status == 200 and has_sse(h) and h.get(
+        "Content-Length") == str(len(payload)))
+    originals = _object_files(root, S3_BUCKET, name)
+    for i in S3_WIPED:
+        shutil.rmtree(root / f"d{i + 1}" / S3_BUCKET / name)
+    status, _, ok = phase(f"{mode}:degraded_get", lambda: _sse_get(
+        c, key, payload, get_headers))
+    checks[f"{mode}:degraded_get_ok"] = status == 200 and ok
+    healed = phase(f"{mode}:heal", lambda: server.object_layer.heal_object(
+        S3_BUCKET, name))
+    checks[f"{mode}:heal_ok"] = len(healed["healed"]) == len(S3_WIPED)
+    checks[f"{mode}:healed_identical"] = bool(originals) and _object_files(
+        root, S3_BUCKET, name) == originals
+    status, _, ok = phase(f"{mode}:get_after_heal", lambda: _sse_get(
+        c, key, payload, get_headers))
+    checks[f"{mode}:get_after_heal_ok"] = status == 200 and ok
+
+
+def _sse_copy_and_wrong_key(c, payload: bytes, phase, out: dict,
+                            checks: dict) -> None:
+    """The SSE-C object copied to an SSE-S3 destination, a GET of the
+    copy, and a GET with the wrong SSE-C key."""
+    src, dst = f"/{S3_BUCKET}/sse/sse-c.bin", f"/{S3_BUCKET}/sse/copy.bin"
+    headers = {"x-amz-copy-source": src, ssemod.HDR_SSE: "AES256",
+               **ssec_headers(SSE_C_KEY, copy_source=True)}
+    status, h, _ = phase("copy_ssec_to_sses3", lambda: c.request(
+        "PUT", dst, headers=headers))
+    checks["copy_ok"] = status == 200 and h.get(ssemod.HDR_SSE) == "AES256"
+    status, h, ok = phase("get_copy", lambda: _sse_get(c, dst, payload))
+    checks["get_copy_ok"] = status == 200 and ok and h.get(
+        ssemod.HDR_SSE) == "AES256"
+    status, _, body = phase("wrong_key_get", lambda: c.request(
+        "GET", src, headers=ssec_headers(SSE_C_WRONG_KEY)))
+    checks["wrong_key_denied"] = status == 403 and b"AccessDenied" in body

@@ -22,10 +22,19 @@ import threading
 import time
 import uuid
 
+from ..utils.errors import StorageError
+
 
 class StaleListingCache(Exception):
     """Raised when a page request races a cache invalidation/eviction;
     the caller re-requests and gets a fresh cache."""
+
+
+class ListingLoop(StorageError):
+    """A listing call came back to a state it had been in: the walk
+    order (directory entries sorted with their trailing slash) is not
+    the names' byte order, so paging by name can go round for ever.
+    minio_tpu's call never returns there; the port's ends with this."""
 
 
 class ListingCache:
@@ -58,9 +67,11 @@ class ListingCache:
         self._write_off += len(blob)
         return True
 
-    def page(self, marker: str, count: int) -> tuple[list[tuple[str, bytes]], bool]:
+    def page(self, marker: str,
+             count: int) -> tuple[list[tuple[str, bytes]], bool, int]:
         """Entries strictly after `marker`, up to `count` (+1 lookahead is
-        the caller's concern). Returns (entries, exhausted_after)."""
+        the caller's concern). Returns (entries, exhausted_after, the
+        entries pulled from the walk so far)."""
         # One lock a listing: a seek and its read must not interleave.
         with self._lock:
             if self._closed:
@@ -80,7 +91,7 @@ class ListingCache:
                 self._file.seek(off)
                 out.append((self._names[i], self._file.read(ln)))
             exhausted = self.complete and start + count >= len(self._names)
-            return out, exhausted
+            return out, exhausted, len(self._names)
 
     def close(self):
         # Serialized against in-flight page() reads; late pages observe

@@ -22,7 +22,7 @@ from ..utils.errors import (
     ErrVersionNotFound,
     StorageError,
 )
-from .metacache import MetacacheManager, StaleListingCache
+from .metacache import ListingLoop, MetacacheManager, StaleListingCache
 from ..storage.fileinfo import FileInfo
 from .sets import ErasureSets
 from .types import (
@@ -31,6 +31,17 @@ from .types import (
     ObjectInfo,
     ObjectOptions,
 )
+
+
+def _check_progress(seen: set, state: tuple, bucket: str, marker: str):
+    """Raise ListingLoop if a listing call is back in `state`: the page
+    it asks for next depends only on the cursor and the entries the walk
+    has pulled, and what it has gathered only grows, so a state seen
+    twice comes round again and again (ROADMAP Queue 3)."""
+    if state in seen:
+        raise ListingLoop(f"listing of {bucket!r} from {marker!r} goes "
+                          f"round at {state[1]!r}")
+    seen.add(state)
 
 
 class ErasureServerPools:
@@ -272,17 +283,20 @@ class ErasureServerPools:
         out = ListObjectsInfo()
         prefixes: set[str] = set()
         cursor = marker
+        seen = set()
         while True:
             # Fetch one more than a page: delimiter roll-ups and delete
             # markers consume entries without giving keys.
             try:
-                entries, exhausted = self._metacache.page(
+                entries, exhausted, pulled = self._metacache.page(
                     bucket, prefix, gen, cursor, max_keys + 1,
                     stream_factory)
             except StaleListingCache:
                 # Raced a mutation: the next page builds a fresh cache.
                 gen = self._list_gen.get(bucket, 0)
                 continue
+            _check_progress(seen, (gen, cursor, pulled, len(out.objects),
+                                   len(prefixes)), bucket, marker)
             for name, meta_blob in entries:
                 cursor = name
                 if delimiter:
@@ -332,14 +346,18 @@ class ErasureServerPools:
         cursor = key_marker[:-1] if key_marker else ""
         vid_skip = version_id_marker
         truncated = False
+        seen = set()
         while not truncated:
             try:
-                entries, exhausted = self._metacache.page(
+                entries, exhausted, pulled = self._metacache.page(
                     bucket, prefix, gen, cursor, max_keys + 1,
                     stream_factory)
             except StaleListingCache:
                 gen = self._list_gen.get(bucket, 0)
                 continue
+            _check_progress(seen, (gen, cursor, pulled, len(out.versions),
+                                   len(prefixes), vid_skip), bucket,
+                            key_marker)
             for name, meta_blob in entries:
                 cursor = name
                 if key_marker and name < key_marker:

@@ -43,6 +43,10 @@ SIGNATURES = {
                                         _LL, _LL, _VP, _U64, _U64, _U64,
                                         _U64, _VP],
     },
+    "aes_gcm": {
+        "aes_gcm_seal_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
+        "aes_gcm_open_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
+    },
 }
 
 _lock = threading.Lock()

@@ -3,15 +3,18 @@ that a single-node erasure deployment runs (MinIO's serverMain,
 cmd/server-main.go): the self-tests of the erasure code and the bitrot
 hash on the device, the drives and one pool of erasure sets per
 ellipses argument, the root credential, the bucket metadata, the S3
-server and the background services that keep the sets healthy (the MRF
-drain, the disk monitor, fresh-drive back-fill, the data scanner with
-its update tracker; MinIO's initAutoHeal and initDataScanner). FS mode,
-distributed endpoints, TLS, the config and KMS subsystems, events and
-metrics are not ported.
+server with its SSE key material (the SSE-S3 master key and a LocalKMS
+whose key-name registry persists under .minio.sys, minio_tpu's
+_build_kms without KES), and the background services that keep the sets
+healthy (the MRF drain, the disk monitor, fresh-drive back-fill, the
+data scanner with its update tracker; MinIO's initAutoHeal and
+initDataScanner). FS mode, distributed endpoints, TLS, the config
+subsystem, KES, events and metrics are not ported.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import signal
 import threading
@@ -28,6 +31,7 @@ from .background import (
     MRFHealer,
 )
 from .bucket.metadata import BucketMetadataSys
+from .crypto import LocalKMS, SSEConfig
 from .erasure.codec import Erasure
 from .iam.store import IAMSys
 from .object.pools import ErasureServerPools
@@ -68,6 +72,31 @@ def bitrot_self_test(device) -> None:
     got = bytes(hash256_batch(payload.to(device)).cpu().numpy()[0])
     if got != _HIGHWAYHASH_OF_0_TO_255:
         raise RuntimeError("bitrot self-test failed: highwayhash256")
+
+
+class _KMSRegistry:
+    """The LocalKMS key-name registry as the object .minio.sys/kms/keys.json
+    (minio_tpu's _build_kms persistence)."""
+
+    BUCKET, PATH = ".minio.sys", "kms/keys.json"
+
+    def __init__(self, object_layer):
+        self._ol = object_layer
+
+    def load(self):
+        try:
+            return self._ol.get_object_bytes(self.BUCKET, self.PATH)
+        except StorageError:
+            return None
+
+    def save(self, data: bytes):
+        try:
+            self._ol.put_object(self.BUCKET, self.PATH, io.BytesIO(data),
+                                len(data))
+        except StorageError:
+            self._ol.make_bucket(self.BUCKET)
+            self._ol.put_object(self.BUCKET, self.PATH, io.BytesIO(data),
+                                len(data))
 
 
 class Server:
@@ -128,8 +157,17 @@ class Server:
                                         mrf_healer=self.mrf)
         # Replaced-drive detection and the resumable back-fill.
         self.fresh_disk_healer = FreshDiskHealer(self.object_layer)
+        # SSE: the master key and the KMS derive from the root secret;
+        # the KMS's key names persist in the cluster's meta bucket, so
+        # admin-created keys survive a restart.
+        self.sse_config = SSEConfig(
+            self.root_password, device=self.device,
+            kms=LocalKMS(self.root_password,
+                         persist=_KMSRegistry(self.object_layer),
+                         device=self.device))
         self.s3 = S3Server(self.object_layer, self.iam, self.bucket_meta,
-                           host=address, port=port, device=self.device)
+                           host=address, port=port, device=self.device,
+                           sse_config=self.sse_config)
         self.s3.admin.scanner = self.scanner
         self._stop = threading.Event()
 

@@ -14,10 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+import struct
+
+import chip_smoke
+from minio_tpu_torch.crypto.aead import AESGCM
 from minio_tpu_torch.entry import (object_codec_put_get_heal,
                                    object_put_get_heal, object_self_heal,
-                                   put_get_heal, s3_core, s3_put_get_heal)
+                                   put_get_heal, s3_core, s3_put_get_heal,
+                                   s3_sse)
 from minio_tpu_torch.erasure import device_engine, registry
+from minio_tpu_torch.ops import aes_gcm, aes_gcm_cuda
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
 pytestmark = pytest.mark.cuda
@@ -365,3 +371,110 @@ def test_self_heal_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
         c = runs["cuda"]["counters"][phase]
         assert c["kernel_gf_launches"] > 0 and c["kernel_hash_launches"] > 0
     assert runs["cuda"]["files"] == runs["cpu"]["files"]
+
+
+def _aes_batch(lengths, aads, seed, device):
+    """Seal descriptor, plaintext, nonces and AADs of back-to-back
+    packages on `device`."""
+    rng = np.random.default_rng(seed)
+    desc = aes_gcm.seal_desc(lengths, [len(a) for a in aads])
+    p, n = len(desc), int(desc[:, 1].sum())
+    aad = torch.from_numpy(np.frombuffer(b"".join(aads), dtype=np.uint8)
+                           .copy()).to(device)
+    return (rng.bytes(32), torch.from_numpy(desc).to(device),
+            _rand((n,), seed, device), _rand((p, 12), seed + 1, device), aad,
+            n + aes_gcm.OVERHEAD * p)
+
+
+@pytest.mark.parametrize("packages", [1, 16, 33, 127, 256, 4097])
+def test_aes_kernels_match_plain(cuda, packages):
+    """Kernels C and D against the plain version: full 64 KiB packages
+    (the last 12,345 B), <Q sequence AADs; each one launch. 127 is the
+    card's batch, all full; 33 the closing one of 256 MiB + 12,345 B."""
+    last = 65_536 if packages == 127 else 12_345
+    lengths = [65_536] * (packages - 1) + [last]
+    aads = [struct.pack("<Q", i) for i in range(packages)]
+    key, desc, data, nonces, aad, n = _aes_batch(lengths, aads, packages,
+                                                 cuda)
+    before = aes_gcm_cuda.SEAL_LAUNCHES.value, aes_gcm_cuda.OPEN_LAUNCHES.value
+    wire = aes_gcm_cuda.seal(key, data, desc, nonces, aad, n)
+    assert torch.equal(wire, aes_gcm.seal_plain(key, data, desc, nonces,
+                                                aad, n))
+    odesc = aes_gcm.open_desc(desc)
+    plain, ok = aes_gcm_cuda.open_(key, wire, odesc, aad, data.numel())
+    assert bool(ok.all()) and torch.equal(plain, data)
+    assert (aes_gcm_cuda.SEAL_LAUNCHES.value,
+            aes_gcm_cuda.OPEN_LAUNCHES.value) == (before[0] + 1,
+                                                  before[1] + 1)
+
+
+@pytest.mark.parametrize("aad", [b"OEK", struct.pack("<Q", 9),
+                                 b'{"bucket": "smoke"}'])
+def test_aes_kernels_every_length(cuda, aad):
+    lengths = [0, 1, 15, 16, 17, 32, 12_345, 65_536]
+    key, desc, data, nonces, aad_t, n = _aes_batch(
+        lengths, [aad] * len(lengths), len(aad), cuda)
+    wire = aes_gcm_cuda.seal_cuda(key, data, desc, nonces, aad_t, n)
+    assert torch.equal(wire, aes_gcm.seal_plain(key, data, desc, nonces,
+                                                aad_t, n))
+
+
+def test_aes_open_flags_exactly_the_tampered(cuda):
+    lengths = [65_536] * 7 + [12_345]
+    aads = [struct.pack("<Q", i) for i in range(8)]
+    key, desc, data, nonces, aad, n = _aes_batch(lengths, aads, 8, cuda)
+    wire = aes_gcm_cuda.seal_cuda(key, data, desc, nonces, aad, n)
+    rows = desc.cpu().tolist()
+    wire[rows[1][4] + 2] ^= 1                            # nonce
+    wire[rows[3][4] + 12 + 100] ^= 1                     # ciphertext
+    wire[rows[5][4] + 12 + rows[5][1] + 3] ^= 1          # tag
+    aad[rows[7][2]] ^= 1                                 # AAD
+    odesc = aes_gcm.open_desc(desc)
+    got, ok = aes_gcm_cuda.open_cuda(key, wire, odesc, aad, data.numel())
+    want, want_ok = aes_gcm.open_plain(key, wire, odesc, aad, data.numel())
+    assert ok.bool().tolist() == want_ok.tolist() == [
+        True, False, True, False, True, False, True, False]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("i", range(len(chip_smoke.AES_GCM_KAT)))
+def test_aead_known_answers_on_card(cuda, i):
+    key, nonce, pt, aad, want = (bytes.fromhex(x)
+                                 for x in chip_smoke.AES_GCM_KAT[i])
+    aead = AESGCM(key, cuda)
+    before = aes_gcm_cuda.SEAL_LAUNCHES.value
+    assert aead.encrypt(nonce, pt, aad) == want
+    assert aes_gcm_cuda.SEAL_LAUNCHES.value == before + 1
+    assert aead.decrypt(nonce, want, aad) == pt
+
+
+def test_s3_sse_on_card(cuda, tmp_path):
+    """SSE-S3, SSE-C and SSE-KMS over HTTP at 12+4 and 1 MiB blocks on the
+    card: exact bytes for every GET, ranged and degraded GET, heals that
+    rebuild the originals without kernel C or D, a re-encrypting copy,
+    and AccessDenied for a wrong SSE-C key; kernel C in every PUT and
+    kernel D in every GET."""
+    res = s3_sse(tmp_path, 4 * (1 << 20) + 12_345, device=cuda)
+    assert all(res["checks"].values()), res["checks"]
+    for mode in res["modes"]:
+        c = res["counters"]
+        assert c[f"{mode}:put"]["kernel_seal_launches"] > 0
+        for step in ("get", "range_get", "degraded_get", "get_after_heal"):
+            assert c[f"{mode}:{step}"]["kernel_open_launches"] > 0, step
+        heal = c[f"{mode}:heal"]
+        assert heal["kernel_gf_launches"] > 0
+        assert heal["kernel_seal_launches"] == heal[
+            "kernel_open_launches"] == 0
+
+
+def test_sse_bounded_rss_on_card(cuda, tmp_path):
+    """tests/test_streaming_transforms.py's bounded-RSS case on the port:
+    every encrypted 192 MiB PUT and GET grows the resident set by less
+    than minio_tpu's 96 MiB, the first PUT of the process (which also
+    fills the pipelined drivers' pinned pools) included."""
+    size = 192 << 20
+    res = s3_sse(tmp_path, size, device=cuda, modes=("sse-s3", "sse-c"))
+    assert all(res["checks"].values()), res["checks"]
+    peak = res["rss_peak_bytes"]
+    for step in ("sse-s3:put", "sse-s3:get", "sse-c:put", "sse-c:get"):
+        assert peak[step] < 96 << 20, (step, peak)

@@ -74,7 +74,9 @@ def test_fresh_interpreter_loads_neither():
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the calls would run on it")
-    from minio_tpu_torch.entry import entry, object_put_get_heal, put_get_heal
+    from minio_tpu_torch.crypto import AESGCM, LocalKMS, SSEConfig
+    from minio_tpu_torch.entry import (entry, object_put_get_heal,
+                                       put_get_heal, s3_sse)
     from minio_tpu_torch.erasure import device_engine
     from minio_tpu_torch.erasure.bitrot import StreamingBitrotWriter
     from minio_tpu_torch.erasure.codec import Erasure, cached_erasure
@@ -95,6 +97,10 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
         lambda: ErasureObjects([None] * 16),
         lambda: ErasureSets([None] * 16, 16),
         lambda: object_put_get_heal(tmp_path, 1000),
+        lambda: AESGCM(bytes(32)),
+        lambda: SSEConfig("secret"),
+        lambda: LocalKMS("secret"),
+        lambda: s3_sse(tmp_path, 1000),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -11,6 +11,7 @@ behind a delete marker): listing reads only xl.meta, so no shard data is
 needed, and a set of four drives (2+2) lists as a set of sixteen does.
 """
 
+import contextlib
 import shutil
 import tempfile
 from pathlib import Path
@@ -23,7 +24,9 @@ from minio_tpu.object.erasure_objects import ErasureObjects as JaxErasureObjects
 from minio_tpu.object.pools import ErasureServerPools as JaxPools
 from minio_tpu.object.sets import ErasureSets as JaxErasureSets
 from minio_tpu.storage.local import LocalStorage as JaxLocalStorage
+from minio_tpu_torch.api.errors import from_object_error
 from minio_tpu_torch.object.erasure_objects import ErasureObjects
+from minio_tpu_torch.object.metacache import ListingLoop
 from minio_tpu_torch.object.metadata import hash_order
 from minio_tpu_torch.object.pools import ErasureServerPools
 from minio_tpu_torch.object.sets import ErasureSets
@@ -142,22 +145,66 @@ def test_list_objects_raw(names, data, prefix):
             BUCKET, prefix))
 
 
+class _PageLoop(Exception):
+    """A listing call went round its metacache pages without end."""
+
+
+# Metacache pages one _page_all may take: a listing of these few keys
+# takes a handful a call; one that goes round takes them all.
+_MAX_CACHE_PAGES = 10_000
+
+
+@contextlib.contextmanager
+def _page_cap(pools):
+    """Stop a listing call of `pools` with _PageLoop once the listings
+    in this block have taken _MAX_CACHE_PAGES metacache pages."""
+    calls = [0]
+    cache = pools._metacache
+    cache_page = cache.page
+
+    def bounded(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] > _MAX_CACHE_PAGES:
+            raise _PageLoop()
+        return cache_page(*args, **kwargs)
+
+    cache.page = bounded
+    try:
+        yield
+    finally:
+        del cache.page
+
+
 def _page_all(pools, prefix, delimiter, max_keys, marker=""):
     """Every page of a listing, each as comparable plain values. A
     listing still truncated after 40 pages ends with "did not end":
     minio_tpu's walk order can make paging go round (ROADMAP Queue 3),
-    and the port must go round the same way."""
+    and the port must go round the same way. The same order can make
+    one list_objects call go round its metacache pages (ROADMAP Queue
+    3): minio_tpu's call never returns and is stopped here after
+    _MAX_CACHE_PAGES, the port's must end by itself with ListingLoop,
+    and both end the listing with "did not end in a call"."""
     pages = []
-    for _ in range(40):
-        res = pools.list_objects(BUCKET, prefix=prefix, marker=marker,
-                                 delimiter=delimiter, max_keys=max_keys)
-        pages.append((res.is_truncated, res.next_marker, res.prefixes,
-                      [(o.name, o.etag, o.size, o.mod_time_ns, o.is_latest)
-                       for o in res.objects]))
-        if not res.is_truncated:
-            return pages
-        marker = res.next_marker
-    return pages + ["did not end"]
+    try:
+        with _page_cap(pools):
+            for _ in range(40):
+                res = pools.list_objects(
+                    BUCKET, prefix=prefix, marker=marker,
+                    delimiter=delimiter, max_keys=max_keys)
+                pages.append((res.is_truncated, res.next_marker,
+                              res.prefixes,
+                              [(o.name, o.etag, o.size, o.mod_time_ns,
+                                o.is_latest) for o in res.objects]))
+                if not res.is_truncated:
+                    return pages
+                marker = res.next_marker
+        return pages + ["did not end"]
+    except _PageLoop:
+        assert not isinstance(pools, ErasureServerPools), \
+            "the port's list_objects call went round without end"
+        return pages + ["did not end in a call"]
+    except ListingLoop:
+        return pages + ["did not end in a call"]
 
 
 def _check_pages(names, missing, deleted, prefix, delimiter, max_keys,
@@ -214,6 +261,64 @@ def test_list_objects_pages_fixed(prefix, delimiter, max_keys):
                           and k not in ("b", "c/b")]
         assert len(pages) == -(-len(listed) // max_keys) or \
             len(listed) % max_keys == 0
+
+
+# The walk lists "cb/a" before "cb./a" (entries sorted with their
+# trailing slash); paging from "cb./a" by name starts again before
+# "cb/a", so a call that rolls both up under "/" comes back to where it
+# was (ROADMAP Queue 3).
+ROUND_KEYS = ["a", "cc", "cb/a", "cb./a"]
+
+
+def test_list_objects_call_that_goes_round():
+    """A ListObjects call that goes round its pages: minio_tpu's never
+    returns (stopped here by _page_all's cap), the port's ends with
+    ListingLoop, which the S3 layer answers as InternalError. The first
+    page is the same in both."""
+    pages = _check_pages(ROUND_KEYS, {}, set(), "", "/", 1, "")
+    assert pages == [(True, "a", ["cb/"], [("a", f"{0:032x}", 0,
+                                            MOD_TIME, True)]),
+                     "did not end in a call"]
+    with tempfile.TemporaryDirectory(prefix="listing-") as d:
+        _write(Path(d), ROUND_KEYS, {}, set())
+        port = ErasureServerPools([ErasureSets(_drives(Path(d))[0], DRIVES,
+                                               default_parity=2,
+                                               device="cpu")], device="cpu")
+        try:
+            with pytest.raises(ListingLoop):
+                port.list_objects(BUCKET, marker="a", delimiter="/",
+                                  max_keys=1)
+            assert from_object_error(ListingLoop("")).api.code == \
+                "InternalError"
+        finally:
+            port.close()
+
+
+def test_list_object_versions_call_that_goes_round():
+    """ListObjectVersions pages the same walk: from key marker "c/a" the
+    call pages from "c/" by name, meets "c/a" again and is back where it
+    began. minio_tpu's call never returns (stopped by _page_cap), the
+    port's ends with ListingLoop."""
+    with tempfile.TemporaryDirectory(prefix="listing-") as d:
+        _write(Path(d), ["c/a", "c."], {}, set())
+        port_disks, jax_disks = _drives(Path(d))
+        port = ErasureServerPools([ErasureSets(port_disks, DRIVES,
+                                               default_parity=2,
+                                               device="cpu")], device="cpu")
+        jax = JaxPools([JaxErasureSets(jax_disks, DRIVES, default_parity=2)])
+        try:
+            for pools, loop in ((port, ListingLoop), (jax, _PageLoop)):
+                with _page_cap(pools):
+                    first = pools.list_object_versions(BUCKET, max_keys=1)
+                    assert (first.is_truncated, first.next_key_marker,
+                            [v.name for v in first.versions]) == (
+                        True, "c/a", ["c/a"])
+                    with pytest.raises(loop):
+                        pools.list_object_versions(BUCKET, key_marker="c/a",
+                                                   max_keys=1)
+        finally:
+            port.close()
+            jax._metacache.close()
 
 
 def test_listing_follows_mutations(root):
