@@ -34,10 +34,15 @@ Phases, each of which must pass (nothing is caught):
     first and last chunks in several groups); kernels C and D
     (AES-256-GCM seal and open, check_aes_kernels) against the plain
     version at plaintext lengths 0, 1, 15, 16, 17, 12,345 and 65,536
-    with AADs of 3 B, 8 B and a KMS context, at batches of 1, 16, 256
-    and 4,097 packages, with flipped nonce, ciphertext, tag and AAD
-    bytes (the ok flags false exactly there), and at known answers made
-    with the `cryptography` package;
+    with AADs of 3 B, 8 B and a KMS context, at batches of 1, 16, 33,
+    127, 256 and 4,097 packages, at the cluster edges (GHASH sequences
+    ending on a multiple of a cluster's threads and one block either
+    side, alone and in launches of 64 and 127 where every package has a
+    different length, zero-length and AAD-only packages among them),
+    with flipped nonce, ciphertext, tag and AAD bytes at 16 and 127
+    packages (the ok flags false exactly there, those packages'
+    plaintext zero), captured with their workspace in a CUDA graph, and
+    at known answers made with the `cryptography` package;
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object, on the pipelined drivers (this host has
     more than one core): PUT, healthy GET, shards 0, 5, 12 and 15 lost,
@@ -161,8 +166,10 @@ Phases, each of which must pass (nothing is caught):
     of 12 readers x 8 frames; kernel A also at 4h's msr-pm encode
     shapes [8, 24, 43,691] -> 8 and [8, 64, 16,384] -> 64, and at 4j's
     heal shapes, the one-target reconstruction [8, 12, 87,382] -> 1 and
-    the msr-pm repair window [5, 16, 43,691] -> 2; kernels C and D at 16,
-    127 (the port's batch) and 4,097 packages) and print one JSON line
+    the msr-pm repair window [5, 16, 43,691] -> 2; kernels C and D at
+    every launch shape of 4k: the 32-byte key seal, 16, the closing 33,
+    127 (the port's batch) and 4,097 packages, each with its share of
+    the bound and its launches in 4k) and print one JSON line
     {"kernels": [...]}, whose launches are those of phases 4, 4c, 4e, 4h,
     4i, 4j and 4k (by path in "launches_by_path"); every kernel must
     have launched on the main paths;
@@ -818,12 +825,84 @@ def aes_case(key: bytes, batch, label: str, errs: dict,
     errs["aes_gcm_open"] = max(errs["aes_gcm_open"], open_err)
 
 
+def aes_edge_lengths(cluster: int) -> list[int]:
+    """Plaintext lengths whose GHASH blocks, with an 8-byte AAD (one
+    block) and the lengths block, end exactly on one and on two multiples
+    of a cluster's threads (kernel C's and D's stride), and one block
+    either side."""
+    from minio_tpu_torch.ops import aes_gcm_cuda as kc
+
+    ct = cluster * kc.THREADS
+    return [16 * (m * ct + d - 2) for m in (1, 2) for d in (-1, 0, 1)]
+
+
+def aes_edge_batch(packages: int) -> tuple[list[int], list[bytes]]:
+    """A launch of `packages` packages, every one of a different length:
+    the cluster edges of aes_edge_lengths() at the cluster size this
+    launch takes (8-byte AADs), a zero-length package with no AAD, one
+    with an AAD of 300 blocks and no message (the first blocks of its
+    cluster see AAD only), then lengths 1 + 517 i with AES_AADS in turn."""
+    from minio_tpu_torch.ops import aes_gcm_cuda as kc
+
+    edges = aes_edge_lengths(kc.cluster_size(packages))[:packages]
+    lengths = list(edges)
+    aads = [struct.pack("<Q", i) for i in range(len(edges))]
+    extra = [(0, b""), (0, bytes(range(256)) * 18 + bytes(192))]
+    for ln, a in extra[:packages - len(lengths)]:
+        lengths.append(ln)
+        aads.append(a)
+    i = 0
+    while len(lengths) < packages:
+        if 1 + 517 * i not in lengths:
+            lengths.append(1 + 517 * i)
+            aads.append(AES_AADS[i % len(AES_AADS)])
+        i += 1
+    if packages > 2 and len(set(lengths)) != packages - 1:  # two zeros
+        raise AssertionError(f"edge batch lengths repeat: {lengths}")
+    return lengths, aads
+
+
+def aes_graph_case(key: bytes, batch, errs: dict) -> None:
+    """Kernels C and D captured in one CUDA graph, each with the
+    workspace it allocates, then replayed: equal to the plain seal and
+    the plaintext back."""
+    from minio_tpu_torch.ops import aes_gcm as plain, aes_gcm_cuda as kc
+
+    desc, data, nonces, aad, n = batch
+    odesc = plain.open_desc(desc)
+    plen = data.numel()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kc.open_cuda(key, kc.seal_cuda(key, data, desc, nonces, aad, n),
+                     odesc, aad, plen)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        wire = kc.seal_cuda(key, data, desc, nonces, aad, n)
+        got, ok = kc.open_cuda(key, wire, odesc, aad, plen)
+    wire.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = plain.seal_plain(key, data, desc, nonces, aad, n)
+    err = max(max_abs_err(wire, want), max_abs_err(got, data))
+    if not bool(ok.bool().all()):
+        raise AssertionError("aes_gcm graph replay: a tag failed")
+    log(f"aes_gcm seal and open in one CUDA graph ({desc.shape[0]} "
+        f"packages): max_abs_err {err}")
+    errs["aes_gcm_seal"] = max(errs["aes_gcm_seal"], err)
+    errs["aes_gcm_open"] = max(errs["aes_gcm_open"], err)
+
+
 def check_aes_kernels(rng, errs: dict) -> None:
     """Phase 3 for kernels C and D: every length of AES_LENGTHS with every
     AAD of AES_AADS in one batch; batches of AES_BATCHES full packages
     (the last 12,345 B) and one of the port's batch (all full) with <Q
-    sequence AADs; flipped nonce, ciphertext, tag and AAD bytes; the
-    known answers of AES_GCM_KAT."""
+    sequence AADs; the cluster edges (aes_edge_batch) alone and in
+    launches of 64 and of the port's batch, every package of a different
+    length; flipped nonce, ciphertext, tag and AAD bytes at 16 packages
+    and at the port's batch; a seal and open captured in a CUDA graph;
+    the known answers of AES_GCM_KAT."""
     from minio_tpu_torch.api.transforms import packages_per_launch
     from minio_tpu_torch.ops import aes_gcm_cuda as kc
 
@@ -839,11 +918,28 @@ def check_aes_kernels(rng, errs: dict) -> None:
         lengths = [PACKAGE] * (p - 1) + [PACKAGE if p == main else 12_345]
         aads = [struct.pack("<Q", i) for i in range(p)]
         aes_case(key, aes_batch(rng, lengths, aads), f"batch {p}", errs)
+    for ln in aes_edge_lengths(kc.cluster_size(1)) + [0]:
+        aes_case(key, aes_batch(rng, [ln], [b"OEK" if ln else b""]),
+                 f"one package of {ln} B (cluster {kc.cluster_size(1)})",
+                 errs)
+    for p in (64, main):
+        lengths, aads = aes_edge_batch(p)
+        aes_case(key, aes_batch(rng, lengths, aads),
+                 f"edge batch {p} (cluster {kc.cluster_size(p)}, lengths "
+                 f"{lengths[:6]} at the edges)", errs)
     lengths = [PACKAGE] * 15 + [12_345]
     aads = [struct.pack("<Q", i) for i in range(16)]
     aes_case(key, aes_batch(rng, lengths, aads), "batch 16 tampered", errs,
              flips=((1, "nonce"), (4, "ct"), (9, "tag"), (13, "aad"),
                     (15, "ct")))
+    aads = [struct.pack("<Q", i) for i in range(main)]
+    aes_case(key, aes_batch(rng, [PACKAGE] * main, aads),
+             f"batch {main} tampered", errs,
+             flips=((0, "ct"), (5, "nonce"), (63, "tag"),
+                    (main - 1, "aad")))
+    aes_graph_case(key, aes_batch(rng, [PACKAGE] * 15 + [12_345],
+                                  [struct.pack("<Q", i) for i in range(16)]),
+                   errs)
     for i, (k, nonce, pt, aad, want) in enumerate(AES_GCM_KAT):
         k, nonce, pt, aad, want = (bytes.fromhex(x)
                                    for x in (k, nonce, pt, aad, want))
@@ -898,6 +994,8 @@ def reset_counts() -> None:
     highwayhash_torch.LAUNCHES.reset()
     aes_gcm_cuda.SEAL_LAUNCHES.reset()
     aes_gcm_cuda.OPEN_LAUNCHES.reset()
+    aes_gcm_cuda.SEAL_LAUNCHES_BY_SHAPE.reset()
+    aes_gcm_cuda.OPEN_LAUNCHES_BY_SHAPE.reset()
     device_engine.reset_stats()
 
 
@@ -915,6 +1013,15 @@ def read_shape_counts() -> dict:
     from minio_tpu_torch.ops import rs_cuda
 
     return rs_cuda.LAUNCHES_BY_SHAPE.snapshot()
+
+
+def read_aes_shape_counts() -> dict:
+    """Kernels C's and D's launches by package count, counted by their
+    wrappers."""
+    from minio_tpu_torch.ops import aes_gcm_cuda
+
+    return {"aes_gcm_seal": aes_gcm_cuda.SEAL_LAUNCHES_BY_SHAPE.snapshot(),
+            "aes_gcm_open": aes_gcm_cuda.OPEN_LAUNCHES_BY_SHAPE.snapshot()}
 
 
 def run_main_path() -> dict:
@@ -1502,6 +1609,7 @@ def run_sse() -> tuple[dict, dict]:
         reset_counts()
         res = s3_sse(tmp, OBJECT_SIZE, device="cuda", seed=50)
         launches = read_counts()
+        by_shape = read_aes_shape_counts()
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     failed = [k for k, ok in res["checks"].items() if ok is not True]
@@ -1535,6 +1643,7 @@ def run_sse() -> tuple[dict, dict]:
             f"launches A {n['A']} B {n['B']} C {n['C']} D {n['D']}")
     for name, peak in res["rss_peak_bytes"].items():
         log(f"4k {name}: peak resident set growth {peak / 2**20:.1f} MiB")
+    log(f"4k launches of C and D by package count: {by_shape}")
     card = card_line()
     log(f"4k on {card}")
     line = {"card": card,
@@ -1542,6 +1651,7 @@ def run_sse() -> tuple[dict, dict]:
             "packages": res["packages"], "k": K, "m": M,
             "wiped_drives": res["wiped_drives"], "range": res["range"],
             "seconds": res["seconds"], "gbps": gbps, "launches": per_step,
+            "aes_launches_by_packages": by_shape,
             "rss_peak_bytes": res["rss_peak_bytes"],
             "checks": res["checks"]}
     return line, launches
@@ -1726,38 +1836,56 @@ def time_kernels(rng, launches: dict, errs: dict) -> list[dict]:
 
 
 def aes_timed() -> tuple:
-    """Phase 5's batches of kernels C and D, (packages, inputs, replays):
-    a 1 MiB gather, the port's batch (api/transforms.packages_per_launch)
-    and the 256 MiB + 12,345 B object's 4,097 packages. Inputs cycle past
-    the 50 MB L2 where small."""
+    """Phase 5's launches of kernels C and D, (label, packages, plaintext
+    lengths, AADs, inputs, replays): every shape 4k launches (the
+    32-byte object-key seal with AAD b"OEK" of every PUT and GET; a
+    256 MiB + 12,345 B object's batches of the port's batch
+    (api/transforms.packages_per_launch), its closing 32 full packages
+    and its 12,345 B tail alone; a ranged GET's 64), a 1 MiB gather of
+    16, the closing 33 in one launch, and the object's 4,097 packages in
+    one launch. Inputs cycle past the 50 MB L2 where small."""
     from minio_tpu_torch.api.transforms import packages_per_launch
 
-    return ((16, 64, 200), (packages_per_launch("cuda"), 8, 50),
-            (4097, 1, 4))
+    main = packages_per_launch("cuda")
+
+    def seq(p):
+        return [struct.pack("<Q", i) for i in range(p)]
+
+    return (("key seal", 1, [32], [b"OEK"], 64, 400),
+            ("tail", 1, [12_345], seq(1), 64, 400),
+            ("gather", 16, [PACKAGE] * 16, seq(16), 64, 200),
+            ("closing", 32, [PACKAGE] * 32, seq(32), 32, 100),
+            ("closing with tail", 33, [PACKAGE] * 32 + [12_345], seq(33),
+             32, 100),
+            ("ranged window", 64, [PACKAGE] * 64, seq(64), 16, 100),
+            ("batch", main, [PACKAGE] * main, seq(main), 8, 50),
+            ("object", 4097, [PACKAGE] * 4096 + [12_345], seq(4097), 1, 4))
 
 
 def time_aes_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5 for kernels C and D: CUDA-graph replay at aes_timed(), the
     plain versions' times, and the bound: the larger of the bytes in and
     out over HBM_BYTES_PER_S and AES_GCM_OPS_PER_BLOCK a 16-byte block
-    (its plaintext, its AAD and its lengths block) over INT32_OPS_PER_S."""
+    (its plaintext, its AAD and its lengths block) over INT32_OPS_PER_S.
+    `launches` holds each kernel's launches by main path, and 4k's by
+    package count under "aes_by_packages"."""
     from minio_tpu_torch.api.transforms import packages_per_launch
     from minio_tpu_torch.ops import aes_gcm as plain, aes_gcm_cuda as kc
     from minio_tpu_torch.utils.timing import time_calls, time_graph
 
     key = rng.bytes(32)
     main_batch = packages_per_launch("cuda")
+    by_packages = launches["aes_by_packages"]
     shapes = {"seal": [], "open": []}
-    for p, n_inputs, reps in aes_timed():
-        lengths = [PACKAGE] * (p - 1) + [12_345 if p == 4097 else PACKAGE]
-        aads = [struct.pack("<Q", i) for i in range(p)]
+    for label, p, lengths, aads, n_inputs, reps in aes_timed():
         batches = [aes_batch(rng, lengths, aads) for _ in range(n_inputs)]
         desc, _, nonces, aad, n = batches[0]
         odesc = plain.open_desc(desc)
         plen = sum(lengths)
         datas = [b[1] for b in batches]
         wires = [kc.seal_cuda(key, x, desc, nonces, aad, n) for x in datas]
-        blocks = sum(-(-ln // 16) + 2 for ln in lengths)  # + AAD, lengths
+        blocks = sum(-(-ln // 16) + -(-len(a) // 16) + 1
+                     for ln, a in zip(lengths, aads))
         ops = blocks * AES_GCM_OPS_PER_BLOCK
         for kind, fn, plain_fn, inputs in (
                 ("seal",
@@ -1774,16 +1902,22 @@ def time_aes_kernels(rng, launches: dict, errs: dict) -> list[dict]:
                 nonces.numel() if kind == "seal" else p)
             bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                               ops / INT32_OPS_PER_S)
+            name = f"aes_gcm_{kind}"
             shapes[kind].append({
-                "packages": p, "plaintext_bytes": plen, "ms": ms,
+                "shape": label, "packages": p, "plaintext_bytes": plen,
+                "cluster": kc.cluster_size(p), "ms": ms,
                 "us_per_launch": 1e3 * ms, "gbps": plen / ms / 1e6,
                 "plain_ms": plain_ms, "bound_ms": bound,
+                "share_of_bound": bound / ms,
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops / INT32_OPS_PER_S else "operations"})
-            log(f"aes_gcm {kind} {p} packages ({plen} B): {ms:.5f} ms a "
-                f"launch ({plen / ms / 1e6:.2f} GB/s), plain {plain_ms:.3f} "
-                f"ms, bound {bound:.5f} ms ({100 * bound / ms:.1f}% of "
-                "bound)")
+                >= ops / INT32_OPS_PER_S else "operations",
+                "launches_4k": by_packages[name].get(str(p), 0)})
+            log(f"aes_gcm {kind} {label}, {p} packages ({plen} B, cluster "
+                f"{kc.cluster_size(p)}): {ms:.5f} ms a launch "
+                f"({plen / ms / 1e6:.2f} GB/s), plain {plain_ms:.3f} ms, "
+                f"bound {bound:.3e} ms ({100 * bound / ms:.1f}% of bound), "
+                f"launches of {p} packages in 4k "
+                f"{shapes[kind][-1]['launches_4k']}")
         del batches, datas, wires
     rows = []
     for kind, name, line in (("seal", "aes_gcm_seal", 205),
@@ -1797,6 +1931,7 @@ def time_aes_kernels(rng, launches: dict, errs: dict) -> list[dict]:
                              "host", "checked": True,
             "launches": sum(launches[name].values()),
             "launches_by_path": launches[name],
+            "launches_4k_by_packages": by_packages[name],
             "max_abs_err": max(errs[name], errs["aes_gcm_kat"]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1866,6 +2001,7 @@ def main() -> int:
                       "s3_sse": sse_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
+    by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
     gc.callbacks.remove(on_gc)
     log(f"collector passes over 20 ms in the main paths (generation, s): "
         f"{PAUSES}")

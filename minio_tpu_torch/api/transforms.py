@@ -42,11 +42,12 @@ _PSIZE = ssemod.PACKAGE_SIZE + ssemod.PACKAGE_OVERHEAD  # 65,564 B stored
 
 
 def packages_per_launch(device) -> int:
-    """Packages a seal or open launch takes: 127 on the card (one block
-    a streaming multiprocessor, and a batch's staged bytes, 65,612 a
-    package at most, fit the 8 MiB pinned block the caching host
-    allocator rounds them up to), 16 on the CPU, where the plain
-    version's intermediates grow with the batch."""
+    """Packages a seal or open launch takes: 127 on the card (a batch's
+    staged bytes, 65,612 a package at most, fit the 8 MiB pinned block
+    the caching host allocator rounds them up to; kernels C and D spread
+    each package over a cluster of blocks, so a launch of 127 still
+    fills the card), 16 on the CPU, where the plain version's
+    intermediates grow with the batch."""
     return 127 if torch.device(device).type == "cuda" else 16
 
 

@@ -44,8 +44,12 @@ SIGNATURES = {
                                         _U64, _VP],
     },
     "aes_gcm": {
-        "aes_gcm_seal_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
-        "aes_gcm_open_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
+        "aes_gcm_seal_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP,
+                                _VP],
+        "aes_gcm_open_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP,
+                                _VP],
+        "aes_gcm_workspace_bytes": [],
+        "aes_gcm_cluster_size": [_LL],
     },
 }
 

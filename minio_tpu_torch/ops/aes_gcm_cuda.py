@@ -7,7 +7,10 @@ take it for CPU tensors.
 A batch shares one key; the descriptor int64 [P, 5] gives each package
 (in_off, length, aad_off, aad_len, out_off), as ops/aes_gcm.py says. The
 kernels write only the packages' bytes: an output byte that no package
-covers is left as torch.empty made it.
+covers is left as torch.empty made it. Each call also allocates the
+launch's workspace on the current stream: powers of H and the nibble
+tables of H^CT, which the setup kernel the C entry point enqueues before
+the main one writes.
 """
 
 from __future__ import annotations
@@ -16,9 +19,29 @@ import torch
 
 from . import _build, aes_gcm
 
-# Kernel launches made by this process (see rs_cuda.LAUNCHES).
+# Threads of a block and the cluster sizes of the main kernels, as
+# csrc/aes_gcm.cu's kThreads and the cluster sizes it is built for (the
+# GHASH model of tests/test_torch_aes_gcm.py follows them).
+THREADS = 256
+CLUSTER_SIZES = (2, 4, 8)
+
+# Kernel launches made by this process (see rs_cuda.LAUNCHES), one a
+# wrapper call, and the same by package count.
 SEAL_LAUNCHES = _build.LaunchCounter()
 OPEN_LAUNCHES = _build.LaunchCounter()
+SEAL_LAUNCHES_BY_SHAPE = _build.ShapeLaunchCounter()
+OPEN_LAUNCHES_BY_SHAPE = _build.ShapeLaunchCounter()
+
+
+def _workspace(lib, dev: torch.device) -> torch.Tensor:
+    return torch.empty(lib.aes_gcm_workspace_bytes(), dtype=torch.uint8,
+                       device=dev)
+
+
+def cluster_size(packages: int) -> int:
+    """Blocks a package takes in a launch of `packages` (the card's
+    library decides; builds it on first use)."""
+    return _build.library("aes_gcm").aes_gcm_cluster_size(packages)
 
 
 def _check(key: bytes, tensors: dict, desc: torch.Tensor) -> torch.device:
@@ -53,15 +76,18 @@ def seal_cuda(key: bytes, data: torch.Tensor, desc: torch.Tensor,
     if desc.shape[0] == 0:
         return out
     lib = _build.library("aes_gcm")
+    ws = _workspace(lib, dev)
+    _check(key, {"workspace": ws}, desc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(
         lib.aes_gcm_seal_launch(data.data_ptr(), desc.data_ptr(),
                                 nonces.data_ptr(), aad.data_ptr(),
                                 out.data_ptr(), desc.shape[0], bytes(key),
-                                stream),
+                                ws.data_ptr(), stream),
         "aes_gcm_seal_launch",
     )
     SEAL_LAUNCHES.add()
+    SEAL_LAUNCHES_BY_SHAPE.add(str(desc.shape[0]))
     return out
 
 
@@ -77,15 +103,18 @@ def open_cuda(key: bytes, data: torch.Tensor, desc: torch.Tensor,
     if desc.shape[0] == 0:
         return out, ok
     lib = _build.library("aes_gcm")
+    ws = _workspace(lib, dev)
+    _check(key, {"workspace": ws}, desc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(
         lib.aes_gcm_open_launch(data.data_ptr(), desc.data_ptr(),
                                 aad.data_ptr(), out.data_ptr(),
                                 ok.data_ptr(), desc.shape[0], bytes(key),
-                                stream),
+                                ws.data_ptr(), stream),
         "aes_gcm_open_launch",
     )
     OPEN_LAUNCHES.add()
+    OPEN_LAUNCHES_BY_SHAPE.add(str(desc.shape[0]))
     return out, ok
 
 

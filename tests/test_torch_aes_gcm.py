@@ -5,15 +5,19 @@ with, byte for byte (tolerance 0): at the plaintext lengths, AADs and
 batches of phase 3 of chip_smoke.py, with tampered packages, and at
 the smoke's known answers. The largest batch (4,097 packages) runs with
 short packages here: the plain version on the CPU takes seconds a
-16 MiB of packages.
+16 MiB of packages. Below them, a model of kernels C and D's GHASH
+split in plain Python integers, held to `cryptography` and to the
+plain version (`-k model`).
 """
 
+import functools
 import json
 import struct
 
 import numpy as np
 import pytest
 import torch
+from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
 from cryptography.hazmat.primitives.ciphers.aead import AESGCM as RefAESGCM
 
 import chip_smoke
@@ -215,3 +219,275 @@ def test_aead_on_the_card_raises_without_one():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AESGCM(bytes(32))
+
+
+# --- a model of kernels C and D's GHASH split ---------------------------
+# Plain Python integers, step for step as csrc/aes_gcm.cu computes: a
+# block is the big-endian integer of its 16 bytes (the coefficient of x^0
+# in the top bit). With CT = C * 256 the threads of a cluster of C
+# blocks, the setup kernel forms H^1..H^64 and H^64, H^128, .. H^CT (by
+# doubling with the integer product `_gf_mul`, H^64 by squarings) and the
+# nibble tables of H^CT (from H^CT x^j, a shift and a fold); each main
+# block builds H^CT's byte tables from them, and each thread its weight
+# H^(CT - g) with one product. Thread g of the cluster takes the
+# package's blocks g, g + CT, g + 2 CT, ... of the sequence right-aligned
+# to a multiple of CT (leading zero blocks), folds them by Horner with the
+# byte tables of H^CT, and multiplies its sum by its weight; a block's
+# partial is the XOR over its threads, the package's GHASH the XOR over
+# the cluster's blocks.
+
+_M32, _M64, _M128 = (1 << 32) - 1, (1 << 64) - 1, (1 << 128) - 1
+
+
+def _gf_mul_ref(x: int, y: int) -> int:
+    """SP 800-38D's multiplication in GF(2^128), bit by bit."""
+    z, v = 0, y
+    for i in range(128):
+        if (x >> (127 - i)) & 1:
+            z ^= v
+        v = (v >> 1) ^ (0xE1 << 120) if v & 1 else v >> 1
+    return z
+
+
+def _bmul32(x: int, y: int) -> int:
+    """The carry-less 32 x 32 -> 64 product from four integer products a
+    column with the bits of each operand 4 apart (at most 8 terms a
+    column, so no carry reaches the next bit kept)."""
+    m = (0x11111111, 0x22222222, 0x44444444, 0x88888888)
+    xs = [x & k for k in m]
+    ys = [y & k for k in m]
+    z = 0
+    for r in range(4):  # z_r keeps bits r mod 4
+        t = 0
+        for i in range(4):
+            t ^= xs[i] * ys[(r - i) % 4]
+        z |= t & (0x1111111111111111 << r)
+    return z
+
+
+def _clmul64(x: int, y: int) -> int:
+    lo = _bmul32(x & _M32, y & _M32)
+    hi = _bmul32(x >> 32, y >> 32)
+    mid = _bmul32((x ^ (x >> 32)) & _M32, (y ^ (y >> 32)) & _M32) ^ lo ^ hi
+    return lo ^ (mid << 32) ^ (hi << 64)
+
+
+def _gf_mul(a: int, b: int) -> int:
+    """The kernels' product: Karatsuba over 9 `_bmul32`, the 255-bit
+    product shifted left by one (GCM's reflected order), its low half
+    folded back (`_fold`)."""
+    lo = _clmul64(a & _M64, b & _M64)
+    hi = _clmul64(a >> 64, b >> 64)
+    mid = _clmul64((a ^ (a >> 64)) & _M64, (b ^ (b >> 64)) & _M64) ^ lo ^ hi
+    w = (lo ^ (mid << 64) ^ (hi << 128)) << 1
+    return _fold(w >> 128, w & _M128)
+
+
+def _fold(top: int, o: int) -> int:
+    """top + o x^128 in GCM's field (both 128-bit, reflected): o folded
+    back by x^128 = 1 + x + x^2 + x^7, right shifts by 1, 2 and 7, and
+    once more for the 7 bits those shifts push out."""
+    d = ((o << 127) ^ (o << 126) ^ (o << 121)) & _M128
+    return (top ^ o ^ (o >> 1) ^ (o >> 2) ^ (o >> 7)
+            ^ d ^ (d >> 1) ^ (d >> 2) ^ (d >> 7))
+
+
+def _times_xj(c: int, j: int) -> int:
+    """c x^j: c shifted right by j, the j bits pushed out folded back."""
+    return _fold(c >> j, (c << (128 - j)) & _M128)
+
+
+def _nibble_tables(c: int) -> list:
+    """Entry [k][half][v]: the 4 bits of v at bits 8k + 4 half .. + 3 of
+    a block, times c."""
+    basis = [_times_xj(c, j) for j in range(128)]
+    nib = [[[0] * 16 for _ in range(2)] for _ in range(16)]
+    for k in range(16):
+        for half in range(2):
+            for v in range(16):
+                for i in range(4):
+                    if (v >> (3 - i)) & 1:
+                        nib[k][half][v] ^= basis[8 * k + 4 * half + i]
+    return nib
+
+
+def _gf_sqr(a: int) -> int:
+    """a^2: a's bits spread to the even places of 256 (a carry-less square
+    has no cross terms), shifted and folded as `_gf_mul`."""
+    w = 0
+    for p in range(128):
+        w |= ((a >> p) & 1) << (2 * p)
+    w <<= 1
+    return _fold(w >> 128, w & _M128)
+
+
+def _setup(h: int, ct: int):
+    """What the setup kernel writes, and what the main blocks make of it:
+    A = H^1..H^64 and B = H^64, H^128, .. H^ct (ct / 64 of them), each by
+    doubling with `_gf_mul` (H^64 by six squarings); the byte tables of
+    H^ct (entry [k][b]: b in byte k times H^ct) from its nibble tables;
+    thread g's weight H^(ct - g) = A[e mod 64] B[e div 64], e = ct - g."""
+    a = [0, h]
+    for step in (1, 2, 4, 8, 16, 32):
+        a += [_gf_mul(a[i], a[step]) for i in range(1, step + 1)]
+    h64 = h
+    for _ in range(6):
+        h64 = _gf_sqr(h64)
+    b = [0, h64]
+    while len(b) - 1 < ct // 64:
+        step = len(b) - 1
+        b += [_gf_mul(b[i], b[step]) for i in range(1, step + 1)]
+    nib = _nibble_tables(b[ct // 64])
+    tables = [[nib[k][0][x >> 4] ^ nib[k][1][x & 15] for x in range(256)]
+              for k in range(16)]
+
+    def weight(e: int) -> int:  # H^e, 1 <= e <= ct
+        lo, hi = e % 64, e // 64
+        if hi == 0:
+            return a[lo]
+        return b[hi] if lo == 0 else _gf_mul(a[lo], b[hi])
+
+    return weight, tables
+
+
+def _table_mul(tables, y: int) -> int:
+    z = 0
+    for k in range(16):
+        z ^= tables[k][(y >> (8 * (15 - k))) & 255]
+    return z
+
+
+def _ghash_blocks(aad: bytes, ct: bytes) -> list[int]:
+    def blocks(b):
+        b = b + bytes(-len(b) % 16)
+        return [int.from_bytes(b[i:i + 16], "big")
+                for i in range(0, len(b), 16)]
+    return blocks(aad) + blocks(ct) + [((len(aad) * 8) << 64)
+                                       | (len(ct) * 8)]
+
+
+def _split_ghash(h: int, xs: list[int], cluster: int, threads: int = 256,
+                 setup=None) -> tuple[int, list[int]]:
+    """GHASH of blocks xs as the kernel splits it over `cluster` blocks of
+    `threads` threads: (the sum, each block's partial)."""
+    ct = cluster * threads
+    weight, tables = setup or _setup(h, ct)
+    n = len(xs)
+    k_steps = -(-n // ct)
+    pad = k_steps * ct - n
+    parts = []
+    for c in range(cluster):
+        part = 0
+        for t in range(threads):
+            g = c * threads + t
+            y, seen = 0, False
+            for k in range(k_steps):
+                if seen:
+                    y = _table_mul(tables, y)
+                j = g + k * ct - pad
+                if j < 0:
+                    continue
+                seen = True
+                y ^= xs[j]
+            if seen:
+                part ^= _gf_mul(y, weight(ct - g))
+        parts.append(part)
+    total = 0
+    for part in parts:
+        total ^= part
+    return total, parts
+
+
+@functools.lru_cache(maxsize=None)
+def _model_setup(key: bytes, cluster: int):
+    h = int.from_bytes(_ecb(key, bytes(16)), "big")
+    return h, _setup(h, cluster * aes_gcm_cuda.THREADS)
+
+
+def _ecb(key: bytes, block: bytes) -> bytes:
+    enc = Cipher(algorithms.AES(key), modes.ECB()).encryptor()
+    return enc.update(block) + enc.finalize()
+
+
+def _model_tag(key: bytes, nonce: bytes, ct: bytes, aad: bytes,
+               cluster: int) -> tuple[bytes, list[int]]:
+    h, setup = _model_setup(key, cluster)
+    s, parts = _split_ghash(h, _ghash_blocks(aad, ct), cluster,
+                            aes_gcm_cuda.THREADS, setup)
+    ej0 = int.from_bytes(_ecb(key, nonce + b"\x00\x00\x00\x01"), "big")
+    return (s ^ ej0).to_bytes(16, "big"), parts
+
+
+_MODEL_KEY = bytes(range(7, 39))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_model_product_equals_sp800_38d(seed):
+    """The threads' closing product, the setup's shifts and its nibble
+    tables, each against SP 800-38D's product."""
+    rng = np.random.default_rng(seed)
+    a, b = (int.from_bytes(rng.bytes(16), "big") for _ in range(2))
+    if seed == 0:
+        a = b = _M128  # every column of every partial product full
+    assert _gf_mul(a, b) == _gf_mul_ref(a, b) == _gf_mul_ref(b, a)
+    for j in (0, 1, 7, 63, 64, 65, 120, 121, 127, 16 * seed + 3):
+        assert _times_xj(a, j) == _gf_mul_ref(a, 1 << (127 - j)), j
+    assert _gf_sqr(a) == _gf_mul_ref(a, a)
+
+
+@pytest.mark.parametrize("cluster", aes_gcm_cuda.CLUSTER_SIZES)
+def test_model_setup_tables(cluster):
+    """The setup's weights are H^e, its byte tables multiply by H^CT."""
+    h, (weight, tables) = _model_setup(_MODEL_KEY, cluster)
+    ct = cluster * aes_gcm_cuda.THREADS
+    want = 0
+    for e in range(1, ct + 1):  # H^e by SP 800-38D's product
+        want = h if e == 1 else _gf_mul_ref(want, h)
+        if e in (1, 2, 63, 64, 65, 127, 128, 129, 255, 256, 257) or e == ct:
+            assert weight(e) == want, e
+    rng = np.random.default_rng(cluster)
+    for _ in range(4):
+        y = int.from_bytes(rng.bytes(16), "big")
+        assert _table_mul(tables, y) == _gf_mul_ref(y, weight(ct))
+
+
+def _model_case(length: int, aad: bytes, cluster: int, seed: int):
+    rng = np.random.default_rng(seed)
+    nonce, pt = rng.bytes(12), rng.bytes(length)
+    sealed = RefAESGCM(_MODEL_KEY).encrypt(nonce, pt, aad)
+    tag, parts = _model_tag(_MODEL_KEY, nonce, sealed[:-16], aad, cluster)
+    assert tag == sealed[-16:]
+    # The plain version's tag too.
+    desc = torch.from_numpy(aes_gcm.seal_desc([length], [len(aad)]))
+
+    def t(b):
+        return torch.from_numpy(np.frombuffer(b, dtype=np.uint8).copy())
+
+    wire = aes_gcm.seal_plain(_MODEL_KEY, t(pt), desc,
+                              t(nonce).reshape(1, 12), t(aad),
+                              length + aes_gcm.OVERHEAD)
+    assert bytes(wire[-16:].numpy()) == tag
+    return parts
+
+
+@pytest.mark.parametrize("cluster", aes_gcm_cuda.CLUSTER_SIZES)
+@pytest.mark.parametrize("aad", AADS, ids=("oek", "seq", "kms"))
+@pytest.mark.parametrize("length", LENGTHS)
+def test_model_split_equals_cryptography(length, aad, cluster):
+    """Every length (64 KiB included) and AAD at every cluster size."""
+    _model_case(length, aad, cluster, length + len(aad))
+
+
+@pytest.mark.parametrize("cluster", aes_gcm_cuda.CLUSTER_SIZES)
+def test_model_empty_and_aad_only_blocks(cluster):
+    """A zero-length message with a 3 B AAD leaves every block of the
+    cluster but the last without a GHASH block; an AAD of 300 blocks and
+    a 17 B message give the first block AAD only (cluster 2) or nothing;
+    lengths whose GHASH blocks end exactly on a multiple of the cluster's
+    threads, and one block either side."""
+    parts = _model_case(0, b"OEK", cluster, 1)
+    assert parts[:-1] == [0] * (cluster - 1)
+    _model_case(17, bytes(range(256)) * 18 + bytes(192), cluster, 2)
+    ct = cluster * aes_gcm_cuda.THREADS
+    for blocks in (ct - 1, ct, ct + 1):  # AAD of 1 block, lengths block
+        _model_case(16 * (blocks - 2), b"OEK", cluster, blocks)

@@ -437,6 +437,71 @@ def test_aes_open_flags_exactly_the_tampered(cuda):
     assert torch.equal(got, want)
 
 
+def _aes_exact(key, batch, flips=()):
+    """Kernel C and D against the plain version on one batch (chip_smoke's
+    aes_case: ok flags false exactly at the flipped packages)."""
+    errs = {"aes_gcm_seal": 0, "aes_gcm_open": 0}
+    chip_smoke.aes_case(key, batch, "test", errs, flips=flips)
+    assert errs == {"aes_gcm_seal": 0, "aes_gcm_open": 0}
+
+
+@pytest.mark.parametrize("packages", [1, 64, 127])
+def test_aes_kernels_at_cluster_edges(cuda, packages):
+    """GHASH sequences that end exactly on a multiple of a cluster's
+    threads and one block either side, at the cluster size each launch
+    takes; beside them (64 and 127 packages) a zero-length package with no
+    AAD, one with an AAD of 300 blocks and no message, and every other
+    package of a different length."""
+    rng = np.random.default_rng(packages)
+    key = rng.bytes(32)
+    if packages == 1:
+        edges = chip_smoke.aes_edge_lengths(aes_gcm_cuda.cluster_size(1))
+        for ln in edges + [0]:
+            _aes_exact(key, chip_smoke.aes_batch(
+                rng, [ln], [b"OEK" if ln else b""]))
+        return
+    lengths, aads = chip_smoke.aes_edge_batch(packages)
+    assert len(set(lengths)) == packages - 1  # two zero-length packages
+    _aes_exact(key, chip_smoke.aes_batch(rng, lengths, aads))
+
+
+def test_aes_tampered_packages_zeroed_by_every_block(cuda):
+    """127 full packages (a cluster of blocks each): the flipped ones fail
+    and every byte of their plaintext is zero, the others come back."""
+    rng = np.random.default_rng(127)
+    key = rng.bytes(32)
+    aads = [struct.pack("<Q", i) for i in range(127)]
+    batch = chip_smoke.aes_batch(rng, [65_536] * 127, aads)
+    _aes_exact(key, batch, flips=((0, "ct"), (5, "nonce"), (63, "tag"),
+                                  (126, "aad")))
+    desc, data, nonces, aad, n = batch
+    wire = aes_gcm_cuda.seal_cuda(key, data, desc, nonces, aad, n)
+    wire[int(desc[63, 4]) + 12 + 65_536] ^= 1  # package 63's tag
+    got, ok = aes_gcm_cuda.open_cuda(key, wire, aes_gcm.open_desc(desc),
+                                     aad, data.numel())
+    assert ok.bool().tolist() == [p != 63 for p in range(127)]
+    assert not bool(got[63 * 65_536:64 * 65_536].any())
+    assert torch.equal(got[:63 * 65_536], data[:63 * 65_536])
+    assert torch.equal(got[64 * 65_536:], data[64 * 65_536:])
+
+
+def test_aes_seal_and_open_in_a_cuda_graph(cuda):
+    rng = np.random.default_rng(16)
+    errs = {"aes_gcm_seal": 0, "aes_gcm_open": 0}
+    chip_smoke.aes_graph_case(rng.bytes(32), chip_smoke.aes_batch(
+        rng, [65_536] * 15 + [12_345],
+        [struct.pack("<Q", i) for i in range(16)]), errs)
+    assert errs == {"aes_gcm_seal": 0, "aes_gcm_open": 0}
+
+
+def test_aes_launches_counted_by_package_count(cuda):
+    key, desc, data, nonces, aad, n = _aes_batch([100, 200, 300],
+                                                 [b"OEK"] * 3, 3, cuda)
+    before = aes_gcm_cuda.SEAL_LAUNCHES_BY_SHAPE.snapshot().get("3", 0)
+    aes_gcm_cuda.seal_cuda(key, data, desc, nonces, aad, n)
+    assert aes_gcm_cuda.SEAL_LAUNCHES_BY_SHAPE.snapshot()["3"] == before + 1
+
+
 @pytest.mark.parametrize("i", range(len(chip_smoke.AES_GCM_KAT)))
 def test_aead_known_answers_on_card(cuda, i):
     key, nonce, pt, aad, want = (bytes.fromhex(x)
