@@ -140,8 +140,9 @@ Phases, each of which must pass (nothing is caught):
     part-file bytes rebuilt, the repair plane's STATS at 8.0 bytes read a
     byte healed with no fallback, the pacer's grants, one a heal), every
     file of d8 back. Two scanner cycles (its loop stopped): usage equal
-    to the admin datausage walk, the second skipping both buckets through
-    the update tracker, the admin usage snapshot over HTTP. Kernel A's
+    to the admin datausage walk, the second skipping through the update
+    tracker every bucket the first's sampled heals (1 object in 512) did
+    not touch, the admin usage snapshot over HTTP. Kernel A's
     wrapper also counts its launches by shape. Prints {"self_heal": ...};
     one traced run (object_self_heal at 64 MiB + 12,345 B) gives the idle
     share. 3b: kernel A and B at the shard lengths of the objects the
@@ -160,6 +161,32 @@ Phases, each of which must pass (nothing is caught):
     kernel D, each heal kernels A and B and never C or D. Prints each
     step's seconds, GB/s of logical object and launches, the peak
     resident-set growth of each PUT and GET, and {"sse": ...};
+ 4l. admission and drive health over HTTP (entry.admission_drive_health):
+    a Server over 16 drive directories (one 12+4 set, 1 MiB blocks,
+    dense-gf8), its S3 plane alone, every drive under the health wrapper
+    with per-op deadlines of 1 s (2 s for long ops), a breaker threshold
+    of 3 and a probe every 0.5 s, the governors pinned. a: the hot key's
+    6 PUTs of 64 MiB + 12,345 B against 2 encode slots (client cap 2,
+    queue 16), the quiet key's one PUT queued behind them: the grant
+    order (a probe on the governor) must be hot, hot, hot, quiet, hot,
+    hot, hot, every object read back exactly, each GET's decode slot
+    charged to its caller, arrivals = admitted + rejected - late grants;
+    b: queue 2, the PUTs past it answered 503 SlowDown at once with
+    nothing stored; with the read governor saturated a GET answered 503
+    SlowDown before its status line; MTPU_ADMISSION_TENANT=bucket giving
+    a second bucket of the same key the second turn; c: drive d6 stalled
+    on every op (installed before the server's first op): a degraded GET
+    (kernel A) and a 256 MiB + 12,345 B PUT at write quorum, each before
+    and after the breaker latches (after it: ErrDiskFaulty at once, no
+    deadline paid), the stall lifted and the drive let back in by the
+    probe; d: the admin heal of c under a foreground backlog of 2
+    (pacer yields, every heal granted by its max wait; d6's rebuilt part
+    files equal by SHA-256 to those written while it was healthy), a
+    heal with no backlog granted at once, the pacer's window fed by the
+    wrapper. Kernel B launches in every step, A in the degraded GETs
+    and the heal, C and D nowhere. Prints {"admission": ...} with each
+    step's seconds and launches, the grant orders, the governors' and
+    drives' health snapshots and the pacer's counters;
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
@@ -171,7 +198,7 @@ Phases, each of which must pass (nothing is caught):
     127 (the port's batch) and 4,097 packages, each with its share of
     the bound and its launches in 4k) and print one JSON line
     {"kernels": [...]}, whose launches are those of phases 4, 4c, 4e, 4h,
-    4i, 4j and 4k (by path in "launches_by_path"); every kernel must
+    4i, 4j, 4k and 4l (by path in "launches_by_path"); every kernel must
     have launched on the main paths;
  6. print the device JSON as the last line.
 
@@ -196,6 +223,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OBJECT_SIZE = (256 << 20) + 12_345
 TRACE_SIZE = (64 << 20) + 12_345
+ADMISSION_SIZE = (64 << 20) + 12_345
 INLINE_SIZE = 100 << 10
 # Phase 4e: multipart parts (minio-go's 16 MiB part size) and the small
 # objects' sizes.
@@ -316,15 +344,17 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def path_shard_lengths() -> list[int]:
     """The shard lengths the main paths give the kernels: a full block's,
     and the ragged last block's of each object or part that phases 4,
-    4b, 4c, 4d, 4e, 4f and 4i store (an inline or small object is one
-    short block; 4i's UploadPartCopy parts end in 7 B and 12,338 B)."""
+    4b, 4c, 4d, 4e, 4f, 4i and 4l store (an inline or small object is one
+    short block; 4i's UploadPartCopy parts end in 7 B and 12,338 B; 4l's
+    refused PUTs are never encoded)."""
     from minio_tpu_torch.entry import part_copy_ranges
 
     core_parts = [last - first + 1
                   for first, last in part_copy_ranges(OBJECT_SIZE)]
     lengths = set()
     for size in (OBJECT_SIZE, TRACE_SIZE, INLINE_SIZE, MP_PART, MP_LAST,
-                 *SMALL_SIZES, *core_parts, CORE_SMALL_SIZE):
+                 *SMALL_SIZES, *core_parts, CORE_SMALL_SIZE,
+                 ADMISSION_SIZE):
         if size >= BLOCK:
             lengths.add(SHARD)
         if size % BLOCK:
@@ -1573,6 +1603,8 @@ def run_self_heal() -> tuple[dict, dict, dict]:
         log(f"4j {key}: {res['seconds'][key]:.4f} s")
     log(f"4j codecs the server stamped: {res['codecs']}")
     log(f"4j sweep: {res['sweep']}")
+    log(f"4j the first scan cycle's sampled heals: "
+        f"{res['scan_sampled_heals']}")
     log(f"4j kernel A launches by (rows out)x(rows in): {tally}")
     line = {"object_size": res["size"], "k": K, "m": M,
             "outage_drive": res["outage_drive"],
@@ -1582,6 +1614,7 @@ def run_self_heal() -> tuple[dict, dict, dict]:
             "mrf_queued": res["mrf_queued"], "seconds": res["seconds"],
             "launches": per_phase, "gf_apply_by_shape": tally,
             "sweep": res["sweep"], "usage": res["usage"],
+            "scan_sampled_heals": res["scan_sampled_heals"],
             "checks": res["checks"]}
     return line, launches, res["system_objects"]
 
@@ -1654,6 +1687,81 @@ def run_sse() -> tuple[dict, dict]:
             "aes_launches_by_packages": by_shape,
             "rss_peak_bytes": res["rss_peak_bytes"],
             "checks": res["checks"]}
+    return line, launches
+
+
+# Phase 4l's steps, their sub-steps, and the sub-steps that must launch
+# kernel A (a degraded GET or a heal).
+ADMISSION_STEPS = {
+    "a": ("fair_puts", "fair_gets"),
+    "b": ("queue_full_puts", "saturated_get", "tenant_puts"),
+    "c": ("healthy_put", "get_before_latch", "get_after_latch",
+          "put_before_latch", "put_after_latch"),
+    "d": ("heal_under_backlog", "heal_no_backlog")}
+ADMISSION_NEED_A = ("get_before_latch", "get_after_latch",
+                    "heal_under_backlog")
+
+
+def run_admission() -> tuple[dict, dict]:
+    """Phase 4l: entry.admission_drive_health, the admission governors
+    and the drive health wrapper of a Server over HTTP."""
+    from minio_tpu_torch.entry import admission_drive_health
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = admission_drive_health(tmp, ADMISSION_SIZE, OBJECT_SIZE,
+                                     device="cuda", seed=60)
+        launches = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"admission checks failed: {failed}")
+    card = card_line()
+    per_sub, per_step = {}, {}
+    for step, subs in ADMISSION_STEPS.items():
+        tot = {"A": 0, "B": 0, "C": 0, "D": 0, "seconds": 0.0}
+        for sub in subs:
+            c = res["counters"][sub]
+            n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+                 "C": c["kernel_seal_launches"],
+                 "D": c["kernel_open_launches"]}
+            per_sub[sub] = dict(n, seconds=res["seconds"][sub])
+            if n["C"] or n["D"] or (sub in ADMISSION_NEED_A and n["A"] <= 0):
+                raise AssertionError(f"4l {sub}: launches {n}")
+            for key in n:
+                tot[key] += n[key]
+            tot["seconds"] += res["seconds"][sub]
+            log(f"4l {step} {sub}: {res['seconds'][sub]:.4f} s, launches "
+                f"A {n['A']} B {n['B']} C {n['C']} D {n['D']} ({card})")
+        if tot["B"] <= 0:
+            raise AssertionError(f"4l step {step}: kernel B never launched")
+        per_step[step] = tot
+    hung = res["hung_drive"]
+    log(f"4l grant order {res['fairness']['grant_order']}, quiet wait "
+        f"{res['fairness']['quiet_wait_s']:.4f} s ({card})")
+    log(f"4l refusals {res['overload']['queue_full']['refusal_seconds']} s, "
+        f"fail fast {hung['fail_fast_s']:.6f} s, readmitted after "
+        f"{hung['readmit_s']} s ({card})")
+    log(f"4l stalled drive health: {hung['health']}")
+    log(f"4l pacer: after c {hung['pacer_after_c']}, under backlog "
+        f"{hung['pacer_under_backlog']}, no backlog "
+        f"{hung['pacer_no_backlog']}")
+    line = {"card": card, "size": res["size"],
+            "hung_size": res["hung_size"], "k": K, "m": M,
+            "stalled_drive": res["stalled_drive"], "robust": res["robust"],
+            "seconds": res["seconds"], "steps": per_step,
+            "launches": per_sub, "fairness": res["fairness"],
+            "overload": res["overload"],
+            "hung_drive": {k: hung[k] for k in (
+                "health", "fail_fast_s", "readmit_s", "latch_pokes_get",
+                "latch_pokes_put", "backlog", "heal_state",
+                "pacer_after_c", "pacer_under_backlog", "pacer_no_backlog",
+                "governor", "stalled_ops")},
+            "disk_health": res["disk_health"], "checks": res["checks"]}
     return line, launches
 
 
@@ -1992,13 +2100,17 @@ def main() -> int:
     t0 = time.perf_counter()
     sse_line, sse_launches = run_sse()
     log(f"SSE phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    admission_line, admission_launches = run_admission()
+    log(f"admission phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
                       "codecs": codec_launches[name],
                       "s3_core": core_launches[name],
                       "self_heal": heal_launches[name],
-                      "s3_sse": sse_launches[name]}
+                      "s3_sse": sse_launches[name],
+                      "admission": admission_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
@@ -2022,6 +2134,7 @@ def main() -> int:
     print(json.dumps({"s3_core": core_line}), flush=True)
     print(json.dumps({"self_heal": heal_line}), flush=True)
     print(json.dumps({"sse": sse_line}), flush=True)
+    print(json.dumps({"admission": admission_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

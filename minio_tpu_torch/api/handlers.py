@@ -40,7 +40,8 @@ from ..crypto import sse as ssemod
 from ..erasure import registry
 from ..iam.policy import Policy
 from ..object.types import CompletePart, ObjectOptions
-from ..utils.errors import StorageError
+from ..pipeline.admission import client_context, current_client, read_governor
+from ..utils.errors import ErrOperationTimedOut, StorageError
 from . import transforms
 from .errors import S3Error, from_object_error
 
@@ -1037,6 +1038,15 @@ class S3ApiHandlers:
                                                      oi.size)
         rng = parse_range(ctx.headers.get("range", ""), logical_size)
         offset, length = rng if rng else (0, logical_size)
+        # The decode slot is taken inside the body stream, after the
+        # status line, where a queue-full rejection could only sever the
+        # connection: probe the read governor now and answer 503
+        # SlowDown. The stream runs after the dispatch's identity is gone,
+        # so it re-enters the caller's.
+        if read_governor().saturated():
+            exc = ErrOperationTimedOut("server busy: GET admission queue full")
+            raise from_object_error(exc) from exc
+        caller = current_client()
         # The stream serves the advertised version or nothing.
         opts.expected_etag = oi.etag
         resp_extra: dict = {}
@@ -1055,16 +1065,19 @@ class S3ApiHandlers:
 
             def stream(dst):
                 sink.dst = dst
-                self.ol.get_object(ctx.bucket, ctx.object, chain,
-                                   length=stored, opts=opts)
+                with client_context(caller):
+                    self.ol.get_object(ctx.bucket, ctx.object, chain,
+                                       length=stored, opts=opts)
                 for c in closers:
                     c.close()
         else:
             def stream(dst):
                 # The decode writes each block to the socket as it is
                 # made: the object is never held whole.
-                self.ol.get_object(ctx.bucket, ctx.object, dst,
-                                   offset=offset, length=length, opts=opts)
+                with client_context(caller):
+                    self.ol.get_object(ctx.bucket, ctx.object, dst,
+                                       offset=offset, length=length,
+                                       opts=opts)
 
         headers = self._object_headers(ctx, oi)
         headers.update(resp_extra)

@@ -7,7 +7,8 @@ unless MTPU_ALLOW_INSECURE_SSEC is set, the body cap, reserved buckets,
 object names, upload ids), routed,
 authenticated and authorized, and its body is wrapped in the verifier
 its signature asks for (aws-chunked decoding, or x-amz-content-sha256),
-before the handler runs.
+before the handler runs. The handler, and the body it streams, run
+under the caller's admission identity and the request's op class.
 
 The routes of the slice are the bucket calls, versioning, bucket policy
 and tagging, the canned bucket answers and ACLs, ListObjects v1 and v2,
@@ -33,6 +34,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..crypto import sse as ssemod
 from ..iam.store import IAMSys
+from ..observability import ioflow
+from ..pipeline.admission import client_context, identity
 from ..utils.device import resolve_device
 from . import sign
 from .admin import ADMIN_PREFIX, AdminHandlers
@@ -120,6 +123,26 @@ _UNPORTED_ROUTES = frozenset({
     "bucket_replication", "bucket_notification", "object_retention",
     "object_legal_hold", "select_object_content", "restore_object",
 })
+
+# The op class of each route, minio_tpu's: the heal pacer counts the disk
+# latencies of these classes as foreground.
+_OP_CLASSES = {
+    "put_object": "put", "post_policy_object": "put",
+    "get_object": "get", "head_object": "get",
+    "select_object_content": "get", "restore_object": "get",
+    "list_objects_v1": "list", "list_objects_v2": "list",
+    "list_object_versions": "list", "list_buckets": "list",
+    "list_multipart_uploads": "list",
+    "new_multipart_upload": "multipart", "put_object_part": "multipart",
+    "complete_multipart_upload": "multipart",
+    "abort_multipart_upload": "multipart",
+    "list_object_parts": "multipart",
+}
+
+
+def op_class(api_name: str) -> str:
+    return _OP_CLASSES.get(api_name, "other")
+
 
 # S3 header limits (setRequestHeaderSizeLimitHandler): 8 KiB of headers,
 # 2 KiB of user metadata.
@@ -565,7 +588,29 @@ class S3Server:
                 # No body, but the signature promised one.
                 raise S3Error("XAmzContentSHA256Mismatch",
                               "empty body, non-empty hash")
-        return getattr(self.handlers, name)(ctx)
+        return self._dispatch(name, auth_result.access_key, ctx)
+
+    def _dispatch(self, name: str, access_key: str,
+                  ctx: RequestContext) -> Response:
+        """Run the handler under the caller's admission identity (the
+        access key, else anonymous, and the bucket) and the request's op
+        tag. A streaming body runs after this returns, on the writer's
+        side: it re-enters both, so a GET's decode slot is charged to its
+        caller and its disk ops count as foreground."""
+        with client_context(access_key or "anonymous",
+                            bucket=ctx.bucket or ""), \
+                ioflow.tag(op_class(name)) as holder:
+            resp = getattr(self.handlers, name)(ctx)
+            ident = identity()
+        if resp.body_stream is not None:
+            inner = resp.body_stream
+
+            def stream(w):
+                with client_context(*ident), ioflow.activate(holder):
+                    inner(w)
+
+            resp.body_stream = stream
+        return resp
 
     def _wrap_streaming_body(self, ctx: RequestContext) -> None:
         """The body becomes the verifying aws-chunked decoder, of the

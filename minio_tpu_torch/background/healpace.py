@@ -15,14 +15,11 @@ instead of taking it:
 The pacer holds no lock while a heal runs (the token is a counter, not a
 mutex), so it adds no edge to the lock graph.
 
-Pressure in minio_tpu is (a) the admission governors' backlog or (b) the
-foreground disk p99 over a sliding window. The port has neither input
-yet: admission (`pipeline/admission.py`) is not ported, so the default
-probe reads the p99 term alone (and the config has no backlog threshold,
-minio_tpu's `queue_high`), and nothing calls `note_disk_op` until
-the per-drive health wrapper (`storage/diskcheck.py` `DiskHealth`) is
-ported. Until then the pacer grants every heal at once, up to its
-tokens.
+Pressure is (a) the backlog of either admission governor
+(`pipeline/admission.py`) at or over `queue_high`, or (b) the foreground
+disk p99 over a sliding window, which the drive wrapper
+(`storage/diskcheck.py` `MetricsDisk`) feeds through `note_disk_op` on
+every timed op.
 
 Disarm with `MTPU_HEAL_PACE=off`: every surface becomes an inert no-op.
 """
@@ -63,6 +60,7 @@ def _env_int(name: str, default: int) -> int:
 class PaceConfig:
     enabled: bool = True
     tokens: int = 2               # concurrent heal token pool
+    queue_high: int = 2           # admission backlog that counts as pressure
     disk_p99_ms: float = 75.0     # foreground disk p99 that counts as pressure
     max_wait_s: float = 2.0       # deadline-grant bound a heal
     yield_s: float = 0.05         # sleep quantum while yielding
@@ -75,6 +73,7 @@ class PaceConfig:
         return cls(
             enabled=enabled,
             tokens=max(1, _env_int("MTPU_HEAL_PACE_TOKENS", 2)),
+            queue_high=max(1, _env_int("MTPU_HEAL_PACE_QUEUE_HIGH", 2)),
             disk_p99_ms=_env_float("MTPU_HEAL_PACE_DISK_P99_MS", 75.0),
             max_wait_s=_env_float("MTPU_HEAL_PACE_MAX_WAIT_MS", 2000.0)
             / 1000.0)
@@ -114,8 +113,15 @@ class HealPacer:
     # -- pressure --
 
     def _default_pressure(self) -> bool:
-        """minio_tpu's probe without its admission-backlog term (not
-        ported): the foreground disk p99 against its threshold."""
+        """The queue depth of both admission governors against
+        `queue_high`, then the foreground disk p99 against its
+        threshold."""
+        from ..pipeline import admission
+
+        backlog = (admission.governor().backlog()
+                   + admission.read_governor().backlog())
+        if backlog >= self.cfg.queue_high:
+            return True
         return self.disk_p99_s() * 1000.0 >= self.cfg.disk_p99_ms
 
     def pressured(self) -> bool:

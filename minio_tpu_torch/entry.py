@@ -56,18 +56,29 @@ from .erasure.streaming import (
 )
 from .api.client import S3Client
 from .api.handlers import copy_reads_snapshot
+from .background import healpace
+from .iam.store import Credentials, IAMSys
 from .object import erasure_objects
 from .object.sets import ErasureSets
 from .object.types import ObjectOptions
 from .crypto import sse as ssemod
 from .ops import aes_gcm_cuda, gf, highwayhash_torch, host_feed, rs_cuda
 from .ops.rs import apply_gf_matrix
+from .pipeline import admission
 from .server import Server
+from .storage.diskcheck import _TIMED_OPS as TIMED_OPS
+from .storage.diskcheck import robust_overrides, unwrap
 from .storage.local import LocalStorage
 from .storage.xlmeta import XLMeta
 from .utils import ceil_frac
 from .utils.device import resolve_device
-from .utils.errors import ErrFileCorrupt, ErrFileNotFound
+from .utils.errors import (
+    ErrDiskFaulty,
+    ErrDiskNotFound,
+    ErrFileCorrupt,
+    ErrFileNotFound,
+    StorageError,
+)
 
 
 def entry(device="cuda"):
@@ -1133,11 +1144,13 @@ def _journal_versions(path: Path) -> list:
             for v in XLMeta.from_bytes(path.read_bytes()).versions]
 
 
-def _replace_drive(disk: LocalStorage, path: Path) -> None:
+def _replace_drive(disk, path: Path) -> None:
     """A replaced drive: an empty directory at the same mount point, the
-    same LocalStorage object re-opened on it."""
+    same LocalStorage object re-opened on it (under a server's health
+    wrapper, the raw drive is re-opened and the wrapper kept)."""
+    raw = unwrap(disk)
     shutil.rmtree(path)
-    disk.__init__(str(path), endpoint=disk.endpoint(), device=disk.device)
+    raw.__init__(str(path), endpoint=raw.endpoint(), device=raw.device)
 
 
 SELF_HEAL_OUTAGE = 3    # drive d3 goes offline during writes
@@ -1181,13 +1194,13 @@ def self_heal(root, size: int, device="cuda", big_count: int = 6,
        msr-pm objects took the repair plane at its plan's ratio, and the
        pacer granted one token a heal, none at its deadline;
     4. the scanner, its loop stopped: one cycle whose per-bucket usage
-       equals the admin datausage walk, a second that skips both
-       unchanged buckets through the tracker, and the admin usage
-       snapshot over HTTP.
+       equals the admin datausage walk, a second that skips through the
+       tracker every bucket the first left unchanged (all but those its
+       1-in-512 sampled heals touched), and the admin usage snapshot
+       over HTTP.
 
     Returns seconds, counter deltas, the sweep's numbers and the checks,
     each True when it held."""
-    from .background import healpace
 
     dev = resolve_device(device)
     root = Path(root)
@@ -1380,15 +1393,30 @@ def self_heal(root, size: int, device="cuda", big_count: int = 6,
         # 4. The scanner, its 60 s loop stopped so the cycles are ours.
         server.scanner.stop()
         checks["scanner_loop_stopped"] = not server.scanner._thread.is_alive()
+        # A cycle heals 1 object in 512 it visits (the count runs across
+        # cycles, the loop's own included), and a heal marks its bucket
+        # changed: the second cycle rescans exactly those buckets.
+        sampled: list = []
+        heal_one = server.scanner._heal_one
+
+        def sampled_heal(bucket, object_):
+            sampled.append(f"{bucket}/{object_}")
+            heal_one(bucket, object_)
+
+        server.scanner._heal_one = sampled_heal
         usage = phase("scan_cycle", server.scanner.scan_cycle)
+        out["scan_sampled_heals"] = list(sampled)
         status, _, body = c.request("GET", "/minio/admin/v3/datausage")
         walk = json.loads(body)["bucketsUsage"] if status == 200 else {}
         checks["scan_equals_walk"] = bool(walk) and walk == {
             bk: {"objectsCount": u.objects_count, "size": u.objects_size}
             for bk, u in usage.buckets_usage.items()}
         phase("scan_cycle_2", server.scanner.scan_cycle)
+        healed_buckets = {key.split("/", 1)[0]
+                          for key in out["scan_sampled_heals"]}
         checks["second_cycle_skips"] = (
-            server.scanner.buckets_skipped_last_cycle == len(walk))
+            server.scanner.buckets_skipped_last_cycle
+            == len(walk) - len(healed_buckets & set(walk)))
         status, _, body = c.request("GET", "/minio/admin/v3/usage",
                                     [("histogram", "true")])
         snap = json.loads(body) if status == 200 else {}
@@ -1680,7 +1708,10 @@ def s3_sse(root, size: int, device="cuda", modes=SSE_MODES,
     return out
 
 
-def _sse_get(c: S3Client, key: str, want: bytes, headers=None, query=None):
+def _get_exact(c: S3Client, key: str, want: bytes, headers=None,
+               query=None):
+    """GET `key`, holding the body to `want` piece by piece: (status,
+    headers, equal)."""
     cmp = _Compare(want)
     status, h, _ = c.get_stream(key, cmp, query, headers)
     return status, h, cmp.ok
@@ -1712,11 +1743,11 @@ def _sse_object(c, server, root: Path, mode: str, payload: bytes, phase,
         fi.size == ssemod.encrypted_size(len(payload))
         and fi.metadata.get(ssemod.META_ACTUAL_SIZE) == str(len(payload)))
     with _rss_peak(out["rss_peak_bytes"], f"{mode}:get"):
-        status, h, ok = phase(f"{mode}:get", lambda: _sse_get(
+        status, h, ok = phase(f"{mode}:get", lambda: _get_exact(
             c, key, payload, get_headers))
     checks[f"{mode}:get_ok"] = status == 200 and ok and has_sse(h)
     rng = dict(get_headers, Range=f"bytes={first}-{first + length - 1}")
-    status, h, ok = phase(f"{mode}:range_get", lambda: _sse_get(
+    status, h, ok = phase(f"{mode}:range_get", lambda: _get_exact(
         c, key, payload[first:first + length], rng))
     checks[f"{mode}:range_get_ok"] = status == 206 and ok and h.get(
         "Content-Range") == (f"bytes {first}-{first + length - 1}/"
@@ -1728,7 +1759,7 @@ def _sse_object(c, server, root: Path, mode: str, payload: bytes, phase,
     originals = _object_files(root, S3_BUCKET, name)
     for i in S3_WIPED:
         shutil.rmtree(root / f"d{i + 1}" / S3_BUCKET / name)
-    status, _, ok = phase(f"{mode}:degraded_get", lambda: _sse_get(
+    status, _, ok = phase(f"{mode}:degraded_get", lambda: _get_exact(
         c, key, payload, get_headers))
     checks[f"{mode}:degraded_get_ok"] = status == 200 and ok
     healed = phase(f"{mode}:heal", lambda: server.object_layer.heal_object(
@@ -1736,7 +1767,7 @@ def _sse_object(c, server, root: Path, mode: str, payload: bytes, phase,
     checks[f"{mode}:heal_ok"] = len(healed["healed"]) == len(S3_WIPED)
     checks[f"{mode}:healed_identical"] = bool(originals) and _object_files(
         root, S3_BUCKET, name) == originals
-    status, _, ok = phase(f"{mode}:get_after_heal", lambda: _sse_get(
+    status, _, ok = phase(f"{mode}:get_after_heal", lambda: _get_exact(
         c, key, payload, get_headers))
     checks[f"{mode}:get_after_heal_ok"] = status == 200 and ok
 
@@ -1751,9 +1782,614 @@ def _sse_copy_and_wrong_key(c, payload: bytes, phase, out: dict,
     status, h, _ = phase("copy_ssec_to_sses3", lambda: c.request(
         "PUT", dst, headers=headers))
     checks["copy_ok"] = status == 200 and h.get(ssemod.HDR_SSE) == "AES256"
-    status, h, ok = phase("get_copy", lambda: _sse_get(c, dst, payload))
+    status, h, ok = phase("get_copy", lambda: _get_exact(c, dst, payload))
     checks["get_copy_ok"] = status == 200 and ok and h.get(
         ssemod.HDR_SSE) == "AES256"
     status, _, body = phase("wrong_key_get", lambda: c.request(
         "GET", src, headers=ssec_headers(SSE_C_WRONG_KEY)))
     checks["wrong_key_denied"] = status == 403 and b"AccessDenied" in body
+
+
+# ---------------------------------------------------------------------------
+# Admission and drive health (phase 4l of chip_smoke.py)
+
+ADMISSION_BUCKET = "adm"
+ADMISSION_HUNG_BUCKET = "adm-hung"
+ADMISSION_TENANT_BUCKETS = ("adm-hot", "adm-quiet")
+ADMISSION_STALLED = 5              # the drive index (d6) that hangs
+ADMISSION_HOT_PUTS = 6
+ADMISSION_QUIET, ADMISSION_QUIET_SECRET = "smoke-quiet", "smoke-quiet-secret"
+ADMISSION_REJECTED_SIZE = (64 << 10) + 12_345
+ADMISSION_DEADLINES = {"op_deadline_s": 1.0, "long_op_deadline_s": 2.0,
+                       "breaker_threshold": 3, "probe_interval_s": 0.5}
+
+
+class StallingDrive:
+    """A raw drive whose ops in `ops` hang while `hold()` is in force: an
+    op that arrives then waits until `release()` and then fails with
+    `error`, as a drive whose controller reset drops what it had in
+    flight, so a stalled op has no late side effect. Every other
+    attribute passes through."""
+
+    def __init__(self, disk, ops, error=ErrDiskNotFound):
+        self._disk = disk
+        self._ops = frozenset(ops)
+        self._error = error
+        self._cv = threading.Condition()
+        self._held = False      # guarded-by: _cv
+        self._epoch = 0         # guarded-by: _cv
+        self.stalled = 0        # guarded-by: _cv
+
+    def hold(self) -> None:
+        with self._cv:
+            self._held = True
+
+    def release(self) -> None:
+        with self._cv:
+            self._held = False
+            self._epoch += 1
+            self._cv.notify_all()
+
+    def __getattr__(self, name: str):
+        attr = getattr(self._disk, name)
+        if name not in self._ops:
+            return attr
+
+        def call(*args, **kwargs):
+            with self._cv:
+                if self._held:
+                    self.stalled += 1
+                    epoch = self._epoch
+                    while self._epoch == epoch:
+                        self._cv.wait()
+                    raise self._error(f"{self._disk.endpoint()}: {name} "
+                                      "stalled, dropped at release")
+            return attr(*args, **kwargs)
+
+        call.__name__ = name
+        return call
+
+
+class _Accounts(IAMSys):
+    """The root credential and more keys with the root's rights: the
+    port's IAM holds the root alone (users and policies are not ported),
+    and the phase needs two clients."""
+
+    def __init__(self, root_access: str, root_secret: str, others: dict):
+        super().__init__(root_access, root_secret)
+        self.others = {ak: Credentials(ak, sk) for ak, sk in others.items()}
+
+    def get_credentials(self, access_key: str):
+        return (self.others.get(access_key)
+                or super().get_credentials(access_key))
+
+    def is_allowed(self, args) -> bool:
+        return args.account in self.others or super().is_allowed(args)
+
+
+class _AdmissionServer(Server):
+    """The phase's server: the drive at index ADMISSION_STALLED is a
+    StallingDrive under the health wrapper, put there before the server's
+    first op (the wrapper caches each method at its first call), and the
+    IAM knows a second key."""
+
+    def __init__(self, *args, **kwargs):
+        self.stall = None
+        super().__init__(*args, **kwargs)
+        self.iam = self.s3.iam = self.s3.admin.iam = _Accounts(
+            self.root_user, self.root_password,
+            {ADMISSION_QUIET: ADMISSION_QUIET_SECRET})
+
+    def _wrap_disk(self, raw, ep: str):
+        if Path(ep).name == f"d{ADMISSION_STALLED + 1}":
+            raw = self.stall = StallingDrive(raw, TIMED_OPS)
+        return super()._wrap_disk(raw, ep)
+
+
+class _GatedReader(_PayloadReader):
+    """A request body that stops at byte `at` until `gate` is set, so the
+    PUT holds its admission slot until the phase lets it go on."""
+
+    def __init__(self, data: bytes, gate: threading.Event | None, at: int):
+        super().__init__(data)
+        self._gate, self._at = gate, at
+
+    def read(self, n: int = -1) -> bytes:
+        if self._gate is not None and self._pos >= self._at:
+            if not self._gate.wait(120):
+                raise TimeoutError("gate never opened")
+            self._gate = None
+        if self._gate is not None and n is not None and n >= 0:
+            n = min(n, self._at - self._pos)
+        return super().read(n)
+
+
+def _grant_probe(g) -> list:
+    """Record (client, monotonic time) of every grant `g` makes, in
+    order, by wrapping the governor's grant step."""
+    grants: list = []
+    grant_to = g._grant_to
+
+    def probe(client):
+        grants.append((client, time.monotonic()))
+        grant_to(client)
+
+    g._grant_to = probe
+    return grants
+
+
+def _conserved(snap: dict) -> bool:
+    """The governor's conservation identity: every arrival ends admitted
+    or rejected, less the late grants handed back."""
+    return snap["arrivals_total"] == (
+        snap["admitted_total"] + snap["rejected_queue_full"]
+        + snap["rejected_deadline"] - snap["late_grant_returns"])
+
+
+def _gated_puts(client, bucket: str, names, payloads: dict, gate, at: int,
+                results: dict) -> list:
+    """Start one PUT thread a name, its body stopping at `at` until
+    `gate` is set (no gate: straight through)."""
+    def put(name):
+        results[name] = client.put_stream(
+            f"/{bucket}/{name}", _GatedReader(payloads[name], gate, at),
+            len(payloads[name]))
+
+    threads = [threading.Thread(target=put, args=(n,), daemon=True)
+               for n in names]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _join(threads, timeout_s: float = 300.0) -> None:
+    for t in threads:
+        t.join(timeout_s)
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("a client thread did not finish")
+
+
+def admission_drive_health(root, size: int, hung_size: int, device="cuda",
+                           seed: int = 60) -> dict:
+    """Drive admission and drive health on a Server over 16 fresh drive
+    directories under `root` (one 12+4 set, its S3 plane alone), with
+    per-op deadlines of 1 s (2 s for long ops), a breaker threshold of 3
+    and a probe every 0.5 s, the governors pinned, the heal pacer at its
+    defaults:
+
+    a. fairness: encode governor of 2 slots, client cap 2, queue 16; the
+       hot key's 6 PUTs of `size` bytes (the two admitted hold their
+       slots until the quiet PUT has queued), then the quiet key's one;
+       the grants in order, every object read back, the conservation
+       identity;
+    b. overload: queue 2, the PUTs past it refused with 503 SlowDown and
+       nothing stored; a GET refused with 503 SlowDown before its status
+       line while the read governor is saturated;
+       MTPU_ADMISSION_TENANT=bucket giving two buckets of one key their
+       own turns;
+    c. a hung drive (index ADMISSION_STALLED): `hung_size`-byte objects
+       written healthy, then with the drive stalled a degraded GET and a
+       PUT before and after the breaker latches, the latched drive
+       failing fast with ErrDiskFaulty, the stall lifted and the probe
+       letting it back in;
+    d. pacing: the admin heal of c under a foreground backlog of 2
+       (yields, every heal granted by the pacer's max wait), whose
+       rebuilt part files equal by SHA-256 those written while the drive
+       was healthy; a heal with no backlog granted at once.
+
+    Returns each step's seconds and counter deltas, the grant orders,
+    the governors' and the drives' health snapshots, the pacer's
+    counters and the checks."""
+    dev = resolve_device(device)
+    root = Path(root)
+    out: dict = {"size": size, "hung_size": hung_size, "k": 12, "m": 4,
+                 "stalled_drive": ADMISSION_STALLED, "seconds": {},
+                 "counters": {}, "robust": dict(ADMISSION_DEADLINES)}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    rng = np.random.default_rng(seed)
+    with robust_overrides(**ADMISSION_DEADLINES):
+        healpace.reconfigure(healpace.PaceConfig())
+        admission.reconfigure_read(admission.AdmissionConfig(
+            slots=4, per_client_cap=4, max_queue=16, deadline_s=60.0))
+        server = _AdmissionServer(
+            [str(root / "d{1...16}")], port=0, root_user=S3_ACCESS,
+            root_password=S3_SECRET, default_parity=4, device=dev)
+        # The S3 plane alone: the monitor would pull the hung drive and
+        # the MRF drain would heal behind the phase's back.
+        server.s3.start()
+        try:
+            hot = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+            quiet = S3Client(server.endpoint, ADMISSION_QUIET,
+                             ADMISSION_QUIET_SECRET)
+            checks["buckets_ok"] = all(
+                hot.request("PUT", f"/{b}")[0] == 200
+                for b in (ADMISSION_BUCKET, ADMISSION_HUNG_BUCKET,
+                          *ADMISSION_TENANT_BUCKETS))
+            _admission_fairness(hot, quiet, size, rng, phase, out, checks)
+            _admission_overload(root, hot, quiet, size, rng, phase, out,
+                                checks)
+            _admission_hung_drive(server, root, hot, hung_size, size, rng,
+                                  phase, out, checks)
+            out["disk_health"] = {
+                Path(d.health.endpoint).name: d.health_info()
+                for d in server.object_layer.pools[0].disks}
+            checks["healthy_drives_never_timed_out"] = all(
+                h["timeouts"] == 0 and h["latched"] == 0
+                for name, h in out["disk_health"].items()
+                if name != f"d{ADMISSION_STALLED + 1}")
+        finally:
+            if server.stall is not None:
+                server.stall.release()
+            server.stop()
+            admission.reconfigure()
+            admission.reconfigure_read()
+            healpace.reset()
+    out["checks"] = checks
+    return out
+
+
+def _admission_fairness(hot, quiet, size, rng, phase, out, checks) -> None:
+    """Step a."""
+    b = ADMISSION_BUCKET
+    g = admission.reconfigure(admission.AdmissionConfig(
+        slots=2, per_client_cap=2, max_queue=16, deadline_s=60.0))
+    grants = _grant_probe(g)
+    read_grants = _grant_probe(admission.read_governor())
+    hot_names = [f"fair/hot-{i}" for i in range(ADMISSION_HOT_PUTS)]
+    quiet_name = "fair/quiet"
+    payloads = {n: rng.bytes(size) for n in hot_names + [quiet_name]}
+    results: dict = {}
+    gate = threading.Event()
+    at = min(4 << 20, size // 2)
+    arrived = {}
+
+    def run():
+        threads = _gated_puts(hot, b, hot_names, payloads, gate, at, results)
+        _wait_for(lambda: g.snapshot()["waiting"] == ADMISSION_HOT_PUTS - 2,
+                  60, "hot PUTs queued")
+        threads += _gated_puts(quiet, b, [quiet_name], payloads, None, at,
+                               results)
+        arrived["t"] = _wait_for(
+            lambda: g.snapshot()["waiting"] == ADMISSION_HOT_PUTS - 1, 60,
+            "quiet PUT queued")
+        gate.set()
+        _join(threads)
+
+    phase("fair_puts", run)
+    checks["fair_puts_ok"] = all(results[n][0] == 200 for n in payloads)
+    order = [c for c, _ in grants]
+    want = [S3_ACCESS] * 3 + [ADMISSION_QUIET] + [S3_ACCESS] * 3
+    checks["fair_grant_order"] = order == want
+    quiet_at = order.index(ADMISSION_QUIET) if ADMISSION_QUIET in order \
+        else -1
+    gets = phase("fair_gets", lambda: [
+        _get_exact(hot, f"/{b}/{n}", payloads[n]) for n in payloads])
+    checks["fair_gets_exact"] = all(s == 200 and ok for s, _, ok in gets)
+    checks["fair_gets_charged_to_caller"] = (
+        [c for c, _ in read_grants] == [S3_ACCESS] * len(payloads))
+    # A stream's slot is released just after its last byte is sent.
+    _wait_for(lambda: admission.read_governor().snapshot()["inflight"] == 0,
+              30, "GETs released")
+    snap = g.snapshot()
+    checks["fair_conserved"] = _conserved(snap) and \
+        snap["arrivals_total"] == len(payloads)
+    out["fairness"] = {
+        "governor": {"slots": 2, "per_client_cap": 2, "max_queue": 16},
+        "grant_order": ["hot" if c == S3_ACCESS else "quiet"
+                        for c in order],
+        "quiet_wait_s": (grants[quiet_at][1] - arrived["t"]
+                         if quiet_at >= 0 else None),
+        "snapshot": snap,
+        "read_snapshot": admission.read_governor().snapshot()}
+
+
+def _admission_overload(root, hot, quiet, size, rng, phase, out,
+                        checks) -> None:
+    """Step b."""
+    b = ADMISSION_BUCKET
+    res: dict = {}
+    # Queue full: 2 in flight, 2 queued, the next PUTs refused at once.
+    g = admission.reconfigure(admission.AdmissionConfig(
+        slots=2, per_client_cap=2, max_queue=2, deadline_s=60.0))
+    held = [f"over/held-{i}" for i in range(4)]
+    rejected = [f"over/rejected-{i}" for i in range(2)]
+    payloads = {n: rng.bytes(size) for n in held}
+    payloads.update({n: rng.bytes(ADMISSION_REJECTED_SIZE)
+                     for n in rejected})
+    results: dict = {}
+    gate = threading.Event()
+    at = min(4 << 20, size // 2)
+    refusals: list = []
+
+    def queue_full():
+        threads = _gated_puts(hot, b, held, payloads, gate, at, results)
+        try:
+            _wait_for(lambda: g.snapshot()["waiting"] == 2, 60,
+                      "two PUTs queued")
+            for n in rejected:
+                t0 = time.perf_counter()
+                status, _, body = quiet.request("PUT", f"/{b}/{n}",
+                                                body=payloads[n])
+                refusals.append((status, b"SlowDown" in body,
+                                 time.perf_counter() - t0))
+        finally:
+            gate.set()
+            _join(threads)
+
+    phase("queue_full_puts", queue_full)
+    checks["held_puts_ok"] = all(results[n][0] == 200 for n in held)
+    checks["queue_full_503"] = all(s == 503 and slow
+                                   for s, slow, _ in refusals)
+    checks["queue_full_stored_nothing"] = all(
+        hot.request("HEAD", f"/{b}/{n}")[0] == 404
+        and not any((root / f"d{i}" / b / n).exists()
+                    for i in range(1, 17))
+        for n in rejected)
+    snap = g.snapshot()
+    checks["queue_full_conserved"] = _conserved(snap) and \
+        snap["rejected_queue_full"] == len(rejected)
+    res["queue_full"] = {"refusal_seconds": [s for *_, s in refusals],
+                         "snapshot": snap}
+
+    # The read governor saturated: a GET is refused before its status
+    # line, then served once the queue drains.
+    steady = admission.read_governor().cfg
+    rg = admission.reconfigure_read(admission.AdmissionConfig(
+        slots=1, per_client_cap=1, max_queue=1, deadline_s=60.0))
+    key = f"/{b}/{held[0]}"
+
+    def saturated_get():
+        rg.acquire("occupant")
+        waiter = threading.Thread(
+            target=lambda: (rg.acquire("waiter"), rg.release("waiter")),
+            daemon=True)
+        try:
+            waiter.start()
+            _wait_for(rg.saturated, 30, "read governor saturated")
+            refused = hot.request("GET", key)
+        finally:
+            rg.release("occupant")
+            _join([waiter])
+        return refused, _get_exact(hot, key, payloads[held[0]])
+
+    (status, h, body), (status2, _, ok) = phase("saturated_get",
+                                                saturated_get)
+    checks["saturated_get_503"] = (
+        status == 503 and b"SlowDown" in body
+        and h.get("Content-Length") == str(len(body)))
+    checks["get_after_drain_exact"] = status2 == 200 and ok
+    # The stream's slot is released just after its last byte is sent.
+    _wait_for(lambda: rg.snapshot()["inflight"] == 0, 30, "GET released")
+    snap = rg.snapshot()
+    checks["read_conserved"] = _conserved(snap)
+    res["saturated_get"] = {"status": status, "snapshot": snap}
+    admission.reconfigure_read(steady)
+
+    # One key, two buckets: with MTPU_ADMISSION_TENANT=bucket each bucket
+    # is a tenant of its own, so the quiet bucket's PUT takes the second
+    # turn instead of the last.
+    hot_b, quiet_b = ADMISSION_TENANT_BUCKETS
+    g = admission.reconfigure(admission.AdmissionConfig(
+        slots=1, per_client_cap=1, max_queue=8, deadline_s=60.0))
+    grants = _grant_probe(g)
+    names = [f"tenant/obj-{i}" for i in range(3)]
+    tpayloads = {n: rng.bytes(size) for n in names}
+    qname = "tenant/quiet"
+    tpayloads[qname] = rng.bytes(size)
+    tresults: dict = {}
+    gate = threading.Event()
+    old = os.environ.get("MTPU_ADMISSION_TENANT")
+    os.environ["MTPU_ADMISSION_TENANT"] = "bucket"
+
+    def tenant_puts():
+        threads = _gated_puts(hot, hot_b, names, tpayloads, gate, at,
+                              tresults)
+        try:
+            _wait_for(lambda: g.snapshot()["waiting"] == 2, 60,
+                      "hot bucket's PUTs queued")
+            threads += _gated_puts(hot, quiet_b, [qname], tpayloads, None,
+                                   at, tresults)
+            _wait_for(lambda: g.snapshot()["waiting"] == 3, 60,
+                      "quiet bucket's PUT queued")
+        finally:
+            gate.set()
+            _join(threads)
+
+    try:
+        phase("tenant_puts", tenant_puts)
+    finally:
+        if old is None:
+            os.environ.pop("MTPU_ADMISSION_TENANT", None)
+        else:
+            os.environ["MTPU_ADMISSION_TENANT"] = old
+    hk, qk = f"{S3_ACCESS}\x1f{hot_b}", f"{S3_ACCESS}\x1f{quiet_b}"
+    order = [c for c, _ in grants]
+    checks["tenant_puts_ok"] = all(r[0] == 200 for r in tresults.values())
+    checks["tenant_grant_order"] = order == [hk, hk, qk, hk]
+    res["tenant"] = {"grant_order": [c.split("\x1f")[1] for c in order],
+                     "snapshot": g.snapshot()}
+    out["overload"] = res
+
+
+def _drive_part_sha(root: Path, bucket: str, name: str, drive: int,
+                    data_dir: str) -> str | None:
+    path = root / f"d{drive + 1}" / bucket / name / data_dir / "part.1"
+    return hashlib.sha256(path.read_bytes()).hexdigest() \
+        if path.is_file() else None
+
+
+def _admission_hung_drive(server, root, hot, hung_size, size, rng, phase,
+                          out, checks) -> None:
+    """Steps c and d."""
+    b = ADMISSION_HUNG_BUCKET
+    stall = server.stall
+    drive = server.object_layer.pools[0].disks[ADMISSION_STALLED]
+    health = drive.health
+    raw = unwrap(drive)
+    names = repairable_names(b, "hung/obj-", 2, ADMISSION_STALLED, 12, 16)
+    payloads = {n: rng.bytes(hung_size) for n in names}
+    keys = {n: f"/{b}/{n}" for n in names}
+    res: dict = {"names": names, "health": {}}
+
+    def put(n) -> bool:
+        status, _, _ = hot.put_stream(keys[n], _PayloadReader(payloads[n]),
+                                      len(payloads[n]))
+        return status == 200
+
+    def current_dd(n) -> str:
+        return raw.read_version(b, n).data_dir
+
+    def latch(poke) -> int:
+        """HEADs until the breaker latches (each pays a deadline);
+        returns how many it took."""
+        pokes = 0
+        while not health.is_faulty():
+            if pokes >= 5:
+                raise AssertionError(f"breaker never latched: "
+                                     f"{health.state()}")
+            poke()
+            pokes += 1
+        return pokes
+
+    # c0: both objects written while every drive answers.
+    checks["healthy_puts_ok"] = phase("healthy_put", lambda: all(
+        put(n) for n in names))
+    healthy_sha = {n: _drive_part_sha(root, b, n, ADMISSION_STALLED,
+                                      current_dd(n)) for n in names}
+    checks["healthy_parts_present"] = all(healthy_sha.values())
+    res["health"]["before"] = health.state()
+
+    # c1: a GET before and after the latch.
+    stall.hold()
+    try:
+        status, _, ok = phase("get_before_latch", lambda: _get_exact(
+            hot, keys[names[0]], payloads[names[0]]))
+        checks["get_before_latch_exact"] = status == 200 and ok
+        res["health"]["after_get_before_latch"] = health.state()
+        res["latch_pokes_get"] = latch(
+            lambda: hot.request("HEAD", keys[names[0]]))
+        res["health"]["latched_get"] = health.state()
+        t0 = time.perf_counter()
+        try:
+            drive.stat_vol(b)
+            fast = False
+        except ErrDiskFaulty:
+            fast = True
+        res["fail_fast_s"] = time.perf_counter() - t0
+        checks["fails_fast_when_latched"] = fast and res["fail_fast_s"] < 0.1
+        timeouts = health.timeouts_total
+        status, _, ok = phase("get_after_latch", lambda: _get_exact(
+            hot, keys[names[0]], payloads[names[0]]))
+        checks["get_after_latch_exact"] = status == 200 and ok
+        checks["get_after_latch_paid_no_deadline"] = \
+            health.timeouts_total == timeouts
+    finally:
+        stall.release()
+    t0 = time.monotonic()
+    _wait_for(lambda: not health.is_faulty() and health.inflight == 0, 30,
+              "drive readmitted")
+    res["readmit_s"] = [time.monotonic() - t0]
+
+    # c2: a PUT before and after the latch (the drive misses both).
+    stall.hold()
+    try:
+        checks["put_before_latch_ok"] = phase(
+            "put_before_latch", lambda: put(names[1]))
+        res["health"]["after_put_before_latch"] = health.state()
+        res["latch_pokes_put"] = latch(
+            lambda: hot.request("HEAD", keys[names[1]]))
+        timeouts = health.timeouts_total
+        checks["put_after_latch_ok"] = phase(
+            "put_after_latch", lambda: put(names[0]))
+        checks["put_after_latch_paid_no_deadline"] = \
+            health.timeouts_total == timeouts
+        res["health"]["latched_put"] = health.state()
+    finally:
+        stall.release()
+    t0 = time.monotonic()
+    _wait_for(lambda: not health.is_faulty() and health.inflight == 0, 30,
+              "drive readmitted")
+    res["readmit_s"].append(time.monotonic() - t0)
+    res["health"]["readmitted"] = health.state()
+    checks["latched_twice_readmitted_twice"] = (
+        health.latched_total == 2 and health.readmitted_total == 2)
+    disks = server.object_layer.pools[0].disks
+    checks["stalled_drive_missed_puts"] = all(
+        current_dd(n) != _quorum_dd(disks, b, n) for n in names)
+
+    # d: the pacer's foreground window was fed by the drive wrapper.
+    p = healpace.installed()
+    res["pacer_after_c"] = p.snapshot()
+    checks["pacer_fed_by_wrapper"] = p.snapshot()["disk_p99_ms"] > 0
+    # The admin heal of c with a foreground backlog of 2 (one PUT holding
+    # the only encode slot, two queued): the window starts afresh, so
+    # the backlog is the pacer's only input.
+    p = healpace.reconfigure(healpace.PaceConfig())
+    g = admission.reconfigure(admission.AdmissionConfig(
+        slots=1, per_client_cap=1, max_queue=8, deadline_s=60.0))
+    held = [f"pace/held-{i}" for i in range(3)]
+    hpayloads = {n: rng.bytes(size) for n in held}
+    hresults: dict = {}
+    gate = threading.Event()
+    at = min(4 << 20, size // 2)
+    backlog = {}
+
+    def heal_under_backlog():
+        threads = _gated_puts(hot, ADMISSION_BUCKET, held, hpayloads, gate,
+                              at, hresults)
+        try:
+            _wait_for(lambda: g.backlog() == 2, 60, "foreground backlog")
+            backlog["at_start"] = g.backlog()
+            state = _heal_bucket(hot, b)
+            backlog["at_end"] = g.backlog()
+        finally:
+            gate.set()
+            _join(threads)
+        return state
+
+    state = phase("heal_under_backlog", heal_under_backlog)
+    snap = p.snapshot()
+    res["heal_state"] = state.get("Summary")
+    res["pacer_under_backlog"] = snap
+    res["backlog"] = backlog
+    cfg = p.cfg
+    checks["backlog_held"] = backlog.get("at_end", 0) >= cfg.queue_high
+    checks["heal_yielded"] = snap["yields_total"] > 0
+    checks["heals_granted_by_max_wait"] = (
+        snap["grants_total"] >= len(names)
+        and snap["throttle_seconds_total"] <= snap["grants_total"] * (
+            cfg.max_wait_s + 2 * cfg.yield_s + 0.25))
+    checks["backlog_puts_ok"] = all(r[0] == 200 for r in hresults.values())
+    healed_sha = {n: _drive_part_sha(root, b, n, ADMISSION_STALLED,
+                                     current_dd(n)) for n in names}
+    res["healed_part_sha256"] = healed_sha
+    checks["healed_parts_equal_healthy"] = healed_sha == healthy_sha
+    checks["healed_data_dir_is_quorum"] = all(
+        current_dd(n) == _quorum_dd(disks, b, n) for n in names)
+    # With no backlog (and a fresh window), a heal is granted at once.
+    p = healpace.reconfigure(healpace.PaceConfig())
+    phase("heal_no_backlog", lambda: server.object_layer.heal_object(
+        b, names[0]))
+    snap = p.snapshot()
+    res["pacer_no_backlog"] = snap
+    checks["heal_no_backlog_at_once"] = (
+        snap["grants_total"] == 1 and snap["yields_total"] == 0
+        and snap["deadline_grants_total"] == 0)
+    res["governor"] = g.snapshot()
+    checks["pace_conserved"] = _conserved(res["governor"])
+    res["stalled_ops"] = stall.stalled
+    out["hung_drive"] = res
+
+
+def _quorum_dd(disks, bucket: str, name: str) -> str:
+    """The data dir that most drives' xl.meta name for the object's
+    newest version, read from the raw drives."""
+    seen: dict = {}
+    for d in disks:
+        try:
+            dd = unwrap(d).read_version(bucket, name).data_dir
+        except StorageError:
+            continue
+        seen[dd] = seen.get(dd, 0) + 1
+    return max(seen, key=seen.get) if seen else ""

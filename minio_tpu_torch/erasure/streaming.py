@@ -43,6 +43,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..observability import ioflow
 from ..ops.host_feed import HostFeed
 from ..pipeline import (
     SKIP,
@@ -705,6 +706,9 @@ class ParallelReader:
                 if not landed:
                     break
         else:
+            # Reader threads carry the request's op tag, so their disk
+            # ops count under it.
+            worker = ioflow.carry(worker)
             with cv:
                 state["active"] = len(first)
             for i in first:

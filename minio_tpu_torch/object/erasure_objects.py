@@ -346,6 +346,18 @@ class ErasureObjects(MultipartMixin):
 
     def _put_object(self, bucket: str, object_: str, reader, size: int,
                     opts: ObjectOptions) -> ObjectInfo:
+        if fanout_policy.SINGLE_CORE:
+            # One core: admit one whole PUT at a time, setup and commit
+            # included (queued PUTs would steal the interpreter between
+            # the encoder's calls). More cores take the narrower
+            # encode-only slot below, and overlap commits.
+            with fanout_policy.encode_slot():
+                return self._put_object_inner(bucket, object_, reader,
+                                              size, opts)
+        return self._put_object_inner(bucket, object_, reader, size, opts)
+
+    def _put_object_inner(self, bucket: str, object_: str, reader,
+                          size: int, opts: ObjectOptions) -> ObjectInfo:
         n = self.set_drive_count
         parity = self.default_parity
         if opts.parity is not None:
@@ -395,7 +407,12 @@ class ErasureObjects(MultipartMixin):
                 self._cleanup_tmp(disks_by_shard, tmp_id)
 
         try:
-            total = encode_stream(erasure, tee, writers, write_quorum)
+            if fanout_policy.SINGLE_CORE:  # inside the whole-PUT slot
+                total = encode_stream(erasure, tee, writers, write_quorum)
+            else:
+                with fanout_policy.encode_slot():
+                    total = encode_stream(erasure, tee, writers,
+                                          write_quorum)
         except BaseException:
             abort()
             raise
@@ -570,8 +587,12 @@ class ErasureObjects(MultipartMixin):
         erasure = self._object_erasure(
             fi.erasure.data_blocks, fi.erasure.parity_blocks,
             fi.erasure.block_size, fi.erasure.codec)
-        heal_hint = self._decode_range(bucket, object_, fi, fis, erasure,
-                                       writer, offset, length)
+        # The decode and verify run under a read admission slot: GET
+        # clients get the PUT clients' caps, fairness and 503s, from a
+        # slot pool of their own.
+        with fanout_policy.decode_slot():
+            heal_hint = self._decode_range(bucket, object_, fi, fis,
+                                           erasure, writer, offset, length)
         if heal_hint is not None:
             self.queue_mrf(bucket, object_, fi.version_id)
         return oi

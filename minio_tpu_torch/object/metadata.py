@@ -11,6 +11,7 @@ import hashlib
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
+from ..observability import ioflow
 from ..storage.fileinfo import FileInfo
 from ..utils.errors import (
     OBJECT_OP_IGNORED_ERRS,
@@ -29,6 +30,7 @@ IO_POOL = ThreadPoolExecutor(max_workers=32,
 def fanout(fn, n: int) -> None:
     """Run fn(i) for i in range(n) on IO_POOL and wait for all; fn
     records its own outcome, so an exception here is a bug and raises."""
+    fn = ioflow.carry(fn)
     for fut in [IO_POOL.submit(fn, i) for i in range(n)]:
         fut.result()
 

@@ -25,6 +25,7 @@ from ..erasure.streaming import encode_stream
 from ..storage.fileinfo import ChecksumInfo, ErasureInfo, FileInfo, new_uuid
 from ..storage.local import SYSTEM_META_BUCKET
 from ..storage.xlmeta import XLMeta
+from ..utils import fanout
 from ..utils.errors import (
     OBJECT_OP_IGNORED_ERRS,
     ErrBadDigest,
@@ -143,6 +144,20 @@ class MultipartMixin:
                         opts: ObjectOptions | None = None) -> PartInfo:
         if not 1 <= part_number <= MAX_PART_ID:
             raise ErrInvalidPart(f"part number {part_number}")
+        # The PUT's admission: a whole part a slot on one core, else the
+        # encode alone.
+        if fanout.SINGLE_CORE:
+            with fanout.encode_slot():
+                return self._put_object_part_inner(
+                    bucket, object_, upload_id, part_number, reader, size,
+                    opts)
+        return self._put_object_part_inner(bucket, object_, upload_id,
+                                           part_number, reader, size, opts)
+
+    def _put_object_part_inner(self, bucket: str, object_: str,
+                               upload_id: str, part_number: int, reader,
+                               size: int, opts: ObjectOptions | None
+                               ) -> PartInfo:
         fi, _, upload_path = self._upload_fi(bucket, object_, upload_id)
         k, m = fi.erasure.data_blocks, fi.erasure.parity_blocks
         write_quorum = k + (1 if k == m else 0)
@@ -190,8 +205,14 @@ class MultipartMixin:
                     pass
 
         try:
-            total = encode_stream(erasure, tee, writers, write_quorum,
-                                  telemetry="multipart")
+            if fanout.SINGLE_CORE:  # inside the whole-part slot
+                total = encode_stream(erasure, tee, writers, write_quorum,
+                                      telemetry="multipart")
+            else:
+                with fanout.encode_slot():
+                    total = encode_stream(erasure, tee, writers,
+                                          write_quorum,
+                                          telemetry="multipart")
         except BaseException:
             drop_tmp()
             raise

@@ -5,10 +5,11 @@ executor with first-error cancellation and deterministic draining, and
 per-stage counters. The erasure drivers run on it: PUT (md5, pack, H2D,
 dispatch, flush-write) and GET (shard-read, decode).
 
-minio_tpu's worker pool (`workers.py`) and admission (`admission.py`)
-are not ported yet.
+The admission governors (`admission.py`) hold the encode and decode
+slots. minio_tpu's worker pool (`workers.py`) is not ported yet.
 """
 
+from .admission import AdmissionGovernor, client_context, governor
 from .buffers import (
     COPY,
     BufferPool,
@@ -27,6 +28,7 @@ from .metrics import (
 from .stage import END_OF_STREAM, SKIP, Stage
 
 __all__ = [
+    "AdmissionGovernor",
     "BufferPool",
     "COPY",
     "copy_add",
@@ -34,6 +36,8 @@ __all__ = [
     "host_buffer",
     "Pipeline",
     "PipelineCancelled",
+    "client_context",
+    "governor",
     "pinned_factory",
     "SKIP",
     "Stage",

@@ -25,6 +25,7 @@ import queue as _queue
 import threading
 import time
 
+from ..observability import ioflow
 from . import metrics as _pmetrics
 from .stage import CANCELLED, END_OF_STREAM, SKIP, Stage, StageStats
 
@@ -177,12 +178,15 @@ class Pipeline:
             self._error = None
         queues = [_queue.Queue(maxsize=self.queue_depth)
                   for _ in range(len(self.stages) + 1)]
+        # The stage threads carry the caller's op tag, so the disk ops
+        # the stages make count under the request being served.
         threads = [threading.Thread(
-            target=self._feed, args=(source, queues[0]),
+            target=ioflow.carry(self._feed), args=(source, queues[0]),
             name=f"mtpu-pipe-{self.name}-src", daemon=True)]
         for i, st in enumerate(self.stages):
             threads.append(threading.Thread(
-                target=self._work, args=(st, queues[i], queues[i + 1]),
+                target=ioflow.carry(self._work),
+                args=(st, queues[i], queues[i + 1]),
                 name=f"mtpu-pipe-{self.name}-{st.name}", daemon=True))
         for t in threads:
             t.start()

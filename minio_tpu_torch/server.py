@@ -1,11 +1,12 @@
 """Server bootstrap, the port's copy of the part of minio_tpu/server.py
 that a single-node erasure deployment runs (MinIO's serverMain,
 cmd/server-main.go): the self-tests of the erasure code and the bitrot
-hash on the device, the drives and one pool of erasure sets per
-ellipses argument, the root credential, the bucket metadata, the S3
-server with its SSE key material (the SSE-S3 master key and a LocalKMS
-whose key-name registry persists under .minio.sys, minio_tpu's
-_build_kms without KES), and the background services that keep the sets
+hash on the device, the drives (each under the health wrapper of
+storage/diskcheck.py: per-op deadlines and the faulty-drive breaker)
+and one pool of erasure sets per ellipses argument, the root
+credential, the bucket metadata, the S3 server with its SSE key
+material (the SSE-S3 master key and a LocalKMS whose key-name registry
+persists under .minio.sys, minio_tpu's _build_kms without KES), and the background services that keep the sets
 healthy (the MRF drain, the disk monitor, fresh-drive back-fill, the
 data scanner with its update tracker; MinIO's initAutoHeal and
 initDataScanner). FS mode, distributed endpoints, TLS, the config
@@ -37,6 +38,7 @@ from .iam.store import IAMSys
 from .object.pools import ErasureServerPools
 from .object.sets import ErasureSets, read_format
 from .ops.highwayhash_torch import hash256_batch
+from .storage.diskcheck import DiskHealth, MetricsDisk
 from .storage.fileinfo import new_uuid
 from .storage.local import LocalStorage
 from .utils import ellipses
@@ -129,8 +131,11 @@ class Server:
                                                  set_drive_count)
         pools = []
         for pi, endpoints in enumerate(layout["pools"]):
-            disks = [LocalStorage(ep, endpoint=ep, device=self.device)
-                     for ep in endpoints]
+            # Every drive is wrapped in the per-op deadline and breaker
+            # of its own DiskHealth (MinIO's xlStorageDiskIDCheck).
+            disks = [self._wrap_disk(
+                LocalStorage(ep, endpoint=ep, device=self.device), ep)
+                for ep in endpoints]
             es = ErasureSets(disks, layout["set_drive_count"],
                              deployment_id=self._deployment_id(disks),
                              default_parity=default_parity, pool_index=pi,
@@ -170,6 +175,14 @@ class Server:
                            sse_config=self.sse_config)
         self.s3.admin.scanner = self.scanner
         self._stop = threading.Event()
+
+    def _wrap_disk(self, raw, ep: str):
+        """A drive as the sets see it: `raw` under the metrics, disk-id
+        and health wrapper, with per-op deadlines and the faulty-drive
+        breaker (minio_tpu's Server._wrap_disk without the fault
+        injector). The wrapper caches each method on its first call, so
+        a subclass that puts its own layer around `raw` does it here."""
+        return MetricsDisk(raw, None, health=DiskHealth(ep))
 
     @staticmethod
     def _formats(disks):

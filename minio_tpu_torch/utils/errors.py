@@ -17,12 +17,18 @@ class ErrDiskNotFound(StorageError):
     """Disk is offline / not found (errDiskNotFound)."""
 
 
-class ErrDiskOpTimeout(ErrDiskNotFound):
-    """One storage op outlived its deadline: a shard writer detached past
-    write quorum, or a shard reader abandoned past a hedge. Quorum
-    reductions treat it as an offline disk (minio_tpu derives it from
-    ErrDiskFaulty, itself an ErrDiskNotFound). The op may still complete
-    in the background; heal repairs what it missed."""
+class ErrDiskFaulty(ErrDiskNotFound):
+    """Disk latched faulty by the health breaker after repeated op
+    timeouts, or out of in-flight tokens (errFaultyDisk). An
+    ErrDiskNotFound, so every quorum reduction treats a faulty disk as an
+    offline one."""
+
+
+class ErrDiskOpTimeout(ErrDiskFaulty):
+    """One storage op outlived its deadline: a drive op past its
+    per-op deadline, a shard writer detached past write quorum, or a
+    shard reader abandoned past a hedge. The op may still complete in the
+    background; heal repairs what it missed."""
 
 
 class ErrFileNotFound(StorageError):

@@ -6,9 +6,9 @@ local (syscall-only) per-drive work to a thread pool buys no parallelism
 and costs a dispatch per task, and stage threads only add hand-offs.
 Tests force either choice by setting `fanout.SINGLE_CORE`; the drivers
 read it at each call. `QuorumFanout` is the quorum-wait and detach
-protocol of the shard-write fan-out. `heal_slot` is every heal's token
-from the heal pacer; minio_tpu's admission slots (`encode_slot`,
-`decode_slot`) are not ported yet.
+protocol of the shard-write fan-out. `encode_slot` and `decode_slot`
+are the admission governors' front doors, `heal_slot` every heal's token
+from the heal pacer.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import io
 import os
 import threading
 import time
+
+from ..observability import ioflow
 
 SINGLE_CORE = (os.cpu_count() or 1) == 1
 
@@ -34,11 +36,38 @@ def _note_late_drop(err) -> None:
         LATE_DROPS[key] += 1
 
 
+# The admission deadline of an encode slot, as minio_tpu reads it (the
+# governor reads its own from the environment when it is built).
+ENCODE_SLOT_DEADLINE_S = float(
+    os.environ.get("MTPU_ENCODE_SLOT_DEADLINE_S", "30"))
+
+
+def encode_slot():
+    """Bounded fair admission of an encode stream (PUT, multipart part):
+    a waiter times out to a retriable 503 (ErrOperationTimedOut), a full
+    queue rejects at once, and one hot client cannot starve the rest
+    (the governor's round-robin grant order)."""
+    from ..pipeline.admission import governor
+
+    return governor().slot()
+
+
+def decode_slot():
+    """The read-side twin: every erasure GET's decode and verify passes
+    the read governor, its own slot pool (2 per core by default), so
+    GET clients get the same caps, fairness and 503s as PUT clients, and
+    neither plane can starve the other."""
+    from ..pipeline.admission import read_governor
+
+    return read_governor().slot()
+
+
 def heal_slot():
     """Every object heal's read and re-encode section takes a token from
-    the heal pacer's background budget: it yields while foreground disk
-    p99 is high, and is always granted within the pace deadline, so
-    pressure slows the MRF drain and never wedges it."""
+    the heal pacer's background budget: it yields while the admission
+    backlog or the foreground disk p99 is high, and is always granted
+    within the pace deadline, so pressure slows the MRF drain and never
+    wedges it. A heal takes no admission slot."""
     from ..background.healpace import pacer
 
     return pacer().heal_slot()
@@ -179,8 +208,9 @@ class QuorumFanout:
                 if not pending or ok >= quorum or ok + len(pending) < quorum:
                     cv.notify_all()
 
+        bound = ioflow.carry(run)
         for i in sorted(pending):
-            self.pool.submit(run, i)
+            self.pool.submit(bound, i)
         for i in inline:
             run(i)
 

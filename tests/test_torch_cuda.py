@@ -18,7 +18,8 @@ import struct
 
 import chip_smoke
 from minio_tpu_torch.crypto.aead import AESGCM
-from minio_tpu_torch.entry import (object_codec_put_get_heal,
+from minio_tpu_torch.entry import (admission_drive_health,
+                                   object_codec_put_get_heal,
                                    object_put_get_heal, object_self_heal,
                                    put_get_heal, s3_core, s3_put_get_heal,
                                    s3_sse)
@@ -543,3 +544,20 @@ def test_sse_bounded_rss_on_card(cuda, tmp_path):
     peak = res["rss_peak_bytes"]
     for step in ("sse-s3:put", "sse-s3:get", "sse-c:put", "sse-c:get"):
         assert peak[step] < 96 << 20, (step, peak)
+
+
+def test_admission_drive_health_on_card(cuda, tmp_path):
+    """Phase 4l at 4 MiB + 12,345 B objects on the card: fair grants
+    across two keys, 503 SlowDown past a full queue and for a GET while
+    the read governor is saturated, bucket tenants, a hung drive through
+    degraded GETs and PUTs before and after the breaker latches, the heal
+    paced by a foreground backlog; kernel A in the degraded GETs and the
+    heal, and neither C nor D anywhere."""
+    size = 4 * (1 << 20) + 12_345
+    res = admission_drive_health(tmp_path, size, size, device=cuda)
+    assert all(res["checks"].values()), res["checks"]
+    for step in ("get_before_latch", "get_after_latch",
+                 "heal_under_backlog"):
+        assert res["counters"][step]["kernel_gf_launches"] > 0, step
+    for step, c in res["counters"].items():
+        assert c["kernel_seal_launches"] == c["kernel_open_launches"] == 0

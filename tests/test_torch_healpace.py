@@ -2,11 +2,12 @@
 minio_tpu's: each case of tests/test_healpace.py runs on both packages
 (config from the environment, the kill switch, the token pool, the
 deadline grant, the background-class latency filter, the p99 window,
-the MRF drain's stretched interval). Two cases differ and say why: the
-port's pressure probe has the foreground disk p99 alone (minio_tpu's
-admission governors are not ported), and its metrics catalog is a list
-the port keeps for the metrics endpoint to come. One case is the port's
-own: an object heal takes its pace slot before the object's write lock.
+the pressure probe's two inputs, the MRF drain's stretched interval).
+The metrics catalog is a list the port keeps for the metrics endpoint to
+come. The port's own cases: an object heal takes its pace slot before
+the object's write lock; the drive wrapper (storage/diskcheck.py
+MetricsDisk) feeds the pacer's window; ErrDiskFaulty sits between
+ErrDiskNotFound and ErrDiskOpTimeout in both packages.
 """
 
 import io
@@ -18,14 +19,27 @@ import pytest
 from minio_tpu.background import heal as jax_heal
 from minio_tpu.background import healpace as jax_healpace
 from minio_tpu.observability import ioflow as jax_ioflow
+from minio_tpu.pipeline import admission as jax_admission
+from minio_tpu.storage import diskcheck as jax_diskcheck
+from minio_tpu.storage.local import LocalStorage as JaxLocalStorage
+from minio_tpu.utils import errors as jax_errors
 from minio_tpu_torch.background import heal, healpace
 from minio_tpu_torch.object.pools import ErasureServerPools
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.observability import ioflow
+from minio_tpu_torch.pipeline import admission
+from minio_tpu_torch.storage import diskcheck
 from minio_tpu_torch.storage.local import LocalStorage
+from minio_tpu_torch.utils import errors
 
 PACKAGES = {"port": (healpace, ioflow, heal),
             "jax": (jax_healpace, jax_ioflow, jax_heal)}
+# Each package's admission, drive wrapper, drive and error classes.
+SIDES = {"port": (admission, diskcheck, lambda root: LocalStorage(
+             root, endpoint="d0", device="cpu"), errors),
+         "jax": (jax_admission, jax_diskcheck,
+                 lambda root: JaxLocalStorage(root, endpoint="d0"),
+                 jax_errors)}
 
 
 @pytest.fixture(params=sorted(PACKAGES))
@@ -41,17 +55,20 @@ def pkg(request):
 def test_config_defaults_and_env_overrides(pkg, monkeypatch):
     hp = pkg[0]
     cfg = hp.PaceConfig.from_env()
-    assert cfg.enabled and cfg.tokens == 2
+    assert cfg.enabled and cfg.tokens == 2 and cfg.queue_high == 2
     assert cfg.disk_p99_ms == 75.0 and cfg.max_wait_s == 2.0
     monkeypatch.setenv("MTPU_HEAL_PACE_TOKENS", "5")
+    monkeypatch.setenv("MTPU_HEAL_PACE_QUEUE_HIGH", "7")
     monkeypatch.setenv("MTPU_HEAL_PACE_DISK_P99_MS", "150")
     monkeypatch.setenv("MTPU_HEAL_PACE_MAX_WAIT_MS", "500")
     cfg = hp.PaceConfig.from_env()
-    assert (cfg.tokens, cfg.disk_p99_ms, cfg.max_wait_s) == (5, 150.0, 0.5)
+    assert (cfg.tokens, cfg.queue_high, cfg.disk_p99_ms, cfg.max_wait_s) \
+        == (5, 7, 150.0, 0.5)
     monkeypatch.setenv("MTPU_HEAL_PACE_TOKENS", "0")
+    monkeypatch.setenv("MTPU_HEAL_PACE_QUEUE_HIGH", "0")
     monkeypatch.setenv("MTPU_HEAL_PACE_MAX_WAIT_MS", "lots")
     cfg = hp.PaceConfig.from_env()
-    assert cfg.tokens == 1 and cfg.max_wait_s == 2.0
+    assert cfg.tokens == 1 and cfg.queue_high == 1 and cfg.max_wait_s == 2.0
 
 
 def test_env_kill_switch_makes_every_surface_inert(pkg, monkeypatch):
@@ -150,10 +167,8 @@ def test_p99_needs_min_samples_then_tracks_tail(pkg):
 
 
 def test_default_pressure_trips_on_p99(pkg):
-    """The p99 half of minio_tpu's test_default_pressure_trips_on_queue_
-    depth_and_p99. Its queue-depth half needs the admission governors,
-    which the port has not (test_default_pressure_has_no_admission_
-    input)."""
+    """The p99 input alone: the governors idle, the foreground disk p99
+    over its threshold trips the probe."""
     hp = pkg[0]
     p = hp.HealPacer(hp.PaceConfig(enabled=True, disk_p99_ms=50.0))
     assert not p.pressured()
@@ -162,20 +177,99 @@ def test_default_pressure_trips_on_p99(pkg):
     assert p.pressured()
 
 
-def test_default_pressure_has_no_admission_input(monkeypatch):
-    """The port's probe reads the foreground disk p99 alone, and trips at
-    its threshold: the admission backlog term waits for
-    pipeline/admission.py (ROADMAP Queue 1 item 8)."""
-    p = healpace.HealPacer(healpace.PaceConfig(enabled=True,
-                                               disk_p99_ms=50.0))
-    assert not p.pressured()
-    for _ in range(40):
-        p.note_foreground_disk(0.049)
-    assert not p.pressured()
-    p.note_foreground_disk(0.05)
-    for _ in range(40):
-        p.note_foreground_disk(0.05)
-    assert p.pressured()
+@pytest.mark.parametrize("side", sorted(SIDES))
+def test_default_pressure_trips_on_queue_depth_and_p99(side):
+    """The probe's two inputs: the backlog of both admission governors
+    against queue_high (one waiter on each makes 2), then the foreground
+    disk p99 against its threshold (49 ms is under 50, 50 trips it)."""
+    hp = PACKAGES[side][0]
+    adm = SIDES[side][0]
+    p = hp.HealPacer(hp.PaceConfig(enabled=True, queue_high=2,
+                                   disk_p99_ms=50.0))
+    try:
+        assert not p.pressured()
+        cfg = adm.AdmissionConfig(slots=1, per_client_cap=1, max_queue=4,
+                                  deadline_s=5.0)
+        governors = [adm.reconfigure(cfg), adm.reconfigure_read(cfg)]
+        waiters = []
+        for g in governors:
+            g.acquire("occupant")
+            t = threading.Thread(target=lambda g=g: (g.acquire("w"),
+                                                     g.release("w")))
+            t.start()
+            waiters.append(t)
+            deadline = time.monotonic() + 2
+            while g.backlog() < 1:
+                assert time.monotonic() < deadline
+                time.sleep(0.002)
+            assert p.pressured() == (g is governors[1])  # 1, then 2
+        for g in governors:
+            g.release("occupant")
+        for t in waiters:
+            t.join(5)
+        assert not any(t.is_alive() for t in waiters)
+        assert not p.pressured()
+        for _ in range(40):
+            p.note_foreground_disk(0.049)
+        assert not p.pressured()
+        for _ in range(40):
+            p.note_foreground_disk(0.05)
+        assert p.pressured()
+    finally:
+        adm.reconfigure()
+        adm.reconfigure_read()
+
+
+@pytest.mark.parametrize("side", sorted(SIDES))
+def test_metrics_disk_feeds_note_disk_op(side, tmp_path):
+    """Every timed op of the drive wrapper lands in the pacer's window
+    under a foreground tag, none under a background one; an op abandoned
+    at its deadline lands as the whole deadline."""
+    hp, io_mod, _ = PACKAGES[side]
+    _, dc, local, _ = SIDES[side]
+    hp.reset()
+    p = hp.reconfigure(hp.PaceConfig(enabled=True))
+    try:
+        raw = local(str(tmp_path / side))
+        raw.make_vol("v")
+        w = dc.MetricsDisk(raw, None, health=dc.DiskHealth(
+            "d0", config=dc.RobustConfig(op_deadline_s=0.2)))
+        with io_mod.tag("heal"):
+            for _ in range(25):
+                w.stat_vol("v")
+        assert p.disk_p99_s() == 0.0 and len(p._lat) == 0
+        with io_mod.tag("get"):
+            for _ in range(25):
+                w.stat_vol("v")
+        assert len(p._lat) == 25 and 0.0 < p.disk_p99_s() < 0.2
+        hung = threading.Event()
+        raw.stat_vol = lambda v: hung.wait(2)  # one op hangs
+        w2 = dc.MetricsDisk(raw, None, health=dc.DiskHealth(
+            "d0", config=dc.RobustConfig(op_deadline_s=0.2)))
+        with io_mod.tag("get"):
+            with pytest.raises(Exception) as ei:
+                w2.stat_vol("v")
+        hung.set()
+        assert type(ei.value).__name__ == "ErrDiskOpTimeout"
+        assert max(p._lat) == 0.2
+    finally:
+        hp.reset()
+
+
+@pytest.mark.parametrize("side", sorted(SIDES))
+def test_disk_faulty_sits_between_not_found_and_timeout(side):
+    """ErrDiskFaulty is an ErrDiskNotFound, and ErrDiskOpTimeout an
+    ErrDiskFaulty, in both packages: every `except ErrDiskNotFound` and
+    quorum reduction treats a latched or timed-out drive as offline."""
+    e = SIDES[side][3]
+    assert [c.__name__ for c in e.ErrDiskOpTimeout.__mro__[:5]] == [
+        "ErrDiskOpTimeout", "ErrDiskFaulty", "ErrDiskNotFound",
+        "StorageError", "Exception"]
+    assert isinstance(e.ErrDiskFaulty("x"), e.ErrDiskNotFound)
+    assert issubclass(e.ErrDiskFaulty, e.OBJECT_OP_IGNORED_ERRS)
+    n, err = e.reduce_errs([e.ErrDiskFaulty("a"), e.ErrDiskOpTimeout("b"),
+                            None], e.OBJECT_OP_IGNORED_ERRS)
+    assert (n, err) == (1, None)
 
 
 def test_note_disk_op_filters_background_ops(pkg):
