@@ -187,6 +187,30 @@ Phases, each of which must pass (nothing is caught):
     and the heal, C and D nowhere. Prints {"admission": ...} with each
     step's seconds and launches, the grant orders, the governors' and
     drives' health snapshots and the pacer's counters;
+ 4m. the observability plane over HTTP (entry.observability): a Server
+    over 16 drive directories (one 12+4 set, 1 MiB blocks), its S3 plane
+    alone, spans armed with every request captured (MTPU_TRACE_SLOW_MS
+    0): the health probes with every drive up; a 256 MiB + 12,345 B PUT
+    and GET; the object lost on drives 0, 5, 12 and 15 and those drives
+    offline, a degraded GET (ready still 200); the drives back, the
+    admin heal (every healed file equal by SHA-256); an SSE-S3 PUT and
+    GET of the same size; the four drives offline again and a fifth:
+    live 200, ready and cluster 503, then 200 again with the fifth and
+    all back; the node and cluster scrapes (every series in the port's
+    catalog) and the admin ioflow and slow-requests answers. Counters
+    zeroed just before and read just after; kernels A and B launch in the
+    PUT, the degraded GET and the heal, C in the SSE PUT, D in the SSE
+    GET, no read is hedged, every step's request trees are whole (each
+    span's parent in the tree, none cut at the cap), and the byte-flow
+    ledger equals the drives' bytes: the PUT's part files and xl.meta,
+    the twelve survivors' part files the degraded GET and the heal read,
+    the four part files and xl.meta the heal wrote. Prints each step's
+    seconds and launches, each tree's seconds by span kind, the ledger's
+    bytes by op class and direction, the scraped series and the health
+    codes; then the span plane's cost: phases 4e and 4k with the plane
+    armed and disarmed (MTPU_TRACE unset / 0) in turns on, off, off, on
+    (4e with 64 small objects), each call's seconds, each run from a
+    fresh heal pacer. Prints {"observability": ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
@@ -198,8 +222,8 @@ Phases, each of which must pass (nothing is caught):
     127 (the port's batch) and 4,097 packages, each with its share of
     the bound and its launches in 4k) and print one JSON line
     {"kernels": [...]}, whose launches are those of phases 4, 4c, 4e, 4h,
-    4i, 4j, 4k and 4l (by path in "launches_by_path"); every kernel must
-    have launched on the main paths;
+    4i, 4j, 4k, 4l and 4m (by path in "launches_by_path"); every kernel
+    must have launched on the main paths;
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -344,9 +368,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def path_shard_lengths() -> list[int]:
     """The shard lengths the main paths give the kernels: a full block's,
     and the ragged last block's of each object or part that phases 4,
-    4b, 4c, 4d, 4e, 4f, 4i and 4l store (an inline or small object is one
-    short block; 4i's UploadPartCopy parts end in 7 B and 12,338 B; 4l's
-    refused PUTs are never encoded)."""
+    4b, 4c, 4d, 4e, 4f, 4i, 4k, 4l and 4m store (an inline or small
+    object is one short block; 4i's UploadPartCopy parts end in 7 B and
+    12,338 B; an encrypted object's stored size is its plaintext's plus
+    28 B a 64 KiB package; 4l's refused PUTs are never encoded)."""
+    from minio_tpu_torch.crypto.sse import encrypted_size
     from minio_tpu_torch.entry import part_copy_ranges
 
     core_parts = [last - first + 1
@@ -354,7 +380,7 @@ def path_shard_lengths() -> list[int]:
     lengths = set()
     for size in (OBJECT_SIZE, TRACE_SIZE, INLINE_SIZE, MP_PART, MP_LAST,
                  *SMALL_SIZES, *core_parts, CORE_SMALL_SIZE,
-                 ADMISSION_SIZE):
+                 ADMISSION_SIZE, encrypted_size(OBJECT_SIZE)):
         if size >= BLOCK:
             lengths.add(SHARD)
         if size % BLOCK:
@@ -366,18 +392,22 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     """(unavailable shards, rebuilt shards) of every reconstruction the
     main paths run: phase 4's and 4c's heal (shards 0, 5, 12, 15 lost),
     degraded GET (data shards 0 and 5 rebuilt, shard 12 gone) and GET
-    past a flipped byte (data shard 3 rebuilt); and phases 4e's and 4i's,
-    whose lost shards are those that drives 0, 5, 12 and 15 hold for each
-    object, through its distribution: the heal rebuilds them all, a
-    degraded GET (4e's big objects, and 4i's versions of ver/big and the
-    copies' pulls from them) the data shards among them."""
-    from minio_tpu_torch.entry import S3_BUCKET, S3_WIPED, s3_object_names
+    past a flipped byte (data shard 3 rebuilt); and phases 4e's, 4i's,
+    4k's and 4m's, whose lost shards are those that drives 0, 5, 12 and
+    15 hold for each object, through its distribution: the heal rebuilds
+    them all, a degraded GET (4e's big objects, 4i's versions of ver/big
+    and the copies' pulls from them, 4k's encrypted objects, 4m's plain
+    one) the data shards among them."""
+    from minio_tpu_torch.entry import (OBS_BUCKET, OBS_OBJECT, S3_BUCKET,
+                                       S3_WIPED, SSE_MODES, s3_object_names)
     from minio_tpu_torch.object.metadata import hash_order
 
     recs = {(LOST, LOST), (LOST, (0, 5)), ((3,), (3,))}
     keys = [(f"{S3_BUCKET}/{name}", n < 2)
             for n, name in enumerate(s3_object_names(SMALL_COUNT))]
     keys += [(f"{b}/{name}", b == "ver") for b, name in CORE_OBJECTS]
+    keys += [(f"{S3_BUCKET}/sse/{mode}.bin", True) for mode in SSE_MODES]
+    keys += [(f"{OBS_BUCKET}/{OBS_OBJECT}", True)]
     for key, read_degraded in keys:
         dist = hash_order(key, K + M)
         lost = tuple(sorted(dist[d] - 1 for d in S3_WIPED))
@@ -1765,6 +1795,138 @@ def run_admission() -> tuple[dict, dict]:
     return line, launches
 
 
+# Phase 4m's steps and the kernels each must launch (None: unchecked; a
+# new bucket's metadata is a small object, which the set may encode).
+OBS_STEPS = {"make_bucket": None, "put": "AB", "get": "B",
+             "degraded_get": "AB", "heal": "AB", "sse_put": "ABC",
+             "sse_get": "BD"}
+# The span plane's cost: each of 4e and 4k armed and disarmed, in turns;
+# 4e's runs with 64 small objects, not 256, to keep the smoke inside its
+# time.
+PLANE_RUNS = (("on", None), ("off", "0"), ("off", "0"), ("on", None))
+PLANE_SMALL_COUNT = 64
+
+
+def plane_calls() -> dict:
+    """Phase 4m's cost runs: 4e's and 4k's entry points as their phases
+    call them, 4e at PLANE_SMALL_COUNT small objects."""
+    from minio_tpu_torch.entry import s3_put_get_heal, s3_sse
+
+    return {"4e": lambda d: s3_put_get_heal(
+                d, OBJECT_SIZE, device="cuda", part_size=MP_PART,
+                parts=MP_PARTS, last_part=MP_LAST,
+                small_count=PLANE_SMALL_COUNT, small_sizes=SMALL_SIZES,
+                page=100, concurrent=4, seed=4),
+            "4k": lambda d: s3_sse(d, OBJECT_SIZE, device="cuda", seed=50)}
+
+
+def run_observability() -> tuple[dict, dict]:
+    """Phase 4m: entry.observability, the health probes, the metrics
+    scrapes, the request spans and the byte-flow ledger of a Server over
+    HTTP."""
+    from minio_tpu_torch.entry import observability
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = observability(tmp, OBJECT_SIZE, device="cuda", seed=70)
+        launches = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"observability checks failed: {failed}")
+    card = card_line()
+    per_step = {}
+    for name, want in OBS_STEPS.items():
+        c = res["counters"][name]
+        n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+             "C": c["kernel_seal_launches"],
+             "D": c["kernel_open_launches"]}
+        per_step[name] = dict(n, seconds=res["seconds"][name],
+                              hedged_reads=c["hedged_reads_total"])
+        if c["hedged_reads_total"] or (
+                want is not None
+                and {k for k, v in n.items() if v > 0} != set(want)):
+            raise AssertionError(f"4m {name}: launches {n}, hedged reads "
+                                 f"{c['hedged_reads_total']}, want "
+                                 f"{want}")
+        log(f"4m step {name}: {res['seconds'][name]:.4f} s, launches "
+            f"A {n['A']} B {n['B']} C {n['C']} D {n['D']} ({card})")
+    for name, trees in res["trees"].items():
+        for t in trees:
+            kinds = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                t["seconds_by_kind"].items(), key=lambda kv: -kv[1]))
+            log(f"4m tree {name} {t['api']}: {t['duration_ms']} ms, "
+                f"{t['spans']} spans, cut short {t['cut_short']}; seconds "
+                f"by kind: {kinds}; engine deltas {t['stats']}")
+    for name, led in res["ledger"].items():
+        log(f"4m ledger {name}: bytes {led['bytes']}, logical "
+            f"{led['logical']}")
+    part, meta = res["drive_bytes"]["part"], res["drive_bytes"]["meta"]
+    log(f"4m drives hold part files {sum(part.values())} B and xl.meta "
+        f"{sum(meta.values())} B of the plain object; ledger checks "
+        f"{sorted(k for k in res['checks'] if k.startswith('ledger:'))}")
+    log(f"4m scrape: {len(res['scrape']['families'])} series families, "
+        f"outside the catalog {res['scrape']['outside_catalog']}: "
+        f"{res['scrape']['families']}")
+    log(f"4m health codes: {res['health']}")
+    line = {"card": card, "size": res["size"], "k": K, "m": M,
+            "lost": res["lost"], "fifth": res["fifth"],
+            "steps": per_step, "trees": res["trees"],
+            "ledger": res["ledger"], "drive_bytes": res["drive_bytes"],
+            "health": res["health"], "heal": res["heal"],
+            "scrape": res["scrape"],
+            "admin_slow_requests": res["admin_slow_requests"],
+            "checks": res["checks"]}
+    return line, launches
+
+
+def plane_cost() -> dict:
+    """Phase 4m's cost of the span plane: phases 4e and 4k (plane_calls)
+    with the plane armed (MTPU_TRACE unset) and disarmed (MTPU_TRACE=0),
+    on, off, off, on; each call's seconds, whole. Each run starts with a
+    fresh heal pacer, as phase 4l leaves it: the pacer's latency window
+    is the process's, and a window an earlier run left slow would make
+    every heal of the next wait its deadline."""
+    from minio_tpu_torch.background import healpace
+    from minio_tpu_torch.entry import env_vars
+
+    calls = plane_calls()
+    card = card_line()
+    runs = []
+    for ph in ("4e", "4k"):
+        for mode, value in PLANE_RUNS:
+            data_root = ROOT / ".smoke_data"
+            data_root.mkdir(exist_ok=True)
+            tmp = tempfile.mkdtemp(dir=data_root)
+            healpace.reset()
+            try:
+                with env_vars(MTPU_TRACE=value):
+                    t0 = time.perf_counter()
+                    res = calls[ph](tmp)
+                    sec = time.perf_counter() - t0
+            finally:
+                shutil.rmtree(data_root, ignore_errors=True)
+            failed = [k for k, ok in res["checks"].items() if ok is not True]
+            if failed:
+                raise AssertionError(f"4m plane {mode} {ph}: {failed}")
+            runs.append({"phase": ph, "plane": mode, "seconds": sec})
+            log(f"4m plane {mode} {ph}: {sec:.3f} s ({card})")
+    summary = {}
+    for ph in ("4e", "4k"):
+        for mode in ("on", "off"):
+            secs = [r["seconds"] for r in runs
+                    if r["phase"] == ph and r["plane"] == mode]
+            summary[f"{ph}:{mode}"] = {"mean": sum(secs) / len(secs),
+                                       "min": min(secs), "max": max(secs)}
+        log(f"4m plane {ph}: on {summary[ph + ':on']}, off "
+            f"{summary[ph + ':off']} ({card})")
+    return {"card": card, "runs": runs, "summary": summary}
+
+
 def traced_self_heal(tmp, size) -> bool:
     from minio_tpu_torch.entry import object_self_heal
 
@@ -2103,6 +2265,10 @@ def main() -> int:
     t0 = time.perf_counter()
     admission_line, admission_launches = run_admission()
     log(f"admission phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    obs_line, obs_launches = run_observability()
+    obs_line["plane_cost"] = plane_cost()
+    log(f"observability phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
@@ -2110,7 +2276,8 @@ def main() -> int:
                       "s3_core": core_launches[name],
                       "self_heal": heal_launches[name],
                       "s3_sse": sse_launches[name],
-                      "admission": admission_launches[name]}
+                      "admission": admission_launches[name],
+                      "observability": obs_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
@@ -2135,6 +2302,7 @@ def main() -> int:
     print(json.dumps({"self_heal": heal_line}), flush=True)
     print(json.dumps({"sse": sse_line}), flush=True)
     print(json.dumps({"admission": admission_line}), flush=True)
+    print(json.dumps({"observability": obs_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """The admin routes of the port, its copy of AdminHandlers of
 minio_tpu/api/admin.py: heal (MinIO's /minio/admin/v3/heal,
 cmd/admin-heal-ops.go), datausage (a listing walk), usage (the data
-scanner's snapshot) and kms (KMSKeyStatusHandler and KES CreateKey over
-the server's LocalKMS). The rest of the admin API is not ported: its
-routes answer NotImplemented.
+scanner's snapshot), kms (KMSKeyStatusHandler and KES CreateKey over
+the server's LocalKMS), ioflow (the byte-flow ledger with the heal/MRF
+scoreboard), metrics (the Prometheus exposition, also behind the scrape
+routes) and slow-requests (the span plane's exemplar store, GET and
+DELETE). The rest of the admin API is not ported: its routes answer
+NotImplemented.
 """
 
 from __future__ import annotations
@@ -36,12 +39,20 @@ HEAL_MAX_SLEEP_S = 0.01
 # The ported routes, and the IAM action of each, as minio_tpu names them.
 _ROUTES = {("GET", "datausage"): "data_usage_info",
            ("GET", "usage"): "usage_info",
+           ("GET", "ioflow"): "ioflow_report",
+           ("GET", "metrics"): "metrics_snapshot",
            ("POST", "heal"): "heal",
+           ("GET", "slow-requests"): "slow_requests",
+           ("DELETE", "slow-requests"): "slow_requests_clear",
            ("GET", "kms"): "kms_status",
            ("POST", "kms"): "kms_create_key"}
 ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "usage_info": "admin:DataUsageInfo",
+           "ioflow_report": "admin:ServerInfo",
+           "metrics_snapshot": "admin:Prometheus",
            "heal": "admin:Heal",
+           "slow_requests": "admin:ServerTrace",
+           "slow_requests_clear": "admin:ServerTrace",
            "kms_status": "admin:KMSKeyStatus",
            "kms_create_key": "admin:KMSCreateKey"}
 
@@ -50,15 +61,19 @@ class AdminHandlers:
     """`inflight` returns the S3 requests in flight, which a heal
     sequence yields to. `scanner` is the server's DataScanner, which the
     usage route serves (None: 503). `kms` is the server's LocalKMS
-    (None: the kms routes answer NotImplemented)."""
+    (None: the kms routes answer NotImplemented). `metrics` is the
+    server's registry and `collector` its MetricsCollector (the server
+    attaches it), which the metrics and ioflow routes read."""
 
-    def __init__(self, object_layer, iam, inflight, kms=None):
+    def __init__(self, object_layer, iam, inflight, kms=None, metrics=None):
         self.ol = object_layer
         self.iam = iam
         self.inflight = inflight
         self.kms = kms
+        self.metrics = metrics
         self.heal_state = AllHealState()
         self.scanner = None
+        self.collector = None
 
     def route(self, ctx) -> str:
         rest = ctx.path[len(ADMIN_PREFIX):].strip("/")
@@ -137,6 +152,72 @@ class AdminHandlers:
             "bucketsUsage": buckets,
             "scanner": scanner.progress(),
         })
+
+    def ioflow_report(self, ctx) -> Response:
+        """GET /minio/admin/v3/ioflow: the byte-flow ledger (bytes by op
+        class, drive and direction, the derived efficiency series, the
+        hot buckets) and the heal/MRF scoreboard."""
+        from ..observability import ioflow
+        from ..observability.metrics_v2 import mrf_scoreboard
+
+        scanner = getattr(self.collector, "scanner", None)
+        scanned = getattr(scanner, "objects_scanned_total", 0) \
+            if scanner is not None else 0
+        out = ioflow.report(scan_objects=scanned)
+        mrf = getattr(self.collector, "mrf", None)
+        # The collector's own traversal, so the JSON and the exposition
+        # cannot drift; every key is there, zeroed without an MRF healer.
+        sb = mrf_scoreboard(self.ol)
+        scoreboard: dict = {
+            "pending": sb["pending"],
+            "oldestAgeSeconds": sb["oldest_age_s"],
+            "drainRatePerSecond": 0.0, "healedTotal": 0,
+            "sets": [{
+                "pool": s["pool"], "set": s["set"],
+                "pending": s["pending"],
+                "oldestAgeSeconds": s["oldest_age_s"],
+                "onlineDisks": s["online"], "disks": s["disks"],
+                "healthy": s["healthy"],
+            } for s in sb["sets"]],
+        }
+        if mrf is not None and hasattr(mrf, "drain_rate_per_s"):
+            scoreboard["drainRatePerSecond"] = round(
+                mrf.drain_rate_per_s(), 4)
+            scoreboard["healedTotal"] = getattr(mrf, "healed_total", 0)
+        out["healScoreboard"] = scoreboard
+        return self._json(out)
+
+    def metrics_snapshot(self, ctx) -> Response:
+        """The Prometheus text exposition, its snapshot gauges filled by
+        the collector first (MinIO computes them in the handler)."""
+        if self.metrics is None:
+            return Response(200, {"Content-Type": "text/plain"}, b"")
+        if self.collector is not None:
+            self.collector.collect()
+        return Response(
+            200, {"Content-Type": "text/plain; version=0.0.4"},
+            self.metrics.render_prometheus().encode())
+
+    def slow_requests(self, ctx) -> Response:
+        """GET /minio/admin/v3/slow-requests[?n=]: the span trees of the
+        requests that crossed the capture threshold (MTPU_TRACE_SLOW_MS,
+        or the running p99), newest last."""
+        from ..observability import spans
+
+        try:
+            n = int(ctx.qdict.get("n", str(spans.SLOW_STORE_CAP)))
+        except ValueError:
+            n = spans.SLOW_STORE_CAP
+        threshold = spans.slow_threshold_ms()
+        return self._json({
+            "threshold_ms": None if threshold == float("inf") else threshold,
+            "captured": spans.slow_requests(max(1, n)),
+        })
+
+    def slow_requests_clear(self, ctx) -> Response:
+        from ..observability import spans
+
+        return self._json({"cleared": spans.clear_slow_requests()})
 
     def heal(self, ctx) -> Response:
         """POST /minio/admin/v3/heal/<bucket>/<prefix>:

@@ -8,16 +8,23 @@ object names, upload ids), routed,
 authenticated and authorized, and its body is wrapped in the verifier
 its signature asks for (aws-chunked decoding, or x-amz-content-sha256),
 before the handler runs. The handler, and the body it streams, run
-under the caller's admission identity and the request's op class.
+under the caller's admission identity, the request's op class and its
+span trace (observability/spans.py), which a streamed body resumes.
+With a metrics registry, each request feeds minio_tpu's request series:
+in flight, latency to the response's head, rx and tx bytes, requests and
+responses by API and status, errors by code, auth failures.
 
 The routes of the slice are the bucket calls, versioning, bucket policy
 and tagging, the canned bucket answers and ACLs, ListObjects v1 and v2,
 ListObjectVersions, Put/Copy/Get/Head/DeleteObject with server-side
 encryption, the bucket's ?encryption document, DeleteObjects, object
-tagging, the multipart calls with UploadPartCopy, and the admin heal,
-usage and KMS routes. A copy is authorized twice: the write on its
-destination, and s3:GetObject on its source. Every other route answers
-NotImplemented.
+tagging, the multipart calls with UploadPartCopy, the admin heal, usage,
+KMS, ioflow, metrics and slow-requests routes, the health probes
+/minio/health/{live,ready,cluster} (unauthenticated) and the Prometheus
+scrapes /minio/v2/metrics/{cluster,node} and /minio/prometheus/metrics
+(SigV4, admin:Prometheus). A copy is authorized twice: the write on its
+destination, and s3:GetObject on its source. Every other route, and the
+rest of the /minio/ namespace, answers NotImplemented.
 """
 
 from __future__ import annotations
@@ -28,14 +35,15 @@ import os
 import re
 import sys
 import threading
+import time
 import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..crypto import sse as ssemod
 from ..iam.store import IAMSys
-from ..observability import ioflow
-from ..pipeline.admission import client_context, identity
+from ..observability import ioflow, spans
+from ..pipeline.admission import client_context
 from ..utils.device import resolve_device
 from . import sign
 from .admin import ADMIN_PREFIX, AdminHandlers
@@ -144,6 +152,16 @@ def op_class(api_name: str) -> str:
     return _OP_CLASSES.get(api_name, "other")
 
 
+# The Prometheus scrape routes (cmd/metrics-router.go).
+_SCRAPE_PATHS = frozenset({"/minio/v2/metrics/cluster",
+                           "/minio/v2/metrics/node",
+                           "/minio/prometheus/metrics"})
+
+# Error codes counted as auth failures.
+_AUTH_FAILURES = frozenset({"AccessDenied", "SignatureDoesNotMatch",
+                            "InvalidAccessKeyId"})
+
+
 # S3 header limits (setRequestHeaderSizeLimitHandler): 8 KiB of headers,
 # 2 KiB of user metadata.
 _MAX_HEADER_SIZE = 8 * 1024
@@ -152,6 +170,14 @@ _USER_META_PREFIXES = ("x-amz-meta-", "x-minio-meta-", "x-mtpu-meta-")
 
 # 5 TiB of object plus 64 MiB of form-data headroom (requestMaxBodySize).
 _MAX_REQUEST_BODY = 5 * 1024 ** 4 + 64 * 1024 ** 2
+
+# A refused request's unread body up to this size is read and dropped
+# before the answer, within _DRAIN_TIMEOUT_S (Go net/http's
+# maxPostHandlerReadBytes, which MinIO's server inherits): closing a
+# socket with unread bytes sends a reset, which can overtake the answer
+# on its way to the client. A longer remainder severs the connection.
+_DRAIN_MAX = 256 << 10
+_DRAIN_TIMEOUT_S = 1.0
 
 _SSEC_PREFIXES = (ssemod.HDR_SSEC_PREFIX, ssemod.HDR_SSEC_COPY_PREFIX)
 
@@ -414,11 +440,13 @@ class S3Server:
     raises when there is none, and must be the object layer's.
     `sse_config` (crypto.sse.SSEConfig, on the same device) holds the
     SSE-S3 master key and the KMS; without it SSE-S3 and SSE-KMS answer
-    NotImplemented and the KMS admin routes too."""
+    NotImplemented and the KMS admin routes too. `metrics` (an
+    observability.Metrics) receives the request series and serves the
+    scrapes; without it a scrape answers an empty body."""
 
     def __init__(self, object_layer, iam: IAMSys, bucket_meta,
                  host: str = "127.0.0.1", port: int = 0, device="cuda",
-                 sse_config=None):
+                 sse_config=None, metrics=None):
         self.device = resolve_device(device)
         if object_layer.device != self.device:
             raise ValueError(f"the object layer runs on "
@@ -432,8 +460,10 @@ class S3Server:
         self._inflight_lock = threading.Lock()
         self.admin = AdminHandlers(
             object_layer, iam, lambda: self._inflight,
-            kms=sse_config.kms if sse_config is not None else None)
+            kms=sse_config.kms if sse_config is not None else None,
+            metrics=metrics)
         self.iam = iam
+        self.metrics = metrics
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -499,21 +529,63 @@ class S3Server:
         finally:
             with self._inflight_lock:
                 self._inflight -= 1
+            # A deferred trace whose body stream never ran (a client gone
+            # before the stream, a HEAD, an error before the first byte)
+            # finishes here; resume() is a no-op once the stream did.
+            rt = getattr(ctx, "deferred_trace", None)
+            if rt is not None and rt.deferred:
+                with spans.resume(rt):
+                    pass
 
     def _respond(self, h: BaseHTTPRequestHandler,
                  ctx: RequestContext) -> None:
+        t0 = time.monotonic_ns()
+        if self.metrics is not None:
+            self.metrics.inc_gauge("s3_requests_inflight")
+        err_code = ""
         try:
             resp = self._process(ctx)
         except S3Error as exc:
+            err_code = exc.api.code
             resp = Response(
                 exc.api.status, {"Content-Type": "application/xml"},
                 error_xml(exc.api, ctx.path, ctx.request_id, exc.detail))
         except Exception as exc:  # noqa: BLE001 - answered InternalError
+            err_code = "InternalError"
             api = API_ERRORS["InternalError"]
             resp = Response(api.status, {"Content-Type": "application/xml"},
                             error_xml(api, ctx.path, ctx.request_id,
                                       str(exc)))
+        if self.metrics is not None:
+            self._record(ctx, resp, t0, err_code)
         self._write(h, ctx, resp)
+
+    def _record(self, ctx: RequestContext, resp: Response, t0: int,
+                err_code: str) -> None:
+        """The request's series, once its response exists (before its
+        body streams, so s3_request_seconds is the time to the head)."""
+        m = self.metrics
+        api_name = getattr(ctx, "api_name", "") or "unknown"
+        m.inc_gauge("s3_requests_inflight", -1)
+        m.observe("s3_request_seconds", (time.monotonic_ns() - t0) / 1e9,
+                  api=api_name)
+        if ctx.content_length:
+            m.inc("s3_rx_bytes_total", ctx.content_length)
+        # A streamed body (a GET) has no buffer: its size is the declared
+        # Content-Length.
+        if resp.body_stream is not None:
+            try:
+                tx = int(resp.headers.get("Content-Length", "0") or 0)
+            except ValueError:
+                tx = 0
+        else:
+            tx = len(resp.body)
+        if tx:
+            m.inc("s3_tx_bytes_total", tx)
+        if err_code:
+            m.inc("s3_errors_total", api=api_name, code=err_code)
+            if err_code in _AUTH_FAILURES:
+                m.inc("s3_auth_failures_total", code=err_code)
 
     def _process(self, ctx: RequestContext) -> Response:
         if ctx.method == "OPTIONS":
@@ -529,8 +601,24 @@ class S3Server:
             raise S3Error("InsecureSSECustomerRequest", "")
         if ctx.content_length and ctx.content_length > _MAX_REQUEST_BODY:
             raise S3Error("EntityTooLarge", "request body too large")
+        # Health probes: unauthenticated, GET and HEAD only
+        # (cmd/healthcheck-router.go).
+        if ctx.path.startswith("/minio/health/"):
+            if ctx.method not in ("GET", "HEAD"):
+                raise S3Error("MethodNotAllowed", ctx.method)
+            return self._health(ctx)
+        # Prometheus scrapes (cmd/metrics-router.go): SigV4 and the
+        # admin:Prometheus action.
+        if ctx.path in _SCRAPE_PATHS:
+            if ctx.method not in ("GET", "HEAD"):
+                raise S3Error("MethodNotAllowed", ctx.method)
+            auth_result = authenticate(self.iam, ctx.method, ctx.path,
+                                       ctx.query, ctx.raw_headers)
+            self.admin.authorize(auth_result, "metrics_snapshot")
+            return self.admin.metrics_snapshot(ctx)
         if ctx.path.startswith(ADMIN_PREFIX):
             name = self.admin.route(ctx)
+            ctx.api_name = f"admin:{name}"
             auth_result = authenticate(self.iam, ctx.method, ctx.path,
                                        ctx.query, ctx.raw_headers)
             if auth_result.auth == AUTH_STREAMING:
@@ -538,8 +626,7 @@ class S3Server:
             self.admin.authorize(auth_result, name)
             return getattr(self.admin, name)(ctx)
         if ctx.path == "/crossdomain.xml" or ctx.path.startswith("/minio/"):
-            # Health, metrics, console and the rest of the minio route
-            # namespace.
+            # The console and the rest of the minio route namespace.
             raise S3Error("NotImplemented", ctx.path)
         if ctx.method == "POST" and not ctx.bucket:
             raise S3Error("NotImplemented", "STS")
@@ -554,6 +641,9 @@ class S3Server:
         if upload_id is not None and not _SAFE_UPLOAD_ID.fullmatch(upload_id):
             raise S3Error("NoSuchUpload", upload_id[:64])
         name = route(ctx)
+        ctx.api_name = name
+        if self.metrics is not None:
+            self.metrics.inc("s3_requests_total", api=name)
         if name == "post_policy_object":
             # Signed by a form policy, not SigV4: not ported.
             raise S3Error("NotImplemented", name)
@@ -593,24 +683,48 @@ class S3Server:
     def _dispatch(self, name: str, access_key: str,
                   ctx: RequestContext) -> Response:
         """Run the handler under the caller's admission identity (the
-        access key, else anonymous, and the bucket) and the request's op
-        tag. A streaming body runs after this returns, on the writer's
-        side: it re-enters both, so a GET's decode slot is charged to its
-        caller and its disk ops count as foreground."""
+        access key, else anonymous, and the bucket), the request's op
+        tag (with its bucket) and its span trace. A streaming body runs
+        after this returns, on the writer's side: the trace is deferred
+        and the stream resumes it (spans.resume), which re-enters all
+        three, so a GET's decode slot is charged to its caller, its disk
+        bytes count under its op class, and its root span covers the
+        request through its last byte."""
+        rt = spans.request_trace(name, method=ctx.method, path=ctx.path,
+                                 request_id=ctx.request_id)
         with client_context(access_key or "anonymous",
                             bucket=ctx.bucket or ""), \
-                ioflow.tag(op_class(name)) as holder:
+                ioflow.tag(op_class(name), bucket=ctx.bucket or ""), rt:
             resp = getattr(self.handlers, name)(ctx)
-            ident = identity()
-        if resp.body_stream is not None:
-            inner = resp.body_stream
+            if resp.body_stream is not None:
+                rt.defer()
+                # The writer may never call the stream (a client gone
+                # before the status line, a HEAD): _handle finishes the
+                # parked trace then.
+                ctx.deferred_trace = rt
+                inner = resp.body_stream
 
-            def stream(w):
-                with client_context(*ident), ioflow.activate(holder):
-                    inner(w)
+                def stream(w):
+                    with spans.resume(rt):
+                        inner(w)
 
-            resp.body_stream = stream
+                resp.body_stream = stream
+        if self.metrics is not None:
+            self.metrics.inc("s3_responses_total", api=name,
+                             status=str(resp.status))
         return resp
+
+    def _health(self, ctx: RequestContext) -> Response:
+        """/minio/health/{live,ready,cluster}: live answers while the
+        process serves; ready and cluster answer 503 when a set has fewer
+        drives online than its write quorum (cmd/healthcheck-router.go,
+        ErasureServerPools.health); any other name 404."""
+        kind = ctx.path.rsplit("/", 1)[1]
+        if kind == "live":
+            return Response(200)
+        if kind in ("ready", "cluster"):
+            return Response(200 if self.handlers.ol.health() else 503)
+        return Response(404)
 
     def _wrap_streaming_body(self, ctx: RequestContext) -> None:
         """The body becomes the verifying aws-chunked decoder, of the
@@ -627,11 +741,32 @@ class S3Server:
             ctx.headers.get("x-amz-date", ""), seed_sig)
         ctx.content_length = int(decoded_len)
 
+    @staticmethod
+    def _drain(h: BaseHTTPRequestHandler, ctx: RequestContext) -> bool:
+        """Read and drop the rest of a refused request's body when it is
+        at most _DRAIN_MAX bytes and arrives within _DRAIN_TIMEOUT_S;
+        whether the connection can stay open."""
+        counter = ctx._body_counter
+        if ctx.wire_length - counter.consumed > _DRAIN_MAX:
+            return False
+        old = h.connection.gettimeout()
+        h.connection.settimeout(_DRAIN_TIMEOUT_S)
+        try:
+            while counter.consumed < ctx.wire_length:
+                if not counter.read(ctx.wire_length - counter.consumed):
+                    return False
+        except OSError:
+            return False
+        finally:
+            h.connection.settimeout(old)
+        return True
+
     def _write(self, h: BaseHTTPRequestHandler, ctx: RequestContext,
                resp: Response) -> None:
         try:
             if (resp.status >= 400 and ctx.wire_length
-                    and ctx._body_counter.consumed < ctx.wire_length):
+                    and ctx._body_counter.consumed < ctx.wire_length
+                    and not self._drain(h, ctx)):
                 # Unread body bytes of a refused request would parse as
                 # the next request line: close instead.
                 h.close_connection = True

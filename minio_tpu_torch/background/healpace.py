@@ -235,8 +235,8 @@ def note_disk_op(seconds: float) -> None:
     p.note_foreground_disk(seconds)
 
 
-# The pacer's series, as minio_tpu's metrics catalog names them (the
-# metrics endpoint is not ported).
+# The pacer's series in the metrics catalog (observability/metrics_v2.py,
+# whose collector mirrors snapshot() at each scrape).
 HEALPACE_DESCRIPTORS = [
     ("heal_pace_tokens", "gauge",
      "Configured background heal token pool size"),

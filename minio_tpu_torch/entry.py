@@ -23,6 +23,9 @@ object layer, called directly. `s3_sse()` drives server-side encryption
 over HTTP: SSE-S3, SSE-C and SSE-KMS PUTs, GETs whole and ranged, HEAD,
 four drives lost, degraded GETs, HealObject (which never decrypts), a
 CopyObject that re-encrypts, and a GET with the wrong SSE-C key.
+`observability()` drives the health probes through an outage, the
+scrapes, every request's span tree and the byte-flow ledger, held to
+the bytes on the drives, over HTTP.
 """
 
 from __future__ import annotations
@@ -2393,3 +2396,282 @@ def _quorum_dd(disks, bucket: str, name: str) -> str:
             continue
         seen[dd] = seen.get(dd, 0) + 1
     return max(seen, key=seen.get) if seen else ""
+
+
+OBS_BUCKET = "obs"
+OBS_OBJECT, OBS_SSE_OBJECT = "plain/obj.bin", "sse/obj.bin"
+OBS_FIFTH = 1  # the drive index (d2) taken away too in step 6
+OBS_PROBES = ("live", "ready", "cluster")
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables set (a value) or unset (None) for the
+    block, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _object_sizes(root: Path, bucket: str, name: str) -> dict:
+    """{drive index: {"part": part-file bytes, "meta": xl.meta bytes}} of
+    the object on the 16 drives."""
+    out = {}
+    for i in range(16):
+        d = root / f"d{i + 1}" / bucket / name
+        meta = d / "xl.meta"
+        out[i] = {"part": sum(p.stat().st_size for p in d.glob("*/part.*")),
+                  "meta": meta.stat().st_size if meta.is_file() else 0}
+    return out
+
+
+def _ledger_delta(before: dict, after: dict) -> dict:
+    """The ledger's bytes moved between two snapshots: by op class and
+    direction, and by drive index (the endpoint's d{i} + 1) for each."""
+    totals: dict = {}
+    by_drive: dict = {}
+    for (drive, op, dir_), n in after["bytes"].items():
+        n -= before["bytes"].get((drive, op, dir_), 0)
+        if not n:
+            continue
+        totals.setdefault(op, {})
+        totals[op][dir_] = totals[op].get(dir_, 0) + n
+        i = int(Path(drive).name[1:]) - 1
+        by_drive.setdefault(f"{op}/{dir_}", {})[i] = n
+    logical = {op: n - before["logical"].get(op, 0)
+               for op, n in after["logical"].items()
+               if n - before["logical"].get(op, 0)}
+    return {"bytes": totals, "by_drive": by_drive, "logical": logical}
+
+
+def _tree_summary(tree: dict) -> dict:
+    """A captured span tree in brief: seconds by span kind, its span
+    count, whether it reached the tree cap, whether every span's parent
+    is in it, and the engines' counter deltas over the request."""
+    from .observability import spans
+
+    ids = {s["id"] for s in tree["spans"]}
+    by_kind: dict = {}
+    for s in tree["spans"]:
+        by_kind[s["kind"]] = by_kind.get(s["kind"], 0) + s["duration_us"]
+    return {"api": tree["api"], "duration_ms": tree["duration_ms"],
+            "spans": len(tree["spans"]),
+            "cut_short": len(tree["spans"]) >= spans.MAX_TREE_SPANS,
+            "connected": all(s["parent"] == 0 or s["parent"] in ids
+                             for s in tree["spans"]),
+            "seconds_by_kind": {k: v / 1e6 for k, v in by_kind.items()},
+            "stats": tree["stats"]}
+
+
+def scrape_families(text: str) -> set:
+    """The catalog names of the series of a Prometheus exposition (a
+    histogram's _bucket, _sum and _count under its own name)."""
+    from .observability.metrics_v2 import DESCRIPTORS
+
+    hists = {n for n, t, _ in DESCRIPTORS if t == "histogram"}
+    out = set()
+    for line in text.splitlines():
+        if not line.startswith("mtpu_"):
+            continue
+        name = re.split(r"[{ ]", line, maxsplit=1)[0][len("mtpu_"):]
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[: -len(suffix)] in hists:
+                name = name[: -len(suffix)]
+        out.add(name)
+    return out
+
+
+def observability(root, size: int, device="cuda", seed: int = 70,
+                  trees_timeout_s: float = 60.0) -> dict:
+    """Drive the observability plane of a Server over 16 fresh drive
+    directories under `root` (one 12+4 set, its S3 plane alone), with
+    spans armed and every request captured (MTPU_TRACE unset,
+    MTPU_TRACE_SLOW_MS=0):
+
+    1. /minio/health/{live,ready,cluster} with every drive up;
+    2. PUT of a seeded `size`-byte object, GET exact;
+    3. the object lost on drives 0, 5, 12 and 15 and those drives taken
+       away: a degraded GET exact, ready still answering;
+    4. the drives back, the admin heal of the bucket, every healed file
+       equal by SHA-256 to the original;
+    5. PUT and GET of an SSE-S3 object of the same size;
+    6. drives 0, 5, 12 and 15 taken away again, then a fifth (OBS_FIFTH):
+       live answers 200, ready and cluster 503; the fifth back and all
+       back, 200 again;
+    7. the node and cluster scrapes (every series in the catalog), and
+       the admin ioflow and slow-requests answers.
+
+    Returns each step's seconds and counter deltas, the byte-flow
+    ledger's delta of each step, each step's request trees in brief
+    (_tree_summary), the health codes, the scraped series and the
+    checks; the ledger's bytes are held to the bytes on the drives: the
+    PUT's part files and xl.meta, the twelve survivors' part files the
+    degraded GET and the heal read, and the four part files and
+    xl.meta the heal wrote."""
+    from .observability import ioflow, spans
+    from .observability.metrics_v2 import DESCRIPTORS
+
+    dev = resolve_device(device)
+    root = Path(root)
+    out: dict = {"size": size, "k": 12, "m": 4, "lost": list(S3_WIPED),
+                 "fifth": OBS_FIFTH, "seconds": {}, "counters": {},
+                 "ledger": {}, "trees": {}, "health": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    rng = np.random.default_rng(seed)
+    payload, sse_payload = rng.bytes(size), rng.bytes(size)
+    b = f"/{OBS_BUCKET}"
+    name, sse_name = OBS_OBJECT, OBS_SSE_OBJECT
+    with env_vars(MTPU_TRACE=None, MTPU_TRACE_SLOW_MS="0"), _insecure_ssec():
+        server = Server([str(root / "d{1...16}")], port=0,
+                        root_user=S3_ACCESS, root_password=S3_SECRET,
+                        default_parity=4, device=dev)
+        server.s3.start()
+        raw = [unwrap(d) for d in server.object_layer.pools[0].disks]
+        try:
+            c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+
+            def probes() -> dict:
+                return {k: c.request("GET", f"/minio/health/{k}",
+                                     anonymous=True)[0]
+                        for k in OBS_PROBES}
+
+            def online(drives, up: bool) -> None:
+                for i in drives:
+                    raw[i].set_online(up)
+
+            def step(label: str, fn, apis=()):
+                """fn as a phase, with its ledger delta and the trees of
+                the `apis` it sends (a streamed GET's tree lands after
+                the client has its last byte)."""
+                spans.clear_slow_requests()
+                before = ioflow.snapshot()
+                res = phase(label, fn)
+                out["ledger"][label] = _ledger_delta(before,
+                                                     ioflow.snapshot())
+                deadline = time.monotonic() + trees_timeout_s
+                while (len(spans.slow_requests()) < len(apis)
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+                trees = spans.slow_requests()
+                out["trees"][label] = [_tree_summary(t) for t in trees]
+                checks[f"{label}:trees"] = (
+                    [t["api"] for t in trees] == list(apis)
+                    and all(t["connected"] and not t["cut_short"]
+                            for t in out["trees"][label]))
+                return res
+
+            out["health"]["all_up"] = probes()
+            checks["make_bucket_ok"] = step(
+                "make_bucket", lambda: c.request("PUT", b)[0],
+                ("make_bucket",)) == 200
+            status = step("put", lambda: c.put_stream(
+                f"{b}/{name}", _PayloadReader(payload), size)[0],
+                ("put_object",))
+            checks["put_ok"] = status == 200
+            sizes = _object_sizes(root, OBS_BUCKET, name)
+            status, _, ok = step("get", lambda: _get_exact(
+                c, f"{b}/{name}", payload), ("get_object",))
+            checks["get_ok"] = status == 200 and ok
+
+            originals = _object_files(root, OBS_BUCKET, name)
+            for i in S3_WIPED:
+                shutil.rmtree(root / f"d{i + 1}" / OBS_BUCKET / name)
+            online(S3_WIPED, False)
+            status, _, ok = step("degraded_get", lambda: _get_exact(
+                c, f"{b}/{name}", payload), ("get_object",))
+            checks["degraded_get_ok"] = status == 200 and ok
+            out["health"]["four_away"] = probes()
+            online(S3_WIPED, True)
+            state = step("heal", lambda: _heal_bucket(c, OBS_BUCKET))
+            out["heal"] = {k: state[k] for k in ("Summary", "NumScanned",
+                                                 "NumHealed", "NumFailed")}
+            checks["heal_ok"] = (state["Summary"] == "finished"
+                                 and state["NumFailed"] == 0)
+            checks["healed_identical"] = (
+                _object_files(root, OBS_BUCKET, name) == originals)
+
+            status, h, _ = step("sse_put", lambda: c.put_stream(
+                f"{b}/{sse_name}", _PayloadReader(sse_payload), size,
+                sse_put_headers("sse-s3")), ("put_object",))
+            checks["sse_put_ok"] = (status == 200 and h.get(
+                ssemod.HDR_SSE, h.get(ssemod.HDR_SSE.title())) == "AES256")
+            status, _, ok = step("sse_get", lambda: _get_exact(
+                c, f"{b}/{sse_name}", sse_payload), ("get_object",))
+            checks["sse_get_ok"] = status == 200 and ok
+
+            online(S3_WIPED, False)
+            out["health"]["four_away_again"] = probes()
+            online((OBS_FIFTH,), False)
+            out["health"]["fifth_away"] = probes()
+            online((OBS_FIFTH,), True)
+            out["health"]["fifth_back"] = probes()
+            online(S3_WIPED, True)
+            out["health"]["all_back"] = probes()
+
+            scrapes = {}
+            for path in ("/minio/v2/metrics/node",
+                         "/minio/v2/metrics/cluster"):
+                status, _, body = c.request("GET", path)
+                checks[f"scrape_ok:{path}"] = status == 200
+                scrapes[path] = scrape_families(body.decode())
+            status, _, body = c.request("GET", "/minio/admin/v3/ioflow")
+            checks["admin_ioflow_ok"] = status == 200
+            out["admin_ioflow"] = json.loads(body)
+            status, _, body = c.request("GET",
+                                        "/minio/admin/v3/slow-requests")
+            checks["admin_slow_requests_ok"] = status == 200
+            out["admin_slow_requests"] = {
+                "threshold_ms": json.loads(body)["threshold_ms"],
+                "captured": len(json.loads(body)["captured"])}
+        finally:
+            server.stop()
+
+    up = dict.fromkeys(OBS_PROBES, 200)
+    for state in ("all_up", "four_away", "four_away_again", "fifth_back",
+                  "all_back"):
+        checks[f"health:{state}"] = out["health"][state] == up
+    checks["health:fifth_away"] = out["health"]["fifth_away"] == {
+        "live": 200, "ready": 503, "cluster": 503}
+
+    catalog = {n for n, _, _ in DESCRIPTORS} | {"uptime_seconds"}
+    families = set().union(*scrapes.values())
+    out["scrape"] = {"families": sorted(families),
+                     "outside_catalog": sorted(families - catalog)}
+    checks["scrape_in_catalog"] = families <= catalog
+
+    # The ledger held to the drives: the PUT wrote every part file and
+    # xl.meta once; the degraded GET read the twelve survivors' part
+    # files; the heal read them too and wrote the four lost ones' part
+    # files and xl.meta.
+    survivors = [i for i in range(16) if i not in S3_WIPED]
+    part = {i: sizes[i]["part"] for i in sizes}
+    meta = {i: sizes[i]["meta"] for i in sizes}
+    led = out["ledger"]
+    want = {"put": {"put/write": part, "put/wmeta": meta},
+            "degraded_get": {"get-degraded/read": {
+                i: part[i] for i in survivors}},
+            "heal": {"heal/read": {i: part[i] for i in survivors},
+                     "heal/write": {i: part[i] for i in S3_WIPED},
+                     "heal/wmeta": {i: meta[i] for i in S3_WIPED}}}
+    for label, series in want.items():
+        for key, by_drive in series.items():
+            checks[f"ledger:{label}:{key}"] = (
+                led[label]["by_drive"].get(key) == by_drive)
+    checks["ledger:put_logical"] = led["put"]["logical"] == {"put": size}
+    checks["ledger:degraded_get_logical"] = (
+        led["degraded_get"]["logical"] == {"get-degraded": size})
+    out["drive_bytes"] = {"part": part, "meta": meta}
+    out["checks"] = checks
+    return out

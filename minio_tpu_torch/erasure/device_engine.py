@@ -191,6 +191,7 @@ class DeviceCodec:
         hash_in = (lambda parity: torch.cat([dev, parity], dim=1)) \
             if with_hashes else None
         count("dispatches")
+        registry.note_dispatch(self.codec_id, "device")
         return self._finish(self._apply(self._parity, dev), hash_in)
 
     def reconstruct_async(self, src, present, targets,
@@ -207,6 +208,7 @@ class DeviceCodec:
                 self.k, self.m, list(present), list(targets)))
         dev = self._stage(src)
         count("dispatches")
+        registry.note_dispatch(self.codec_id, "device")
         return self._finish(self._apply(bitmat, dev),
                             (lambda out: out) if with_hashes else None)
 
@@ -221,6 +223,7 @@ class DeviceCodec:
         bitmat = self._bitmat(("repair", target), lambda: matrix)
         dev = self._stage(symbols)
         count("dispatches")
+        registry.note_dispatch(self.codec_id, "device")
         out = apply_gf_matrix(bitmat, dev)
         count("launches_gf")
         return self._finish(out.view(out.shape[0], 1, -1),

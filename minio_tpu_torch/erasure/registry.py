@@ -14,12 +14,18 @@ auto-selection under MTPU_CODEC_PROFILE ("throughput" ranks by a
 measured parity apply, "heal-heavy" by the declared bytes read per byte
 healed), the dense incumbent kept unless a challenger beats it by
 AUTO_HYSTERESIS.
+
+With a metrics registry installed (set_metrics, at server start) it
+counts selections by codec and geometry, dispatches by codec and engine
+(the port's one engine, "device"), and sets the probes' measured
+throughputs: the series of CODEC_DESCRIPTORS, under minio_tpu's names.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -41,6 +47,37 @@ DEFAULT_CODEC = DENSE_GF8
 # A challenger must beat the incumbent by this factor to win
 # auto-selection (minio_tpu's AUTO_HYSTERESIS).
 AUTO_HYSTERESIS = 1.25
+
+CODEC_DESCRIPTORS: list[tuple[str, str, str]] = [
+    ("mtpu_codec_selected_total", "counter",
+     "Codec selections at write time, labeled codec + geometry (k+m)"),
+    ("mtpu_codec_dispatch_total", "counter",
+     "Erasure batch dispatches, labeled codec + engine substrate"),
+    ("mtpu_codec_probe_gbps", "gauge",
+     "Measured codec probe throughput (GB/s), labeled codec + engine"),
+]
+
+_metrics = None  # guarded-by: _metrics_mu
+_metrics_mu = threading.Lock()
+
+
+def set_metrics(registry) -> None:
+    global _metrics
+    with _metrics_mu:
+        _metrics = registry
+
+
+def _reg():
+    with _metrics_mu:
+        return _metrics
+
+
+def note_dispatch(codec_id: str, engine: str) -> None:
+    """One erasure batch dispatch (the engine's encode, reconstruct and
+    repair calls)."""
+    reg = _reg()
+    if reg is not None:
+        reg.inc("mtpu_codec_dispatch_total", codec=codec_id, engine=engine)
 
 
 @dataclass(frozen=True)
@@ -183,8 +220,13 @@ def probe_geometry_gbps(codec_id: str, data_blocks: int, parity_blocks: int,
     blocks = torch.from_numpy(rng.integers(
         0, 256, size=(2, data_blocks * alpha, _PROBE_SHARD // alpha),
         dtype=np.uint8)).to(device)
-    return _measure(lambda: rs.apply_gf_matrix(bits, blocks),
+    gbps = _measure(lambda: rs.apply_gf_matrix(bits, blocks),
                     blocks.numel(), device)
+    reg = _reg()
+    if reg is not None:
+        reg.set_gauge("mtpu_codec_probe_gbps", round(gbps, 3),
+                      codec=codec_id, engine="device")
+    return gbps
 
 
 # --- codec selection ---------------------------------------------------
@@ -215,9 +257,15 @@ def select_codec(data_blocks: int, parity_blocks: int, forced: str = "",
                 f"codec {want!r} does not support geometry "
                 f"{data_blocks}+{parity_blocks}"
             )
-        return entry.codec_id
-    return _auto_codec(data_blocks, parity_blocks, _codec_profile(),
-                       resolve_device(device))
+        chosen = entry.codec_id
+    else:
+        chosen = _auto_codec(data_blocks, parity_blocks, _codec_profile(),
+                             resolve_device(device))
+    reg = _reg()
+    if reg is not None:
+        reg.inc("mtpu_codec_selected_total", codec=chosen,
+                geometry=f"{data_blocks}+{parity_blocks}")
+    return chosen
 
 
 @functools.lru_cache(maxsize=64)

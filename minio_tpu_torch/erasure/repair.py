@@ -46,6 +46,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..observability import ioflow
 from ..pipeline.buffers import host_buffer
 from . import registry
 
@@ -196,8 +197,9 @@ def _gather(plan, sources: list, shard: int, window: list[tuple[int, int]],
     col = 0
     for helper, subs in plan.reads:
         src = sources[helper]
+        # The pool thread counts its bytes under the caller's op tag.
         futs.append((pool.submit(
-            src.disk.read_repair_symbol, src.volume, src.path,
+            ioflow.carry(src.disk.read_repair_symbol), src.volume, src.path,
             stride=src.digest_size + shard, digest_size=src.digest_size,
             alpha=plan.alpha, subs=list(subs), blocks=window),
             col, len(subs)))

@@ -43,7 +43,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from ..observability import ioflow
+from ..observability import carry as obs_carry
+from ..observability import ioflow, spans
 from ..ops.host_feed import HostFeed
 from ..pipeline import (
     SKIP,
@@ -80,6 +81,12 @@ _io_pool = ThreadPoolExecutor(max_workers=64, thread_name_prefix="mtpu-io")
 # compensator raises the pool's ceiling meanwhile.
 _io_compensator = fanout.StragglerCompensator(_io_pool)
 
+
+def start_io_pool() -> None:
+    """Start every worker of the shard fan-out pool now (a server on the
+    card does it when it starts)."""
+    fanout.prestart(_io_pool, _io_pool._max_workers)
+
 # Fan-out and reader counters, per process: hedged reads, hedge windows
 # restarted after an oversleeping wait, writers detached past quorum, reader fetches, and those with full-size chunks
 # (each verified by one grouped kernel B launch when no reader is bad).
@@ -89,9 +96,23 @@ STATS = {"hedged_reads_total": 0, "hedge_windows_restarted": 0,
          "reader_fetches_full": 0}
 
 
+# A registry installed at server start mirrors minio_tpu's two series
+# (hedged reads, detached stragglers) onto the metrics endpoint; the
+# other counters are the port's own and stay here.
+_metrics = None
+_MIRRORED = frozenset({"hedged_reads_total", "fanout_stragglers_total"})
+
+
+def set_metrics(registry) -> None:
+    global _metrics
+    _metrics = registry
+
+
 def record_stat(name: str, n: int = 1) -> None:
     with _stats_lock:
         STATS[name] += n
+    if _metrics is not None and name in _MIRRORED:
+        _metrics.inc(name, n)
 
 
 def stats_snapshot() -> dict:
@@ -294,6 +315,29 @@ def _host_feed(device) -> HostFeed:
         return feed
 
 
+def blocks_pool(erasure: Erasure, batch_blocks: int = 8):
+    """The process-wide pool of pinned [batch_blocks, k*S] buffers the
+    pipelined PUT packs its batches into, one a geometry and device.
+    Capacity covers the in-flight window at queue_depth=1 (one buffer a
+    stage and a queue), so steady state allocates nothing."""
+    k = erasure.data_blocks
+    shard = erasure.shard_size()
+    device = erasure.device
+    return shared_pool(("blocks", batch_blocks, k, shard, str(device)),
+                       pinned_factory((batch_blocks, k * shard), device),
+                       capacity=8, name="blocks")
+
+
+def prefill_blocks_pool(erasure: Erasure, batch_blocks: int = 8) -> None:
+    """Allocate the blocks pool's buffers up to its capacity now (the
+    server does it when it starts), so a PUT pins no memory of its own."""
+    pool = blocks_pool(erasure, batch_blocks)
+    bufs = [pool.acquire()
+            for _ in range(pool.capacity - pool.stats()["free"])]
+    for b in bufs:
+        pool.release(b)
+
+
 def _encode_stream_batched_pipelined(erasure: Erasure, src,
                                      writer: ParallelWriter,
                                      batch_blocks: int, want_digests: bool,
@@ -312,11 +356,7 @@ def _encode_stream_batched_pipelined(erasure: Erasure, src,
     md5_update = None
     if hasattr(src, "delegate_hashing"):
         src, md5_update = src.delegate_hashing()
-    # Capacity covers the in-flight window at queue_depth=1 (one buffer
-    # a stage and a queue), so steady state allocates nothing.
-    pool = shared_pool(("blocks", batch_blocks, k, shard, str(device)),
-                       pinned_factory((batch_blocks, k * shard), device),
-                       capacity=8, name="blocks")
+    pool = blocks_pool(erasure, batch_blocks)
     feed = _host_feed(device)
     totals = {"bytes": 0}
 
@@ -561,6 +601,10 @@ class ParallelReader:
             self.saw_missing = True
         elif isinstance(exc, ErrFileCorrupt):
             self.saw_corrupt = True
+        if self.saw_missing or self.saw_corrupt:
+            # The stream is degraded from here on: the shared op tag
+            # turns get-degraded for every later byte, in every thread.
+            ioflow.retag_degraded()
         self.org_readers[self.reader_to_buf[i]] = None
         self.readers[i] = None
         self.errs[i] = exc
@@ -706,9 +750,9 @@ class ParallelReader:
                 if not landed:
                     break
         else:
-            # Reader threads carry the request's op tag, so their disk
-            # ops count under it.
-            worker = ioflow.carry(worker)
+            # Reader threads carry the request's trace and op tag, so
+            # their disk ops and bytes count under it.
+            worker = obs_carry(worker)
             with cv:
                 state["active"] = len(first)
             for i in first:
@@ -719,6 +763,7 @@ class ParallelReader:
             restarted = False  # the one window restart a fetch allows
             with cv:
                 state["progress"] = time.monotonic()
+            t_span0 = time.monotonic()
             while True:
                 wake_due = None  # when the last timed wait was due to end
                 with cv:
@@ -751,6 +796,8 @@ class ParallelReader:
                             if j is not None:
                                 state["active"] += 1
                                 record_stat("hedged_reads_total")
+                                # The hedge on the request's timeline.
+                                spans.record("fanout", f"hedge #{j}", 0)
                                 _io_pool.submit(worker, j)
                             continue
                         wake_due = min(fire_at, deadline)
@@ -787,6 +834,11 @@ class ParallelReader:
                             f"shard reader {j} abandoned past hedge")
                     parked[j] = self.readers[j]
                     self.readers[j] = None
+                    spans.record("fanout", f"straggler-detach #{j}", 0)
+            # One span a fan-out: the wait for results, the verifies and
+            # the hedge and abandon bookkeeping above.
+            spans.record("fanout", "shard-read-wait",
+                         int((time.monotonic() - t_span0) * 1e9))
 
         if len(good) < k:
             err = reduce_read_quorum_errs(self.errs, OBJECT_OP_IGNORED_ERRS,
@@ -829,6 +881,8 @@ def _write_data_blocks(dst, blocks: list, data_blocks: int, offset: int,
         write -= len(chunk)
         if write <= 0:
             break
+    # Payload bytes served: the read-amplification denominator.
+    ioflow.logical(written)
     return written
 
 

@@ -91,8 +91,8 @@ _IO_COMPENSATOR = fanout_policy.StragglerCompensator(IO_POOL)
 
 
 def _quorum_fanout(attempt, disks: list, errs: list, quorum: int) -> None:
-    """The quorum-wait fan-out of the delete paths: attempt(i), which
-    raises on failure, for every disk, errs[i] its error; returns once
+    """The quorum-wait fan-out of the commit and delete paths: attempt(i),
+    which raises on failure, for every disk, errs[i] its error; returns once
     `quorum` succeeded and a straggler grace passed. A disk still in
     flight then is detached with ErrDiskOpTimeout (quorum-ignored, like
     an offline disk), and MRF heals what it missed. One core runs the
@@ -338,11 +338,17 @@ class ErasureObjects(MultipartMixin):
                    opts: ObjectOptions | None = None) -> ObjectInfo:
         opts = opts or ObjectOptions()
         if opts.no_lock:
-            return self._put_object(bucket, object_, reader, size, opts)
+            oi = self._put_object(bucket, object_, reader, size, opts)
+            ioflow.logical(oi.size)
+            return oi
         # One writer of an object at a time, so commits of two PUTs never
         # interleave across disks.
         with self._locked(bucket, object_, writer=True):
-            return self._put_object(bucket, object_, reader, size, opts)
+            oi = self._put_object(bucket, object_, reader, size, opts)
+        # Source bytes of a committed PUT: the write-amplification
+        # denominator (an aborted PUT never counts).
+        ioflow.logical(oi.size)
+        return oi
 
     def _put_object(self, bucket: str, object_: str, reader, size: int,
                     opts: ObjectOptions) -> ObjectInfo:
@@ -454,43 +460,47 @@ class ErasureObjects(MultipartMixin):
 
         def commit(i):
             disk = disks_by_shard[i]
-            try:
-                if disk is None or writers[i] is None:
-                    raise ErrDiskNotFound(f"disk {i}")
-                fi = FileInfo(volume=bucket, name=object_,
-                              version_id=version_id,
-                              data_dir="" if inline else data_dir,
-                              mod_time_ns=mod_time_ns, size=size,
-                              metadata=dict(metadata),
-                              erasure=erasure_info(i + 1))
-                fi.add_part(1, size, size)
-                if inline:
-                    # The shard bytes ride inside xl.meta: one journal
-                    # write, no staged file, no rename.
-                    fi.data = {1: sinks[i].getvalue()}
-                    disk.write_metadata(bucket, object_, fi)
-                else:
-                    disk.rename_data(SYSTEM_META_BUCKET,
-                                     self._tmp_path(tmp_id), fi, bucket,
-                                     object_)
-            except (StorageError, OSError) as exc:
-                errs[i] = exc
+            if disk is None or writers[i] is None:
+                raise ErrDiskNotFound(f"disk {i}")
+            fi = FileInfo(volume=bucket, name=object_,
+                          version_id=version_id,
+                          data_dir="" if inline else data_dir,
+                          mod_time_ns=mod_time_ns, size=size,
+                          metadata=dict(metadata),
+                          erasure=erasure_info(i + 1))
+            fi.add_part(1, size, size)
+            if inline:
+                # The shard bytes ride inside xl.meta: one journal
+                # write, no staged file, no rename.
+                fi.data = {1: sinks[i].getvalue()}
+                disk.write_metadata(bucket, object_, fi)
+            else:
+                disk.rename_data(SYSTEM_META_BUCKET,
+                                 self._tmp_path(tmp_id), fi, bucket,
+                                 object_)
 
-        fanout(commit, n)
+        # The commit returns at write quorum plus a straggler grace: a
+        # drive hung in rename_data is detached (its slot a timeout) and
+        # the MRF queue below heals what it missed.
+        _quorum_fanout(commit, disks_by_shard, errs, write_quorum)
         err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
                                        write_quorum)
         if err is not None:
             # Undo the commits that landed: a sub-quorum PUT must leave
-            # no readable version on the minority (undoRename).
+            # no readable version on the minority (undoRename). A
+            # detached straggler's rename may have landed since, so it
+            # is undone too.
             undo = FileInfo(volume=bucket, name=object_,
                             version_id=version_id)
             for i, e in enumerate(errs):
-                if e is None and disks_by_shard[i] is not None:
-                    try:
-                        disks_by_shard[i].delete_version(bucket, object_,
-                                                         undo)
-                    except (StorageError, OSError):
-                        pass
+                if disks_by_shard[i] is None or (
+                        e is not None
+                        and not isinstance(e, ErrDiskOpTimeout)):
+                    continue
+                try:
+                    disks_by_shard[i].delete_version(bucket, object_, undo)
+                except (StorageError, OSError):
+                    pass
             if not inline:
                 self._cleanup_tmp(disks_by_shard, tmp_id)
             raise err
@@ -618,6 +628,12 @@ class ErasureObjects(MultipartMixin):
                     disk, meta, bucket, object_, fi, part.number,
                     till_offset, erasure.shard_size())
                 for disk, meta in zip(disks_by_shard, metas_by_shard)]
+            if any(r is None for r in readers[:erasure.data_blocks]):
+                # A data shard is known missing from the metadata (an
+                # offline or wiped drive): this GET rebuilds from parity
+                # from byte zero, where no reader failure would retag it.
+                # A missing parity shard alone degrades nothing.
+                ioflow.retag_degraded()
             try:
                 _, hint = decode_stream(erasure, writer, readers,
                                         part_offset, part_length, part.size)
@@ -799,7 +815,7 @@ class ErasureObjects(MultipartMixin):
         # the write lock (no PUT or delete meanwhile). The pace slot comes
         # before the lock: a heal yielding to foreground pressure must not
         # hold the lock a foreground PUT of the object needs.
-        with ioflow.tag("heal"), fanout_policy.heal_slot(), \
+        with ioflow.tag("heal", bucket=bucket), fanout_policy.heal_slot(), \
                 self._locked(bucket, object_, writer=True):
             return self._heal_object(bucket, object_, version_id,
                                      remove_dangling)

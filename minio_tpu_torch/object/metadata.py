@@ -11,7 +11,7 @@ import hashlib
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
-from ..observability import ioflow
+from ..observability import carry as obs_carry
 from ..storage.fileinfo import FileInfo
 from ..utils.errors import (
     OBJECT_OP_IGNORED_ERRS,
@@ -27,10 +27,18 @@ IO_POOL = ThreadPoolExecutor(max_workers=32,
                              thread_name_prefix="mtpu-torch-io")
 
 
+def start_io_pool() -> None:
+    """Start every worker of IO_POOL now (a server on the card does it
+    when it starts)."""
+    from ..utils.fanout import prestart
+
+    prestart(IO_POOL, IO_POOL._max_workers)
+
+
 def fanout(fn, n: int) -> None:
     """Run fn(i) for i in range(n) on IO_POOL and wait for all; fn
     records its own outcome, so an exception here is a bug and raises."""
-    fn = ioflow.carry(fn)
+    fn = obs_carry(fn)
     for fut in [IO_POOL.submit(fn, i) for i in range(n)]:
         fut.result()
 

@@ -22,6 +22,7 @@ from ..erasure.bitrot import (
     bitrot_shard_file_size,
 )
 from ..erasure.streaming import encode_stream
+from ..observability import ioflow
 from ..storage.fileinfo import ChecksumInfo, ErasureInfo, FileInfo, new_uuid
 from ..storage.local import SYSTEM_META_BUCKET
 from ..storage.xlmeta import XLMeta
@@ -148,11 +149,15 @@ class MultipartMixin:
         # encode alone.
         if fanout.SINGLE_CORE:
             with fanout.encode_slot():
-                return self._put_object_part_inner(
+                pi = self._put_object_part_inner(
                     bucket, object_, upload_id, part_number, reader, size,
                     opts)
-        return self._put_object_part_inner(bucket, object_, upload_id,
-                                           part_number, reader, size, opts)
+        else:
+            pi = self._put_object_part_inner(bucket, object_, upload_id,
+                                             part_number, reader, size, opts)
+        # Source bytes of a committed part, as put_object's.
+        ioflow.logical(pi.size)
+        return pi
 
     def _put_object_part_inner(self, bucket: str, object_: str,
                                upload_id: str, part_number: int, reader,
@@ -410,10 +415,20 @@ class MultipartMixin:
             disk.rename_data(SYSTEM_META_BUCKET, upload_path, f, bucket,
                              object_)
 
+        errs: list = [None] * len(disks_by_shard)
+
+        def attempt(i):
+            if disks_by_shard[i] is None:
+                raise ErrDiskNotFound(f"disk {i}")
+            commit(i, disks_by_shard[i])
+
+        from .erasure_objects import _quorum_fanout
+
         # The commit writes the object's xl.meta: the object's write lock,
-        # as a PUT takes it.
+        # as a PUT takes it. It returns at write quorum plus a straggler
+        # grace; a drive hung in rename_data is detached and MRF heals it.
         with self._locked(bucket, object_, writer=True):
-            errs = self._on_every_disk(commit, disks_by_shard)
+            _quorum_fanout(attempt, disks_by_shard, errs, write_quorum)
         err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS,
                                        write_quorum)
         if err is not None:

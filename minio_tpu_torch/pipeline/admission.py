@@ -299,8 +299,16 @@ class AdmissionGovernor:
     def acquire(self, client: str | None = None) -> None:
         """Admit one stream for `client`, waiting fairly up to the
         deadline. Raises ErrOperationTimedOut (a retriable 503) on a full
-        queue or at the deadline. (minio_tpu also records the admission
-        as a span; the port has no spans yet.)"""
+        queue or at the deadline. The whole admission, instant grant or
+        queue wait, is one request span (kind "admission", labelled by
+        the governor's domain, with "/queued" when the stream waited), so
+        a stalled request's queue time shows apart from its handler's."""
+        from ..observability import spans
+
+        with spans.span("admission", self.domain or "put") as sp:
+            self._acquire(client, sp)
+
+    def _acquire(self, client: str | None, sp) -> None:
         from ..utils.errors import ErrOperationTimedOut
 
         if client is None:
@@ -327,6 +335,7 @@ class AdmissionGovernor:
             self._queues.setdefault(client, deque()).append(w)
             self._waiting += 1
             self.queued_total += 1
+            sp.relabel(f"{self.domain or 'put'}/queued")
             self._mirror_queued()
             # Capacity may be free right now (fast path declined only
             # because others were already waiting): run one grant pass

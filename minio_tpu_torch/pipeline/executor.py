@@ -13,10 +13,11 @@ Semantics:
   been joined. No worker outlives the call.
 - Counters: per-stage items, bytes, busy, starved and stalled seconds,
   flushed once a run into pipeline.metrics.
-
-minio_tpu also records a span for each stage execution and each long
-queue wait, and carries the caller's trace into the stage threads; the
-port has no spans yet, so neither is here.
+- Spans: under a request trace, each stage execution records a `stage`
+  span, and a queue wait of at least _SPAN_WAIT_MIN_NS a `stage-wait`
+  (starved on its input) or `stage-stall` (blocked by its downstream)
+  span, labelled "pipeline/stage". The stage threads carry the caller's
+  trace and op tag.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import queue as _queue
 import threading
 import time
 
-from ..observability import ioflow
+from ..observability import carry as obs_carry
+from ..observability import spans
 from . import metrics as _pmetrics
 from .stage import CANCELLED, END_OF_STREAM, SKIP, Stage, StageStats
 
@@ -34,6 +36,10 @@ from .stage import CANCELLED, END_OF_STREAM, SKIP, Stage, StageStats
 # cadence. A hand-off itself is immediate; the poll only bounds how long
 # a cancelled pipeline keeps its threads.
 _POLL_S = 0.05
+
+# Queue waits shorter than this record no span: a hand-off that found
+# its item ready is not worth a record in the ring.
+_SPAN_WAIT_MIN_NS = 500_000  # 0.5 ms
 
 
 class PipelineCancelled(Exception):
@@ -126,19 +132,29 @@ class Pipeline:
     def _work(self, stage: Stage, in_q: _queue.Queue,
               out_q: _queue.Queue) -> None:
         stats = stage.stats
+        # One label a (pipeline, stage); no records outside a trace.
+        span_label = f"{self.name}/{stage.name}"
+        traced = spans.current() is not None
         while True:
             t0 = time.perf_counter()
             item = self._get(in_q)
-            stats.wait_s += time.perf_counter() - t0
+            wait = time.perf_counter() - t0
+            stats.wait_s += wait
             if item is CANCELLED:
                 return
             if item is END_OF_STREAM:
                 self._put(out_q, END_OF_STREAM)
                 return
+            if traced and wait * 1e9 >= _SPAN_WAIT_MIN_NS:
+                # Starved: this stage waited on its upstream.
+                spans.record("stage-wait", span_label, int(wait * 1e9))
             try:
                 t0 = time.perf_counter()
                 out = stage.fn(item)
-                stats.busy_s += time.perf_counter() - t0
+                busy = time.perf_counter() - t0
+                stats.busy_s += busy
+                if traced:
+                    spans.record("stage", span_label, int(busy * 1e9))
             except BaseException as exc:  # noqa: BLE001 - first error wins
                 # A stage releases an item's pooled buffer only on full
                 # success, so the failed item still carries it.
@@ -155,7 +171,11 @@ class Pipeline:
                     pass
             t0 = time.perf_counter()
             ok = self._put(out_q, out)
-            stats.stall_s += time.perf_counter() - t0
+            stall = time.perf_counter() - t0
+            stats.stall_s += stall
+            if traced and stall * 1e9 >= _SPAN_WAIT_MIN_NS:
+                # Backpressure: the downstream is the bottleneck.
+                spans.record("stage-stall", span_label, int(stall * 1e9))
             if not ok:
                 self._drop_item(out)
                 return
@@ -178,14 +198,14 @@ class Pipeline:
             self._error = None
         queues = [_queue.Queue(maxsize=self.queue_depth)
                   for _ in range(len(self.stages) + 1)]
-        # The stage threads carry the caller's op tag, so the disk ops
-        # the stages make count under the request being served.
+        # The stage threads carry the caller's trace and op tag, so the
+        # disk ops the stages make count under the request being served.
         threads = [threading.Thread(
-            target=ioflow.carry(self._feed), args=(source, queues[0]),
+            target=obs_carry(self._feed), args=(source, queues[0]),
             name=f"mtpu-pipe-{self.name}-src", daemon=True)]
         for i, st in enumerate(self.stages):
             threads.append(threading.Thread(
-                target=ioflow.carry(self._work),
+                target=obs_carry(self._work),
                 args=(st, queues[i], queues[i + 1]),
                 name=f"mtpu-pipe-{self.name}-{st.name}", daemon=True))
         for t in threads:

@@ -1,9 +1,9 @@
 """Pipeline counters, the counterpart of minio_tpu/pipeline/metrics.py:
 per-stage totals and pool statistics flushed once a run, read back with
-stage_stats_snapshot() and pool_stats_snapshot().
-
-The registry hook stays None until the port has a metrics endpoint;
-set_registry() installs one with inc() and set_gauge().
+stage_stats_snapshot() and pool_stats_snapshot(), and mirrored into the
+metrics registry that the server installs with set_registry() (the
+series of PIPELINE_DESCRIPTORS on /minio/v2/metrics). Recording is once
+a run plus a queue-depth gauge a hand-off, never a cost per byte.
 """
 
 from __future__ import annotations
@@ -16,6 +16,31 @@ _registry = None
 # Totals per (pipeline, stage) and per pool since process start.
 _stage_totals: dict[tuple[str, str], dict] = {}
 _pool_totals: dict[str, dict] = {}
+
+# Descriptors contributed to observability/metrics_v2.DESCRIPTORS.
+PIPELINE_DESCRIPTORS: list[tuple[str, str, str]] = [
+    ("pipeline_runs_total", "counter", "Pipeline runs by pipeline"),
+    ("pipeline_errors_total", "counter",
+     "Pipeline runs cancelled by a stage error"),
+    ("pipeline_stage_items_total", "counter",
+     "Items processed by pipeline stage"),
+    ("pipeline_stage_bytes_total", "counter",
+     "Bytes produced by pipeline stage"),
+    ("pipeline_stage_busy_seconds_total", "counter",
+     "Seconds spent inside the stage function"),
+    ("pipeline_stage_wait_seconds_total", "counter",
+     "Seconds the stage starved on its input queue"),
+    ("pipeline_stage_stall_seconds_total", "counter",
+     "Seconds the stage blocked on downstream backpressure"),
+    ("pipeline_stage_errors_total", "counter",
+     "Exceptions raised by pipeline stage functions"),
+    ("pipeline_queue_depth", "gauge",
+     "Items currently queued ahead of a stage"),
+    ("pipeline_buffer_pool_allocated", "gauge",
+     "Buffers ever allocated by a pool (flat under steady state)"),
+    ("pipeline_buffer_pool_reused_total", "counter",
+     "Buffer acquisitions served from the freelist"),
+]
 
 
 def set_registry(registry) -> None:
@@ -56,12 +81,15 @@ def record_run(pipeline_name: str, stages, error: bool) -> None:
     for st in stages:
         s = st.stats
         labels = {"pipeline": pipeline_name, "stage": st.name}
-        reg.inc("pipeline_stage_items_total", s.items, **labels)
-        reg.inc("pipeline_stage_bytes_total", s.bytes, **labels)
+        if s.items:
+            reg.inc("pipeline_stage_items_total", s.items, **labels)
+        if s.bytes:
+            reg.inc("pipeline_stage_bytes_total", s.bytes, **labels)
         reg.inc("pipeline_stage_busy_seconds_total", s.busy_s, **labels)
         reg.inc("pipeline_stage_wait_seconds_total", s.wait_s, **labels)
         reg.inc("pipeline_stage_stall_seconds_total", s.stall_s, **labels)
-        reg.inc("pipeline_stage_errors_total", s.errors, **labels)
+        if s.errors:
+            reg.inc("pipeline_stage_errors_total", s.errors, **labels)
 
 
 def record_queue_depth(pipeline_name: str, stage_name: str,

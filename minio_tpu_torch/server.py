@@ -1,16 +1,32 @@
 """Server bootstrap, the port's copy of the part of minio_tpu/server.py
 that a single-node erasure deployment runs (MinIO's serverMain,
-cmd/server-main.go): the self-tests of the erasure code and the bitrot
-hash on the device, the drives (each under the health wrapper of
-storage/diskcheck.py: per-op deadlines and the faulty-drive breaker)
-and one pool of erasure sets per ellipses argument, the root
+cmd/server-main.go): the self-tests of the erasure code, the bitrot
+hash and AES-256-GCM on the device, the drives (each under the health
+wrapper of storage/diskcheck.py: per-op deadlines and the faulty-drive
+breaker) and one pool of erasure sets per ellipses argument, the root
 credential, the bucket metadata, the S3 server with its SSE key
 material (the SSE-S3 master key and a LocalKMS whose key-name registry
 persists under .minio.sys, minio_tpu's _build_kms without KES), and the background services that keep the sets
 healthy (the MRF drain, the disk monitor, fresh-drive back-fill, the
 data scanner with its update tracker; MinIO's initAutoHeal and
-initDataScanner). FS mode, distributed endpoints, TLS, the config
-subsystem, KES, events and metrics are not ported.
+initDataScanner). The metrics registry comes up first, as in minio_tpu:
+every subsystem's hook is set to it, every drive's wrapper counts its
+ops into it, and a MetricsCollector over the object layer, the scanner
+and the MRF drain fills its snapshot gauges at each scrape. FS mode,
+distributed endpoints, TLS, the config subsystem, KES, events, the trace
+hub and the audit log are not ported.
+
+On the card the server also sets up, once, the state its first request
+would otherwise build inside its own memory window (`_warm`): the
+threads started from then on get stacks of THREAD_STACK bytes, below the
+2 MiB of a transparent huge page, so each costs the pages it touches
+rather than a huge page; the workers of the fan-out pools and of each
+drive's pool are started; the pipelined PUT's pool of pinned batch
+buffers is filled to its capacity; and each set geometry passes the
+streaming self-test, an encrypted object through the pipelined PUT and
+a degraded GET in memory, which loads kernels A to D and leaves the
+caching host allocator the pinned blocks, and the threads' allocator
+arenas the room, that a request's batches take.
 """
 
 from __future__ import annotations
@@ -33,17 +49,56 @@ from .background import (
 )
 from .bucket.metadata import BucketMetadataSys
 from .crypto import LocalKMS, SSEConfig
+from .crypto.aead import AESGCM
+from .erasure import registry as codec_registry
+from .erasure import streaming
+from .erasure.bitrot import StreamingBitrotReader, StreamingBitrotWriter
 from .erasure.codec import Erasure
+from .erasure.streaming import (
+    decode_stream,
+    encode_stream,
+    prefill_blocks_pool,
+)
 from .iam.store import IAMSys
+from .object import erasure_objects, metadata
 from .object.pools import ErasureServerPools
 from .object.sets import ErasureSets, read_format
+from .observability import Metrics, spans
+from .observability.metrics_v2 import MetricsCollector
 from .ops.highwayhash_torch import hash256_batch
+from .pipeline import admission
+from .pipeline import metrics as pipeline_metrics
 from .storage.diskcheck import DiskHealth, MetricsDisk
 from .storage.fileinfo import new_uuid
 from .storage.local import LocalStorage
-from .utils import ellipses
+from .utils import ellipses, fanout
 from .utils.device import resolve_device
 from .utils.errors import StorageError
+
+# The streaming self-test's object: two batches of 8 full blocks, one
+# more and a ragged tail, so the PUT and the GET take the pipelined
+# drivers.
+_SELF_TEST_BLOCKS = 17
+
+# The stack of each thread started once the server is up on the card.
+# Smaller than a 2 MiB transparent huge page: a thread's stack then holds
+# only the pages it touches, where an 8 MiB stack took a whole huge page
+# on its first touch.
+THREAD_STACK = 1 << 20
+
+# AES-256-GCM known answer: test case 16 of the GCM specification
+# (McGrew and Viega), a 256-bit key with a 20-byte AAD.
+_GCM_KEY = bytes.fromhex(
+    "feffe9928665731c6d6a8f9467308308feffe9928665731c6d6a8f9467308308")
+_GCM_NONCE = bytes.fromhex("cafebabefacedbaddecaf888")
+_GCM_PLAIN = bytes.fromhex(
+    "d9313225f88406e5a55909c5aff5269a86a7a9531534f7da2e4c303d8a318a72"
+    "1c3c0c95956809532fcf0e2449a6b525b16aedf5aa0de657ba637b39")
+_GCM_AAD = bytes.fromhex("feedfacedeadbeeffeedfacedeadbeefabaddad2")
+_GCM_SEALED = bytes.fromhex(
+    "522dc1f099567d07f47f37a32a84427d643a8cdcbfe5c0c97598a2bd2555d1aa"
+    "8cb08e48590dbb3da7b08b1056828838c5f61e6393ba7a0abcc9f662"
+    "76fc6ece0f4e1768cddf8853bb2d551b")
 
 # HighwayHash-256 (MinIO's magic key) of bytes(range(256)).
 _HIGHWAYHASH_OF_0_TO_255 = bytes.fromhex(
@@ -66,6 +121,56 @@ def erasure_self_test(device) -> None:
             raise RuntimeError(f"erasure self-test failed at {k}+{m}")
 
 
+def aead_self_test(device) -> None:
+    """The boot gate of server-side encryption: AES-256-GCM on `device`
+    (kernels C and D on the card) sealing and opening a known answer."""
+    aead = AESGCM(_GCM_KEY, device)
+    if (aead.encrypt(_GCM_NONCE, _GCM_PLAIN, _GCM_AAD) != _GCM_SEALED
+            or aead.decrypt(_GCM_NONCE, _GCM_SEALED, _GCM_AAD)
+            != _GCM_PLAIN):
+        raise RuntimeError("aead self-test failed: aes-256-gcm")
+
+
+def streaming_self_test(device, data_blocks: int, parity_blocks: int,
+                        block_size: int) -> None:
+    """The data path of an encrypted PUT and degraded GET at one set
+    geometry, in memory: a seeded object of two full batches of blocks
+    and a ragged tail sealed (kernel C), encoded by the pipelined PUT
+    driver (kernels A and B) into bitrot-framed shards, then read back
+    with its first `parity_blocks` shards lost, rebuilt (A), verified
+    (B) and opened (D); a byte that differs stops the server."""
+    from .api.transforms import DecryptWriter, EncryptReader
+
+    erasure = Erasure(data_blocks, parity_blocks, block_size, device=device)
+    payload = np.random.default_rng(0x5E1F).bytes(
+        _SELF_TEST_BLOCKS * block_size + 12_345)
+    key = bytes(32)
+    sinks = [io.BytesIO() for _ in range(erasure.total_shards)]
+    stored = encode_stream(
+        erasure, EncryptReader(io.BytesIO(payload), key, {}, device),
+        [StreamingBitrotWriter(s, device) for s in sinks],
+        data_blocks + (1 if data_blocks == parity_blocks else 0))
+
+    def reader(data: bytes) -> StreamingBitrotReader:
+        def open_stream(offset: int, length: int):
+            return io.BytesIO(data[offset:offset + length])
+
+        r = StreamingBitrotReader(open_stream, stored, erasure.shard_size(),
+                                  device=device)
+        r.local = True
+        return r
+
+    readers = [None if i < parity_blocks else reader(s.getvalue())
+               for i, s in enumerate(sinks)]
+    out = io.BytesIO()
+    opened = DecryptWriter(out, key, device)
+    decode_stream(erasure, opened, readers, 0, stored, stored)
+    opened.close()
+    if out.getvalue() != payload:
+        raise RuntimeError(f"streaming self-test failed at "
+                           f"{data_blocks}+{parity_blocks}")
+
+
 def bitrot_self_test(device) -> None:
     """The boot gate of the bitrot hash (bitrotSelfTest,
     cmd/bitrot.go:207-238): HighwayHash-256 on `device` (kernel B on the
@@ -74,6 +179,19 @@ def bitrot_self_test(device) -> None:
     got = bytes(hash256_batch(payload.to(device)).cpu().numpy()[0])
     if got != _HIGHWAYHASH_OF_0_TO_255:
         raise RuntimeError("bitrot self-test failed: highwayhash256")
+
+
+def _install_metrics(metrics) -> None:
+    """Point every subsystem's registry hook at `metrics` (minio_tpu's
+    Server.__init__): the pipeline counters, the fan-out robustness
+    counters (hedged reads, detached stragglers, late drops), the
+    admission governors, the codec registry and the span plane."""
+    pipeline_metrics.set_registry(metrics)
+    streaming.set_metrics(metrics)
+    fanout.set_metrics(metrics)
+    admission.set_metrics(metrics)
+    codec_registry.set_metrics(metrics)
+    spans.set_metrics(metrics)
 
 
 class _KMSRegistry:
@@ -115,8 +233,13 @@ class Server:
                  set_drive_count: int | None = None,
                  default_parity: int | None = None, device="cuda"):
         self.device = resolve_device(device)
+        # Metrics come up first, so the drives count their ops from the
+        # first format read, and every subsystem's hook points at them.
+        self.metrics = Metrics()
+        _install_metrics(self.metrics)
         erasure_self_test(self.device)
         bitrot_self_test(self.device)
+        aead_self_test(self.device)
         self.root_user = root_user or os.environ.get("MTPU_ROOT_USER",
                                                      "minioadmin")
         self.root_password = root_password or os.environ.get(
@@ -146,6 +269,8 @@ class Server:
                 es.init_format()
             pools.append(es)
         self.object_layer = ErasureServerPools(pools, device=self.device)
+        if self.device.type == "cuda":
+            self._warm()
         self.iam = IAMSys(self.root_user, self.root_password)
         self.bucket_meta = BucketMetadataSys(self.object_layer)
         # The background services (initAutoHeal, initDataScanner), in
@@ -172,17 +297,42 @@ class Server:
                          device=self.device))
         self.s3 = S3Server(self.object_layer, self.iam, self.bucket_meta,
                            host=address, port=port, device=self.device,
-                           sse_config=self.sse_config)
+                           sse_config=self.sse_config, metrics=self.metrics)
         self.s3.admin.scanner = self.scanner
+        # The scrape-time collector over the live subsystems.
+        self.s3.admin.collector = MetricsCollector(
+            self.metrics, object_layer=self.object_layer,
+            scanner=self.scanner, iam=self.iam, mrf=self.mrf)
         self._stop = threading.Event()
+
+    def _warm(self) -> None:
+        """The card's state that the first request would set up (the
+        module docstring): thread stacks, the pools' workers and pinned
+        buffers, and each set geometry's streaming self-test."""
+        threading.stack_size(THREAD_STACK)
+        if not fanout.SINGLE_CORE:
+            streaming.start_io_pool()
+            metadata.start_io_pool()
+        for pool in self.object_layer.pools:
+            for d in pool.disks:
+                if isinstance(d, MetricsDisk):
+                    d.start_pool()
+        geometries = {(len(es.disks) - es.default_parity, es.default_parity)
+                      for pool in self.object_layer.pools
+                      for es in pool.sets}
+        for k, m in sorted(geometries):
+            block = erasure_objects.BLOCK_SIZE_V2
+            prefill_blocks_pool(Erasure(k, m, block, device=self.device))
+            streaming_self_test(self.device, k, m, block)
 
     def _wrap_disk(self, raw, ep: str):
         """A drive as the sets see it: `raw` under the metrics, disk-id
         and health wrapper, with per-op deadlines and the faulty-drive
         breaker (minio_tpu's Server._wrap_disk without the fault
-        injector). The wrapper caches each method on its first call, so
-        a subclass that puts its own layer around `raw` does it here."""
-        return MetricsDisk(raw, None, health=DiskHealth(ep))
+        injector), counting its ops into the server's registry. The
+        wrapper caches each method on its first call, so a subclass that
+        puts its own layer around `raw` does it here."""
+        return MetricsDisk(raw, self.metrics, health=DiskHealth(ep))
 
     @staticmethod
     def _formats(disks):

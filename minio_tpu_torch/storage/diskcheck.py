@@ -7,8 +7,8 @@ tracker latches a hung drive faulty instead of letting it wedge every
 caller).
 
 The wrapper is a transparent proxy: callers keep the same storage
-surface. Metrics go to a registry when one is given (none in the port
-yet: its metrics endpoint is not ported), under minio_tpu's names:
+surface. Metrics go to a registry when one is given (the Server gives
+its own), under minio_tpu's names:
   disk_ops_total{op,disk}, disk_op_errors_total{op,disk},
   disk_op_seconds{op} (histogram), disk_op_timeouts_total{op,disk},
   disk_inflight_rejected_total{op,disk}, disk_faulty_total{disk},
@@ -23,7 +23,11 @@ Health tracking (with a DiskHealth):
   in a row, with a background probe that lets it back in once it answers
   again.
 
-minio_tpu records each guarded op as a span; the port has no spans yet.
+Under a request trace every op is one `disk` span labelled
+"op:endpoint", the leaf of the request's tree (which drive a fan-out
+waited on). The op runs on the drive's own pool thread when guarded on
+a multi-core host; that thread takes over the caller's trace and op
+tag, so the bytes it moves count under the request.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from concurrent.futures import TimeoutError as _FutTimeout
 from contextlib import contextmanager
 from dataclasses import dataclass
 
+from ..observability import carry as obs_carry
+from ..observability import spans
 from ..utils import fanout, parse_duration_s
 from ..utils.errors import ErrDiskFaulty, ErrDiskNotFound, ErrDiskOpTimeout
 
@@ -279,7 +285,16 @@ class MetricsDisk:
             h = self._health
             guarded = h is not None and h.cfg.enabled
             if guarded and not fanout.SINGLE_CORE:
-                return self._call_guarded(op, fn, args, kwargs)
+                if spans.current() is None:
+                    return self._call_guarded(op, fn, args, kwargs)
+                # The op's latency on the request's span timeline: the
+                # leaf of the tree, naming the drive a fan-out waited on.
+                t0s = time.monotonic_ns()
+                try:
+                    return self._call_guarded(op, fn, args, kwargs)
+                finally:
+                    spans.record("disk", f"{op}:{self._disk.endpoint()}",
+                                 time.monotonic_ns() - t0s)
             if guarded and h.is_faulty():
                 # One core skips the per-disk pool (a thread hand-off an
                 # op) but keeps the breaker: a latched disk fails fast,
@@ -303,6 +318,9 @@ class MetricsDisk:
                           disk=self._disk.endpoint())
                 self._observe("disk_op_seconds", time.perf_counter() - t0,
                               op=op)
+                if spans.current() is not None:
+                    spans.record("disk", f"{op}:{self._disk.endpoint()}",
+                                 int((time.perf_counter() - t0) * 1e9))
                 _pace_note(time.perf_counter() - t0)
             if guarded:
                 self._posthoc_breaker(op, time.perf_counter() - t0)
@@ -331,6 +349,13 @@ class MetricsDisk:
         cfg = self._health.cfg
         return (cfg.long_op_deadline_s if op in _LONG_OPS
                 else cfg.op_deadline_s)
+
+    def start_pool(self) -> None:
+        """Start the drive's pool and one worker now, where the health
+        wrapper sends each op to it (guarded, on a multi-core host)."""
+        h = self._health
+        if h is not None and h.cfg.enabled and not fanout.SINGLE_CORE:
+            fanout.prestart(self._pool(), 1)
 
     def _pool(self) -> ThreadPoolExecutor:
         """The disk's own executor, made on first use and sized to the
@@ -371,8 +396,9 @@ class MetricsDisk:
                 h.release()
 
         # The op gets its whole deadline from submission; the token wait
-        # above is bounded apart.
-        fut = self._pool().submit(run)
+        # above is bounded apart. The pool thread carries the caller's
+        # trace and op tag.
+        fut = self._pool().submit(obs_carry(run))
         try:
             out = fut.result(timeout=deadline_s)
         except _FutTimeout:

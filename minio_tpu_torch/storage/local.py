@@ -12,7 +12,10 @@ Writes are staged under tmp and committed by an atomic rename
 `small_file_threshold()` keep their shard bytes inside xl.meta instead of
 a part file. Everything here is host file I/O, except `verify_file`,
 which checks every bitrot frame on the drive's device (kernel B on the
-card).
+card). Every byte read or written is counted in the byte-flow ledger
+(observability/ioflow.py) under this drive's endpoint, at minio_tpu's
+places: shard bytes as read/write, xl.meta and small blobs as
+rmeta/wmeta.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..erasure.bitrot import (
     bitrot_shard_file_size,
     bitrot_verify,
 )
+from ..observability import ioflow
 from ..utils.device import resolve_device
 from ..utils.errors import (
     ErrDiskNotFound,
@@ -230,7 +234,9 @@ class LocalStorage(StorageAPI):
                 return
             if XL_META_FILE in names:
                 with open(os.path.join(p, XL_META_FILE), "rb") as f:
-                    yield rel, f.read()
+                    raw = f.read()
+                ioflow.account(self._endpoint, "rmeta", len(raw))
+                yield rel, raw
                 return
             for name in names:
                 child = f"{rel}/{name}" if rel else name
@@ -252,6 +258,7 @@ class LocalStorage(StorageAPI):
         try:
             with open(meta_path, "rb") as f:
                 raw = f.read()
+            ioflow.account(self._endpoint, "rmeta", len(raw))
         except FileNotFoundError:
             if not os.path.isdir(self._vol_path(volume)):
                 raise ErrVolumeNotFound(volume) from None
@@ -263,12 +270,14 @@ class LocalStorage(StorageAPI):
         os.makedirs(obj_dir, exist_ok=True)
         tmp = os.path.join(
             obj_dir, f".xl.meta.tmp.{os.getpid()}.{time.monotonic_ns()}")
+        blob = meta.to_bytes()
         with open(tmp, "wb") as f:
-            f.write(meta.to_bytes())
+            f.write(blob)
             if self._fsync:
                 f.flush()
                 os.fsync(f.fileno())
         os.replace(tmp, os.path.join(obj_dir, XL_META_FILE))
+        ioflow.account(self._endpoint, "wmeta", len(blob))
 
     def _add_version(self, volume: str, path: str, fi: FileInfo) -> None:
         """Merge fi into the object's journal, creating it if absent."""
@@ -394,7 +403,7 @@ class LocalStorage(StorageAPI):
         os.makedirs(os.path.dirname(p), exist_ok=True)
         # Unbuffered: the bitrot writer hands over whole frames, and a
         # short raw write is retried by _FullWriter, never dropped.
-        f = _FullWriter(open(p, "wb", buffering=0))
+        f = _FullWriter(open(p, "wb", buffering=0), drive=self._endpoint)
         return _FsyncOnClose(f) if self._fsync else f
 
     def read_file_stream(self, volume: str, path: str, offset: int,
@@ -407,7 +416,7 @@ class LocalStorage(StorageAPI):
         except IsADirectoryError:
             raise ErrFileAccessDenied(f"{volume}/{path}") from None
         f.seek(offset)
-        return _LimitedReader(f, length)
+        return _LimitedReader(f, length, drive=self._endpoint)
 
     def read_repair_symbol(self, volume: str, path: str, *, stride: int,
                            digest_size: int, alpha: int, subs: list[int],
@@ -436,6 +445,7 @@ class LocalStorage(StorageAPI):
             raise ErrFileNotFound(f"{volume}/{path}") from None
         except IsADirectoryError:
             raise ErrFileAccessDenied(f"{volume}/{path}") from None
+        ioflow.account(self._endpoint, "read", len(out))
         return bytes(out)
 
     def _part_path(self, volume: str, path: str, fi: FileInfo,
@@ -485,8 +495,9 @@ class LocalStorage(StorageAPI):
                 raise ErrFileNotFound(
                     f"{volume}/{path} part.{part.number}") from None
             with f:
-                bitrot_verify(f, os.fstat(f.fileno()).st_size, part_size,
-                              shard_size, self.device)
+                size = os.fstat(f.fileno()).st_size
+                bitrot_verify(_LimitedReader(f, size, drive=self._endpoint),
+                              size, part_size, shard_size, self.device)
 
     def delete(self, volume: str, path: str, recursive: bool = False) -> None:
         self._require_online()
@@ -521,16 +532,19 @@ class LocalStorage(StorageAPI):
                 f.flush()
                 os.fsync(f.fileno())
         os.replace(tmp, p)
+        ioflow.account(self._endpoint, "wmeta", len(data))
 
     def read_all(self, volume: str, path: str) -> bytes:
         self._require_online()
         try:
             with open(self._file_path(volume, path), "rb") as f:
-                return f.read()
+                raw = f.read()
         except FileNotFoundError:
             if not os.path.isdir(self._vol_path(volume)):
                 raise ErrVolumeNotFound(volume) from None
             raise ErrFileNotFound(f"{volume}/{path}") from None
+        ioflow.account(self._endpoint, "rmeta", len(raw))
+        return raw
 
 
 class _FullWriter:
@@ -538,8 +552,9 @@ class _FullWriter:
     the OS raises: write() on an unbuffered file is one syscall and may
     return a short count, which would silently truncate a shard."""
 
-    def __init__(self, f):
+    def __init__(self, f, drive: str = ""):
         self._f = f
+        self._drive = drive
 
     def write(self, b) -> int:
         mv = memoryview(b).cast("B")
@@ -550,6 +565,9 @@ class _FullWriter:
             if not wrote:
                 raise OSError(f"write stalled at {n}/{total} bytes")
             n += wrote
+        # Counted after the syscalls succeed: a failed write must not
+        # inflate the heal and put denominators.
+        ioflow.account(self._drive, "write", total)
         return total
 
     def fileno(self):
@@ -584,9 +602,10 @@ class _FsyncOnClose:
 class _LimitedReader:
     """Read at most `limit` bytes from a file, then EOF."""
 
-    def __init__(self, f, limit: int):
+    def __init__(self, f, limit: int, drive: str = ""):
         self._f = f
         self._left = limit
+        self._drive = drive
 
     def read(self, n: int = -1) -> bytes:
         if self._left <= 0:
@@ -595,6 +614,7 @@ class _LimitedReader:
             n = self._left
         buf = self._f.read(n)
         self._left -= len(buf)
+        ioflow.account(self._drive, "read", len(buf))
         return buf
 
     def readinto(self, b) -> int:
@@ -605,6 +625,7 @@ class _LimitedReader:
             view = view[: self._left]
         n = self._f.readinto(view) or 0
         self._left -= n
+        ioflow.account(self._drive, "read", n)
         return n
 
     def close(self):

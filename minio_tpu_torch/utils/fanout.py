@@ -18,22 +18,32 @@ import os
 import threading
 import time
 
-from ..observability import ioflow
+from ..observability import carry as obs_carry
+from ..observability import spans
 
 SINGLE_CORE = (os.cpu_count() or 1) == 1
 
 # Late straggler outcomes discarded after detach: the slot already holds
 # its timeout and heal repairs the shard, but the drop itself is
 # counted, so a drive that keeps finishing just past the grace window
-# stays visible.
+# stays visible; a registry installed at server start mirrors the counts
+# onto the metrics endpoint.
 LATE_DROPS = {"errors": 0, "results": 0}  # guarded-by: _late_mu
 _late_mu = threading.Lock()
+_metrics = None
+
+
+def set_metrics(registry) -> None:
+    global _metrics
+    _metrics = registry
 
 
 def _note_late_drop(err) -> None:
     key = "errors" if err is not None else "results"
     with _late_mu:
         LATE_DROPS[key] += 1
+    if _metrics is not None:
+        _metrics.inc(f"fanout_late_dropped_{key}_total")
 
 
 # The admission deadline of an encode slot, as minio_tpu reads it (the
@@ -71,6 +81,19 @@ def heal_slot():
     from ..background.healpace import pacer
 
     return pacer().heal_slot()
+
+
+def prestart(pool, n: int, timeout_s: float = 60.0) -> None:
+    """Start `n` of a ThreadPoolExecutor's workers now (at most its
+    ceiling): `n` tasks that wait for one another, so the pool spawns a
+    thread for each. A server does it when it starts, so a request finds
+    the threads (their stacks and allocator arenas) already there."""
+    n = min(n, pool._max_workers)
+    barrier = threading.Barrier(n + 1)
+    futs = [pool.submit(barrier.wait, timeout_s) for _ in range(n)]
+    barrier.wait(timeout_s)
+    for f in futs:
+        f.result()
 
 
 def is_local_sink(sink) -> bool:
@@ -118,7 +141,14 @@ def quorum_wait(cv, pending, count_ok, quorum, deadline_s, grace_s):
     grace has passed, the fan-out can no longer reach quorum (fail, but
     only after one grace, so tasks about to settle still report), every
     task finished, or deadline_s elapsed. count_ok runs under cv.
-    Whatever is left in `pending` afterwards is the caller's to detach."""
+    Whatever is left in `pending` afterwards is the caller's to detach.
+    The wait is one request span (kind "fanout", "quorum-wait"), so a
+    PUT held by a straggling drive puts the stall on the fan-out."""
+    with spans.span("fanout", "quorum-wait"):
+        _quorum_wait(cv, pending, count_ok, quorum, deadline_s, grace_s)
+
+
+def _quorum_wait(cv, pending, count_ok, quorum, deadline_s, grace_s):
     deadline = time.monotonic() + deadline_s
     grace_end = None
     fail_end = None
@@ -208,7 +238,9 @@ class QuorumFanout:
                 if not pending or ok >= quorum or ok + len(pending) < quorum:
                     cv.notify_all()
 
-        bound = ioflow.carry(run)
+        # Pool threads carry the caller's trace and op tag, so their disk
+        # records and ledger bytes count under this request.
+        bound = obs_carry(run)
         for i in sorted(pending):
             self.pool.submit(bound, i)
         for i in inline:
@@ -224,3 +256,5 @@ class QuorumFanout:
                 self.comp.parked()
                 on_detach(i)
                 pending.discard(i)
+                # The detach itself, a mark on the request's timeline.
+                spans.record("fanout", f"straggler-detach #{i}", 0)

@@ -21,8 +21,8 @@ from minio_tpu_torch.crypto.aead import AESGCM
 from minio_tpu_torch.entry import (admission_drive_health,
                                    object_codec_put_get_heal,
                                    object_put_get_heal, object_self_heal,
-                                   put_get_heal, s3_core, s3_put_get_heal,
-                                   s3_sse)
+                                   observability, put_get_heal, s3_core,
+                                   s3_put_get_heal, s3_sse)
 from minio_tpu_torch.erasure import device_engine, registry
 from minio_tpu_torch.ops import aes_gcm, aes_gcm_cuda
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
@@ -561,3 +561,23 @@ def test_admission_drive_health_on_card(cuda, tmp_path):
         assert res["counters"][step]["kernel_gf_launches"] > 0, step
     for step, c in res["counters"].items():
         assert c["kernel_seal_launches"] == c["kernel_open_launches"] == 0
+
+
+def test_observability_on_card(cuda, tmp_path):
+    """Phase 4m at 4 MiB + 12,345 B on the card: the health probes in
+    every drive state, a PUT, GET, degraded GET and heal, an SSE-S3 PUT
+    and GET, the scrapes and admin answers; every request tree whole,
+    the ledger equal to the drives' bytes; kernels A and B in the PUT,
+    degraded GET and heal, C in the SSE PUT and D in the SSE GET."""
+    size = 4 * (1 << 20) + 12_345
+    res = observability(tmp_path, size, device=cuda)
+    assert all(res["checks"].values()), res["checks"]
+    c = res["counters"]
+    for step in ("put", "degraded_get", "heal"):
+        assert c[step]["kernel_gf_launches"] > 0, step
+        assert c[step]["kernel_hash_launches"] > 0, step
+    assert c["sse_put"]["kernel_seal_launches"] > 0
+    assert c["sse_get"]["kernel_open_launches"] > 0
+    for step in ("put", "get", "degraded_get", "heal"):
+        assert c[step]["kernel_seal_launches"] == 0, step
+        assert c[step]["kernel_open_launches"] == 0, step
