@@ -42,7 +42,15 @@ Phases, each of which must pass (nothing is caught):
     with flipped nonce, ciphertext, tag and AAD bytes at 16 and 127
     packages (the ok flags false exactly there, those packages'
     plaintext zero), captured with their workspace in a CUDA graph, and
-    at known answers made with the `cryptography` package;
+    at known answers made with the `cryptography` package; kernels E and
+    F (snappy compression and framed-chunk decompression with CRC32C,
+    check_s2_kernels) against the plain codec, exact: every block, CRC
+    and length of E and every raw byte and status of F, in batches of 1,
+    33, 128 and 4,097 chunks cycling through 64 KiB of phase 4n's seeded
+    text, random bytes (blocks longer than the chunk) and zeros, the
+    12,345 B tail, lengths 0 to 8 and tests/test_s2.py's copy-remainder
+    runs, and F on a flipped CRC byte (status 1) and a truncated block
+    (status 2);
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object, on the pipelined drivers (this host has
     more than one core): PUT, healthy GET, shards 0, 5, 12 and 15 lost,
@@ -208,9 +216,28 @@ Phases, each of which must pass (nothing is caught):
     seconds and launches, each tree's seconds by span kind, the ledger's
     bytes by op class and direction, the scraped series and the health
     codes; then the span plane's cost: phases 4e and 4k with the plane
-    armed and disarmed (MTPU_TRACE unset / 0) in turns on, off, off, on
-    (4e with 64 small objects), each call's seconds, each run from a
-    fresh heal pacer. Prints {"observability": ...};
+    armed and disarmed (MTPU_TRACE unset / 0), on then off (4e with 64
+    small objects), each call's seconds, each run from a fresh heal
+    pacer. Prints {"observability": ...};
+ 4n. the config subsystem and compression over HTTP
+    (entry.config_compression): a Server over 16 drive directories (one
+    12+4 set, 1 MiB blocks), its S3 plane alone: `compression enable=on
+    extensions=.log` and `storage_class rrs=EC:2` set over the admin route
+    (each save sealed by kernel C, the history two entries longer); a
+    256 MiB + 12,345 B .log object of seeded text PUT compressed (E, A,
+    B; its stored size and ratio printed), GET whole and a 3 MiB range
+    from its middle (B, F), each equal by SHA-256; the object lost on
+    drives 0, 5, 12 and 15 and those drives offline, a degraded GET (A,
+    B, F); the drives back, the admin heal (A and B, never E or F; every
+    healed file equal by SHA-256); the same text as SSE-S3 (E, C, A, B;
+    then B, D, F); 16 MiB of random bytes as .log stored unmarked after
+    E's one probe launch; a REDUCED_REDUNDANCY object at 14+2 (kernel A
+    at 2x14); `api requests_max=1 requests_deadline=1s` set, the server
+    built again on the same drives (the config loads: D), the compressed
+    object read back, and a GET while the one slot is held answered 503
+    SlowDown. Counters zeroed just before and read just after each step;
+    prints each step's seconds and launches and {"config_compression":
+    ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
@@ -220,10 +247,12 @@ Phases, each of which must pass (nothing is caught):
     the msr-pm repair window [5, 16, 43,691] -> 2; kernels C and D at
     every launch shape of 4k: the 32-byte key seal, 16, the closing 33,
     127 (the port's batch) and 4,097 packages, each with its share of
-    the bound and its launches in 4k) and print one JSON line
-    {"kernels": [...]}, whose launches are those of phases 4, 4c, 4e, 4h,
-    4i, 4j, 4k, 4l and 4m (by path in "launches_by_path"); every kernel
-    must have launched on the main paths;
+    the bound and its launches in 4k; kernels E and F at 1, 128 and 4,097
+    chunks of 4n's text against their byte bound, with their launches in
+    4n) and print one JSON line {"kernels": [...]}, whose launches are
+    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l and 4m (by path in
+    "launches_by_path"; E's and F's those of 4n); every kernel must have
+    launched on the main paths;
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -821,6 +850,7 @@ def check_kernels(rng) -> dict:
     check_codec_kernels(rng, errs)
     check_self_heal_kernels(rng, errs)
     check_aes_kernels(rng, errs)
+    check_s2_kernels(rng, errs)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -1019,6 +1049,172 @@ def check_aes_kernels(rng, errs: dict) -> None:
             f"{'equal' if good else 'DIFFERENT'}")
 
 
+# Phase 3 of kernels E and F: the batches (chunk counts) and the chunk
+# contents, cycled through each batch: 64 KiB of phase 4n's seeded text at
+# eight offsets, 64 KiB of random bytes (a block longer than the chunk)
+# twice, 64 KiB of zeros, the object's 12,345 B tail, lengths 0 to 8, and
+# tests/test_s2.py's copy-remainder runs. The plain codec is a Python
+# loop, so it runs once a distinct chunk and the batches' expectations
+# are assembled from those answers (chunks are independent).
+S2_BATCHES = (1, 33, 128, 4097)
+S2_RUNS = (65, 66, 67, 68, 129, 130, 131)
+
+
+def s2_pool(rng) -> dict:
+    from minio_tpu_torch.entry import seeded_text
+
+    text = seeded_text(8 * PACKAGE + 12_345, 80)
+    pool = {f"text{i}": text[i * PACKAGE:(i + 1) * PACKAGE]
+            for i in range(8)}
+    pool.update({"random0": rng.bytes(PACKAGE), "random1": rng.bytes(PACKAGE),
+                 "zeros": bytes(PACKAGE), "tail": text[8 * PACKAGE:]})
+    pool.update({f"len{n}": text[:n] for n in range(9)})
+    pool.update({f"run{n}": b"a" * n for n in S2_RUNS})
+    return pool
+
+
+def s2_plain(pool: dict) -> dict:
+    """Each distinct chunk's plain answers: (block, masked CRC, frame
+    type, frame body, raw bytes F gives, F's status)."""
+    from minio_tpu_torch.ops import s2
+
+    out = {}
+    for name, raw in pool.items():
+        data = torch.frombuffer(bytearray(raw), dtype=torch.uint8) \
+            if raw else torch.empty(0, dtype=torch.uint8)
+        desc = torch.tensor([[0, len(raw), 0]], dtype=torch.int64)
+        blk, crc, ln = s2.compress_plain(data, desc,
+                                         s2.max_compressed(len(raw)))
+        block = blk.numpy().tobytes()[:int(ln[0])]
+        crc = int(crc[0])
+        ftype = 0 if len(block) < len(raw) else 1
+        body = struct.pack("<I", crc) + (block if ftype == 0 else raw)
+        fdata = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+        fdesc = torch.tensor([[ftype, 0, len(body), 0, len(raw)]],
+                             dtype=torch.int64)
+        plain, st = s2.decompress_plain(fdata, fdesc, len(raw))
+        out[name] = (block, crc, ftype, body, plain.numpy().tobytes(),
+                     int(st[0]))
+    return out
+
+
+def s2_batch_names(pool: dict, n: int) -> list[str]:
+    """A batch of n chunks cycling through the pool, a 4,097-chunk batch
+    ending in the tail as the object's does."""
+    names = list(pool)
+    batch = [names[i % len(names)] for i in range(n)]
+    if n == 4097:
+        batch[-1] = "tail"
+    return batch
+
+
+def s2_run_e(pool: dict, names: list[str]):
+    """Kernel E over the chunks `names`: (desc, out, crcs, lens) on the
+    host."""
+    from minio_tpu_torch.ops import s2, s2_cuda
+
+    raw = b"".join(pool[n] for n in names)
+    rows, in_off, out_off = [], 0, 0
+    for n in names:
+        rows.append((in_off, len(pool[n]), out_off))
+        in_off += len(pool[n])
+        out_off += s2.max_compressed(len(pool[n]))
+    desc = torch.tensor(rows, dtype=torch.int64).cuda()
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
+    out, crcs, lens = s2_cuda.compress_cuda(data, desc, out_off)
+    torch.cuda.synchronize()
+    return rows, out.cpu().numpy(), crcs.cpu().tolist(), lens.cpu().tolist()
+
+
+def s2_run_f(bodies: list, types: list, out_lens: list):
+    """Kernel F over frame bodies: (out, status) on the host, with the
+    desc rows."""
+    from minio_tpu_torch.ops import s2_cuda
+
+    rows, off, out_off = [], 0, 0
+    for t, b, n in zip(types, bodies, out_lens):
+        rows.append((t, off, len(b), out_off, n))
+        off += len(b)
+        out_off += n
+    data = torch.frombuffer(bytearray(b"".join(bodies)),
+                            dtype=torch.uint8).cuda()
+    out, status = s2_cuda.decompress_cuda(
+        data, torch.tensor(rows, dtype=torch.int64).cuda(), out_off)
+    torch.cuda.synchronize()
+    return rows, out.cpu().numpy(), status.cpu().tolist()
+
+
+def _bytes_err(a: bytes, b: bytes) -> int:
+    if len(a) != len(b):
+        return 256
+    if a == b:
+        return 0
+    x = np.frombuffer(a, dtype=np.uint8).astype(np.int32)
+    y = np.frombuffer(b, dtype=np.uint8).astype(np.int32)
+    return int(np.abs(x - y).max())
+
+
+def check_s2_kernels(rng, errs: dict) -> None:
+    """Phase 3 of kernels E and F, exact: every block, CRC and length of
+    E and every raw byte and status of F against the plain versions, at
+    S2_BATCHES over s2_pool(); F on a frame with a flipped CRC byte
+    (status 1) and on a truncated block (status 2)."""
+    pool = s2_pool(rng)
+    t0 = time.perf_counter()
+    plain = s2_plain(pool)
+    log(f"s2 plain answers for {len(pool)} distinct chunks in "
+        f"{time.perf_counter() - t0:.2f} s")
+    errs["s2_compress"] = errs["s2_decompress"] = 0
+    for n in S2_BATCHES:
+        names = s2_batch_names(pool, n)
+        rows, out, crcs, lens = s2_run_e(pool, names)
+        err = 0
+        for (_, _, o), name, crc, ln in zip(rows, names, crcs, lens):
+            block, pcrc = plain[name][0], plain[name][1]
+            err = max(err, abs(ln - len(block)), abs(crc - pcrc),
+                      _bytes_err(out[o:o + ln].tobytes(), block))
+        errs["s2_compress"] = max(errs["s2_compress"], err)
+        log(f"s2_compress {n} chunks: max_abs_err {err}")
+        frames = [plain[nm] for nm in names]
+        _, fout, status = s2_run_f([f[3] for f in frames],
+                                   [f[2] for f in frames],
+                                   [len(pool[nm]) for nm in names])
+        err, pos = 0, 0
+        for nm, st, f in zip(names, status, frames):
+            ln = len(pool[nm])
+            err = max(err, abs(st - f[5]),
+                      _bytes_err(fout[pos:pos + ln].tobytes(), f[4]))
+            pos += ln
+        errs["s2_decompress"] = max(errs["s2_decompress"], err)
+        log(f"s2_decompress {n} frames: max_abs_err {err}")
+    # Tampered frames: a flipped CRC byte, a truncated block; a good frame
+    # between them decodes.
+    good = plain["text0"]
+    bad_crc = bytearray(good[3])
+    bad_crc[1] ^= 0x20
+    short = plain["text1"][3][:-5]
+    bodies = [bytes(bad_crc), good[3], short]
+    from minio_tpu_torch.ops import s2
+
+    desc = torch.tensor([[0, 0, len(bodies[0]), 0, PACKAGE],
+                         [0, len(bodies[0]), len(bodies[1]), PACKAGE,
+                          PACKAGE],
+                         [0, len(bodies[0]) + len(bodies[1]),
+                          len(bodies[2]), 2 * PACKAGE, PACKAGE]],
+                        dtype=torch.int64)
+    _, p_status = s2.decompress_plain(
+        torch.frombuffer(bytearray(b"".join(bodies)), dtype=torch.uint8),
+        desc, 3 * PACKAGE)
+    _, fout, status = s2_run_f(bodies, [0, 0, 0], [PACKAGE] * 3)
+    want = [s2.STATUS_CRC, s2.STATUS_OK, s2.STATUS_CORRUPT]
+    err = max(abs(a - b) for a, b in zip(status + p_status.tolist(),
+                                         want + want))
+    err = max(err, _bytes_err(fout[PACKAGE:2 * PACKAGE].tobytes(), good[4]))
+    errs["s2_decompress"] = max(errs["s2_decompress"], err)
+    log(f"s2_decompress tampered (CRC, good, truncated): kernel {status}, "
+        f"plain {p_status.tolist()}, max_abs_err {err}")
+
+
 def settle_heap() -> None:
     """Collect the garbage that the kernel checks, the traces and the last
     run leave, outside the timings. Nothing is frozen: the main paths run
@@ -1047,8 +1243,13 @@ def on_gc(phase: str, info: dict) -> None:
 def reset_counts() -> None:
     """Zero every launch counter, just before a main path runs."""
     from minio_tpu_torch.erasure import device_engine
-    from minio_tpu_torch.ops import aes_gcm_cuda, highwayhash_torch, rs_cuda
+    from minio_tpu_torch.ops import (aes_gcm_cuda, highwayhash_torch,
+                                     rs_cuda, s2_cuda)
 
+    s2_cuda.COMPRESS_LAUNCHES.reset()
+    s2_cuda.DECOMPRESS_LAUNCHES.reset()
+    s2_cuda.COMPRESS_LAUNCHES_BY_SHAPE.reset()
+    s2_cuda.DECOMPRESS_LAUNCHES_BY_SHAPE.reset()
     rs_cuda.LAUNCHES.reset()
     rs_cuda.LAUNCHES_BY_SHAPE.reset()
     highwayhash_torch.LAUNCHES.reset()
@@ -1060,12 +1261,24 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    from minio_tpu_torch.ops import aes_gcm_cuda, highwayhash_torch, rs_cuda
+    from minio_tpu_torch.ops import (aes_gcm_cuda, highwayhash_torch,
+                                     rs_cuda, s2_cuda)
 
     return {"gf_apply": rs_cuda.LAUNCHES.value,
             "highwayhash256": highwayhash_torch.LAUNCHES.value,
             "aes_gcm_seal": aes_gcm_cuda.SEAL_LAUNCHES.value,
-            "aes_gcm_open": aes_gcm_cuda.OPEN_LAUNCHES.value}
+            "aes_gcm_open": aes_gcm_cuda.OPEN_LAUNCHES.value,
+            "s2_compress": s2_cuda.COMPRESS_LAUNCHES.value,
+            "s2_decompress": s2_cuda.DECOMPRESS_LAUNCHES.value}
+
+
+def read_s2_shape_counts() -> dict:
+    """Kernels E's and F's launches by chunk count."""
+    from minio_tpu_torch.ops import s2_cuda
+
+    return {"s2_compress": s2_cuda.COMPRESS_LAUNCHES_BY_SHAPE.snapshot(),
+            "s2_decompress":
+                s2_cuda.DECOMPRESS_LAUNCHES_BY_SHAPE.snapshot()}
 
 
 def read_shape_counts() -> dict:
@@ -1800,10 +2013,10 @@ def run_admission() -> tuple[dict, dict]:
 OBS_STEPS = {"make_bucket": None, "put": "AB", "get": "B",
              "degraded_get": "AB", "heal": "AB", "sse_put": "ABC",
              "sse_get": "BD"}
-# The span plane's cost: each of 4e and 4k armed and disarmed, in turns;
-# 4e's runs with 64 small objects, not 256, to keep the smoke inside its
-# time.
-PLANE_RUNS = (("on", None), ("off", "0"), ("off", "0"), ("on", None))
+# The span plane's cost: each of 4e and 4k armed, then disarmed; 4e's
+# runs with 64 small objects, not 256, and one run of each mode, not two,
+# to keep the smoke inside its time.
+PLANE_RUNS = (("on", None), ("off", "0"))
 PLANE_SMALL_COUNT = 64
 
 
@@ -1887,7 +2100,7 @@ def run_observability() -> tuple[dict, dict]:
 def plane_cost() -> dict:
     """Phase 4m's cost of the span plane: phases 4e and 4k (plane_calls)
     with the plane armed (MTPU_TRACE unset) and disarmed (MTPU_TRACE=0),
-    on, off, off, on; each call's seconds, whole. Each run starts with a
+    on then off (PLANE_RUNS); each call's seconds, whole. Each run starts with a
     fresh heal pacer, as phase 4l leaves it: the pacer's latency window
     is the process's, and a window an earlier run left slow would make
     every heal of the next wait its deadline."""
@@ -1925,6 +2138,177 @@ def plane_cost() -> dict:
         log(f"4m plane {ph}: on {summary[ph + ':on']}, off "
             f"{summary[ph + ':off']} ({card})")
     return {"card": card, "runs": runs, "summary": summary}
+
+
+# Phase 4n's steps: the kernels each must launch and those it must not
+# (A..F). `restart` builds a Server, whose warm-up runs every kernel: only
+# the config's load (D) is checked there.
+CFG_STEPS = {
+    "settings": ("C", ""), "put": ("EAB", "DF"), "get": ("BF", "ACDE"),
+    "range_get": ("BF", "ACDE"), "degraded_get": ("ABF", "CDE"),
+    "heal": ("AB", "CDEF"), "sse_put": ("EABC", "DF"),
+    "sse_get": ("BDF", "ACE"), "random_put": ("EAB", "CDF"),
+    "rrs_put": ("AB", "CDEF"), "restart": ("D", ""),
+    "get_after_restart": ("BF", "ACDE"), "slowdown": ("", "ABCDEF")}
+
+
+def run_config_compression() -> tuple[dict, dict]:
+    """Phase 4n: entry.config_compression, the config subsystem and
+    compression of a Server over HTTP."""
+    from minio_tpu_torch.entry import config_compression
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = config_compression(tmp, OBJECT_SIZE, device="cuda", seed=80)
+        launches = read_counts()
+        by_shape = read_s2_shape_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"config/compression checks failed: {failed}")
+    card = card_line()
+    per_step = {}
+    for name, (need, forbid) in CFG_STEPS.items():
+        c = res["counters"][name]
+        n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+             "C": c["kernel_seal_launches"], "D": c["kernel_open_launches"],
+             "E": c["kernel_compress_launches"],
+             "F": c["kernel_decompress_launches"]}
+        per_step[name] = dict(n, seconds=res["seconds"][name],
+                              gf_by_shape=res["gf_by_shape"][name])
+        ok = (all(n[k] > 0 for k in need)
+              and not any(n[k] for k in forbid))
+        if name == "random_put":
+            ok = ok and n["E"] == 1  # the probe alone
+        if name == "rrs_put":
+            ok = ok and res["gf_by_shape"][name].get("2x14", 0) > 0
+        if not ok:
+            raise AssertionError(f"4n {name}: launches {n}, A by shape "
+                                 f"{res['gf_by_shape'][name]}, want "
+                                 f"{need or 'none'}, never {forbid}")
+        log(f"4n {name}: {res['seconds'][name]:.4f} s, launches A {n['A']} "
+            f"B {n['B']} C {n['C']} D {n['D']} E {n['E']} F {n['F']} "
+            f"({card})")
+    log(f"4n stored {res['stored_size']} B of {res['size']} B (ratio "
+        f"{res['ratio']:.4f}), SSE {res['sse_stored_size']} B; RRS "
+        f"{res['rrs_geometry']}; slowdown after "
+        f"{res['slowdown_wait_s']:.3f} s; E and F by chunk count {by_shape}")
+    line = {"card": card, "size": res["size"], "k": K, "m": M,
+            "lost": res["lost"], "range": res["range"],
+            "stored_size": res["stored_size"], "ratio": res["ratio"],
+            "sse_stored_size": res["sse_stored_size"],
+            "rrs_geometry": res["rrs_geometry"], "heal": res["heal"],
+            "slowdown_wait_s": res["slowdown_wait_s"],
+            "seconds": res["seconds"], "launches": per_step,
+            "s2_launches_by_chunks": by_shape, "checks": res["checks"]}
+    return line, launches
+
+
+def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
+    """Phase 5 for kernels E and F: CUDA events over calls at 1, 128 (a
+    launch of the port's batch) and 4,097 chunks (the whole 4n object) of
+    phase 4n's text, the plain versions' times at 1 and 128, and the byte
+    bound: the bytes read once and written once over HBM_BYTES_PER_S (no
+    operation count bounds a sequential match loop lower). `launches`
+    holds each kernel's launches by main path, and 4n's by chunk count
+    under "s2_by_chunks"."""
+    from minio_tpu_torch.entry import seeded_text
+    from minio_tpu_torch.ops import s2, s2_cuda
+    from minio_tpu_torch.utils.timing import time_calls
+
+    text = seeded_text(4096 * PACKAGE + 12_345, 80)
+    by_chunks = launches["s2_by_chunks"]
+    shapes = {"s2_compress": [], "s2_decompress": []}
+    for n in (1, 128, 4097):
+        sizes = [PACKAGE] * min(n, 4096) + ([12_345] if n == 4097 else [])
+        raw = text[:sum(sizes)]
+        rows, in_off, out_off = [], 0, 0
+        for sz in sizes:
+            rows.append((in_off, sz, out_off))
+            in_off += sz
+            out_off += s2.max_compressed(sz)
+        desc = torch.tensor(rows, dtype=torch.int64).cuda()
+        data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
+        out, crcs, lens = s2_cuda.compress_cuda(data, desc, out_off)
+        lens_h, crcs_h = lens.cpu().tolist(), crcs.cpu().tolist()
+        out_h = out.cpu().numpy()
+        blocks = [out_h[o:o + ln].tobytes()
+                  for (_, _, o), ln in zip(rows, lens_h)]
+        # F's input: the frames the PUT stores (frame_chunk's rule).
+        bodies, types = [], []
+        rawv = memoryview(raw)
+        for (i0, sz, _), blk, crc in zip(rows, blocks, crcs_h):
+            t = 0 if len(blk) < sz else 1
+            types.append(t)
+            bodies.append(struct.pack("<I", crc)
+                          + (blk if t == 0 else bytes(rawv[i0:i0 + sz])))
+        frows, off, fo = [], 0, 0
+        for t, b, sz in zip(types, bodies, sizes):
+            frows.append((t, off, len(b), fo, sz))
+            off += len(b)
+            fo += sz
+        fdesc = torch.tensor(frows, dtype=torch.int64).cuda()
+        fdata = torch.frombuffer(bytearray(b"".join(bodies)),
+                                 dtype=torch.uint8).cuda()
+        reps = 20 if n < 4097 else 3
+        e_ms = time_calls(lambda x: s2_cuda.compress_cuda(x, desc, out_off),
+                          [data], reps)
+        f_ms = time_calls(lambda x: s2_cuda.decompress_cuda(x, fdesc, fo),
+                          [fdata], reps)
+        e_plain = f_plain = None
+        if n < 4097:
+            cd, cdesc = data.cpu(), desc.cpu()
+            t0 = time.perf_counter()
+            s2.compress_plain(cd, cdesc, out_off)
+            e_plain = 1e3 * (time.perf_counter() - t0)
+            fd, fdd = fdata.cpu(), fdesc.cpu()
+            t0 = time.perf_counter()
+            s2.decompress_plain(fd, fdd, fo)
+            f_plain = 1e3 * (time.perf_counter() - t0)
+        stored = sum(len(b) for b in blocks)
+        e_bytes = len(raw) + desc.numel() * 8 + stored + 16 * n
+        f_bytes = fdata.numel() + fdesc.numel() * 8 + fo + n
+        for name, ms, plain_ms, nbytes in (
+                ("s2_compress", e_ms, e_plain, e_bytes),
+                ("s2_decompress", f_ms, f_plain, f_bytes)):
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            shapes[name].append({
+                "chunks": n, "raw_bytes": len(raw), "block_bytes": stored,
+                "ms": ms, "gbps_raw": len(raw) / ms / 1e6,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "share_of_bound": bound / ms, "bound_by": "bytes",
+                "launches_4n": by_chunks[name].get(str(n), 0)})
+            log(f"{name} {n} chunks ({len(raw)} B raw, {stored} B of "
+                f"blocks): {ms:.4f} ms a call ({len(raw) / ms / 1e6:.3f} "
+                f"GB/s of raw), plain "
+                f"{'not run' if plain_ms is None else f'{plain_ms:.1f} ms'}"
+                f", bound {bound:.5f} ms ({100 * bound / ms:.3f}% of "
+                f"bound), launches of {n} chunks in 4n "
+                f"{shapes[name][-1]['launches_4n']}")
+        del data, out, fdata
+    rows = []
+    for name, line in (("s2_compress", 115), ("s2_decompress", 199)):
+        main = next(r for r in shapes[name] if r["chunks"] == 128)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "minio_tpu_torch/csrc/s2.cu",
+            "replaces": f"minio_tpu/ops/s2.py:{line}",
+            "replaces_note": "no TPU kernel: minio_tpu/native/snappy.c "
+                             "through ops/s2.py compress_block, "
+                             "decompress_block and crc32c on the host",
+            "checked": True,
+            "launches": launches[name]["config_compression"],
+            "launches_by_path": launches[name],
+            "launches_4n_by_chunks": by_chunks[name],
+            "max_abs_err": errs[name], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "chunks": 128,
+            "shapes": shapes[name]})
+    return rows
 
 
 def traced_self_heal(tmp, size) -> bool:
@@ -2269,6 +2653,9 @@ def main() -> int:
     obs_line, obs_launches = run_observability()
     obs_line["plane_cost"] = plane_cost()
     log(f"observability phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg_line, cfg_launches = run_config_compression()
+    log(f"config/compression phase {time.perf_counter() - t0:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
@@ -2277,10 +2664,12 @@ def main() -> int:
                       "self_heal": heal_launches[name],
                       "s3_sse": sse_launches[name],
                       "admission": admission_launches[name],
-                      "observability": obs_launches[name]}
+                      "observability": obs_launches[name],
+                      "config_compression": cfg_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
+    by_path["s2_by_chunks"] = cfg_line["s2_launches_by_chunks"]
     gc.callbacks.remove(on_gc)
     log(f"collector passes over 20 ms in the main paths (generation, s): "
         f"{PAUSES}")
@@ -2289,6 +2678,7 @@ def main() -> int:
     drivers_line["hedge_windows_restarted"] = RESTARTS
     kernels = time_kernels(rng, by_path, errs)
     kernels += time_aes_kernels(rng, by_path, errs)
+    kernels += time_s2_kernels(rng, by_path, errs)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on the "
@@ -2303,6 +2693,7 @@ def main() -> int:
     print(json.dumps({"sse": sse_line}), flush=True)
     print(json.dumps({"admission": admission_line}), flush=True)
     print(json.dumps({"observability": obs_line}), flush=True)
+    print(json.dumps({"config_compression": cfg_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

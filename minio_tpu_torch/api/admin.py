@@ -4,9 +4,13 @@ cmd/admin-heal-ops.go), datausage (a listing walk), usage (the data
 scanner's snapshot), kms (KMSKeyStatusHandler and KES CreateKey over
 the server's LocalKMS), ioflow (the byte-flow ledger with the heal/MRF
 scoreboard), metrics (the Prometheus exposition, also behind the scrape
-routes) and slow-requests (the span plane's exemplar store, GET and
-DELETE). The rest of the admin API is not ported: its routes answer
-NotImplemented.
+routes), slow-requests (the span plane's exemplar store, GET and
+DELETE) and the six config routes (cmd/admin-handlers-config-kv.go:
+get, set, del and help of a subsystem's KV set, the history list with
+its sealed entries opened, and restore). The heal reads the `heal`
+subsystem: its I/O gate waits while more than `max_io` requests are in
+flight, and it pauses a hundredth of `max_sleep` after each object. The
+rest of the admin API is not ported: its routes answer NotImplemented.
 """
 
 from __future__ import annotations
@@ -21,19 +25,15 @@ from ..background.healseq import (
     HealOverlap,
     make_io_gate,
 )
+from ..config import HELP
 from ..crypto.kms import KMSError
 from ..iam.policy import Args
+from ..utils import parse_duration_s
+from ..utils.errors import StorageError
 from .errors import S3Error
 from .handlers import Response
 
 ADMIN_PREFIX = "/minio/admin/v3"
-
-# minio_tpu's heal settings with no heal configuration: a sequence waits
-# (up to 1 s an object) while HEAL_MAX_IO requests are in flight, and
-# pauses after each object it heals (max_sleep 1 s, of which a sequence
-# takes 1/100).
-HEAL_MAX_IO = 10
-HEAL_MAX_SLEEP_S = 0.01
 
 
 # The ported routes, and the IAM action of each, as minio_tpu names them.
@@ -45,7 +45,13 @@ _ROUTES = {("GET", "datausage"): "data_usage_info",
            ("GET", "slow-requests"): "slow_requests",
            ("DELETE", "slow-requests"): "slow_requests_clear",
            ("GET", "kms"): "kms_status",
-           ("POST", "kms"): "kms_create_key"}
+           ("POST", "kms"): "kms_create_key",
+           ("GET", "get-config-kv"): "get_config_kv",
+           ("PUT", "set-config-kv"): "set_config_kv",
+           ("DELETE", "del-config-kv"): "del_config_kv",
+           ("GET", "help-config-kv"): "help_config_kv",
+           ("GET", "list-config-history-kv"): "list_config_history",
+           ("PUT", "restore-config-history-kv"): "restore_config_history"}
 ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "usage_info": "admin:DataUsageInfo",
            "ioflow_report": "admin:ServerInfo",
@@ -54,7 +60,16 @@ ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "slow_requests": "admin:ServerTrace",
            "slow_requests_clear": "admin:ServerTrace",
            "kms_status": "admin:KMSKeyStatus",
-           "kms_create_key": "admin:KMSCreateKey"}
+           "kms_create_key": "admin:KMSCreateKey",
+           "get_config_kv": "admin:ConfigUpdate",
+           "set_config_kv": "admin:ConfigUpdate",
+           "del_config_kv": "admin:ConfigUpdate",
+           "help_config_kv": "admin:ConfigUpdate",
+           "list_config_history": "admin:ConfigUpdate",
+           "restore_config_history": "admin:ConfigUpdate"}
+# api keys read once, when the S3 server is built: a set of one of them
+# answers {"restart": true}.
+_RESTART_KEYS = {"requests_max", "requests_deadline"}
 
 
 class AdminHandlers:
@@ -63,14 +78,18 @@ class AdminHandlers:
     usage route serves (None: 503). `kms` is the server's LocalKMS
     (None: the kms routes answer NotImplemented). `metrics` is the
     server's registry and `collector` its MetricsCollector (the server
-    attaches it), which the metrics and ioflow routes read."""
+    attaches it), which the metrics and ioflow routes read. `config_sys`
+    is the server's ConfigSys (None: the config routes answer
+    NotImplemented, the heal takes the subsystem's defaults)."""
 
-    def __init__(self, object_layer, iam, inflight, kms=None, metrics=None):
+    def __init__(self, object_layer, iam, inflight, kms=None, metrics=None,
+                 config_sys=None):
         self.ol = object_layer
         self.iam = iam
         self.inflight = inflight
         self.kms = kms
         self.metrics = metrics
+        self.config_sys = config_sys
         self.heal_state = AllHealState()
         self.scanner = None
         self.collector = None
@@ -257,13 +276,116 @@ class AdminHandlers:
                 force_start=ctx.qdict.get("forceStart", "") == "true",
                 remove_dangling=ctx.qdict.get("remove", "") == "true",
                 dry_run=ctx.qdict.get("dryRun", "") == "true",
-                io_gate=make_io_gate(self.inflight, HEAL_MAX_IO),
-                max_sleep_s=HEAL_MAX_SLEEP_S,
+                io_gate=make_io_gate(self.inflight, self._heal_max_io()),
+                max_sleep_s=self._heal_max_sleep_s(),
             )
         except (HealAlreadyRunning, HealOverlap) as exc:
             raise S3Error("InvalidArgument", str(exc)) from exc
         return self._json({"clientToken": seq.token, "clientAddress": "",
                            "startTime": seq.start_time})
+
+    def _heal_config(self) -> dict:
+        if self.config_sys is None:
+            return {}
+        try:
+            return dict(self.config_sys.config.get("heal"))
+        except ValueError:
+            return {}
+
+    def _heal_max_io(self) -> int:
+        """The requests in flight above which a sequence waits."""
+        try:
+            return int(self._heal_config().get("max_io", "10") or "10")
+        except ValueError:
+            return 10
+
+    def _heal_max_sleep_s(self) -> float:
+        """The pause after each healed object: a hundredth of max_sleep
+        (1 s by default), so that a bucket of a thousand objects does not
+        take a thousand seconds."""
+        secs = parse_duration_s(self._heal_config().get("max_sleep", "1s"),
+                                default=1.0)
+        return secs / 100
+
+    # --- config KV (cmd/admin-handlers-config-kv.go) ---
+
+    def _config_sys(self):
+        if self.config_sys is None:
+            raise S3Error("NotImplemented", "config system not wired")
+        return self.config_sys
+
+    def get_config_kv(self, ctx) -> Response:
+        config_sys = self._config_sys()
+        key = ctx.qdict.get("key", "")
+        if not key:
+            raise S3Error("InvalidArgument", "key required")
+        try:
+            kvs = config_sys.config.get(key)
+        except ValueError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        return self._json({key: dict(kvs)})
+
+    def set_config_kv(self, ctx) -> Response:
+        """Body "subsys[:target] k=v k2=v2" (mc admin config set)."""
+        config_sys = self._config_sys()
+        try:
+            parts = ctx.body.decode().split()
+            target = parts[0]
+            kv = dict(p.split("=", 1) for p in parts[1:])
+            config_sys.config.set_kv(target, **kv)
+        except (ValueError, IndexError) as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        config_sys.save()
+        return self._json({"restart": target.split(":", 1)[0] == "api"
+                           and bool(_RESTART_KEYS & set(kv))})
+
+    def del_config_kv(self, ctx) -> Response:
+        config_sys = self._config_sys()
+        target = ctx.body.decode().strip()
+        if not target:
+            raise S3Error("InvalidArgument", "config target required")
+        try:
+            config_sys.config.del_target(target)
+        except (KeyError, ValueError) as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        config_sys.save()
+        return self._json({})
+
+    def help_config_kv(self, ctx) -> Response:
+        return self._json(HELP)
+
+    def list_config_history(self, ctx) -> Response:
+        """History entries newest first, with their opened KV sets when
+        with-data=true."""
+        config_sys = self._config_sys()
+        names = sorted(config_sys.history(), reverse=True)
+        try:
+            count = int(ctx.qdict.get("count", "10"))
+        except ValueError:
+            count = 10
+        out = []
+        for name in names[:max(1, min(count, 100))]:
+            entry = {"restoreId": name}
+            if ctx.qdict.get("with-data") == "true":
+                try:
+                    entry["kv"] = json.loads(config_sys.history_get(name))
+                except Exception:  # noqa: BLE001 - an unreadable entry
+                    entry["error"] = "unreadable"
+            out.append(entry)
+        return self._json(out)
+
+    def restore_config_history(self, ctx) -> Response:
+        config_sys = self._config_sys()
+        restore_id = ctx.qdict.get("restoreId", "")
+        if not restore_id:
+            raise S3Error("InvalidArgument", "restoreId required")
+        try:
+            config_sys.restore(restore_id)
+        except ValueError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        except StorageError as exc:
+            raise S3Error("NoSuchKey", f"config history: {exc}") from exc
+        return self._json({"restored": restore_id})
 
     # --- KMS (KMSKeyStatusHandler, cmd/admin-handlers.go, and KES
     # CreateKey; the server's LocalKMS serves both) ---

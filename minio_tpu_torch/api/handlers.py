@@ -5,22 +5,25 @@ dummy-handlers.go) on the plain path: the bucket calls, versioning,
 bucket policy and tagging, the canned bucket answers and ACLs,
 ListObjects v1 and v2, ListObjectVersions, PutObject, CopyObject,
 GetObject (whole, ranged, conditional), HeadObject, DeleteObject(s),
-object tagging, the multipart calls with UploadPartCopy, and
-server-side encryption (SSE-S3, SSE-C and SSE-KMS through
-api/transforms.py: PutObject, GetObject whole and ranged, HeadObject,
-CopyObject that re-encrypts, and the bucket's ?encryption document,
-stored and applied to no PUT, as minio_tpu does).
+object tagging, the multipart calls with UploadPartCopy, server-side
+encryption (SSE-S3, SSE-C and SSE-KMS) and compression through
+api/transforms.py (PutObject, GetObject whole and ranged, HeadObject,
+CopyObject that decodes and re-encodes, and the bucket's ?encryption
+document, stored and applied to no PUT, as minio_tpu does), and the
+`storage_class` setting's parity for REDUCED_REDUNDANCY and STANDARD.
 
 Each handler takes the parsed request and returns a Response; the
 server has checked the signature and the action (a copy's source too)
-before. What the port does not serve yet (compression, object lock,
-quota, lifecycle, replication, events) is refused with NotImplemented,
+before. What the port does not serve yet (object lock, quota,
+lifecycle, tiers, replication, events) is refused with NotImplemented,
 never served half: a bucket with such a configuration, an object whose
 bytes need a transform the port lacks, and the request headers that ask
 for one. Two SSE cases that minio_tpu gets wrong are refused too: an
 encrypted multipart upload (minio_tpu stores its parts in plaintext)
 and an UploadPartCopy from an encrypted source (minio_tpu copies the
-ciphertext into the part).
+ciphertext into the part). An UploadPartCopy from a compressed source,
+where minio_tpu copies the compressed bytes into the part, copies the
+decoded range.
 """
 
 from __future__ import annotations
@@ -64,11 +67,8 @@ _LOCK_HEADERS = (
     "x-amz-object-lock-mode", "x-amz-object-lock-retain-until-date",
     "x-amz-object-lock-legal-hold",
 )
-# Stored metadata of objects whose bytes need a transform the port does
-# not have (compression) or live on a remote tier.
-_UNPORTED_OBJECT_META = (
-    "x-mtpu-internal-compression", "x-mtpu-internal-transition-tier",
-)
+# Stored metadata of objects whose bytes live on a remote tier.
+_UNPORTED_OBJECT_META = ("x-mtpu-internal-transition-tier",)
 
 
 def iso8601(ns: int) -> str:
@@ -170,6 +170,21 @@ class _RangeCopyReader:
             COPY_READS["pulls"] += 1
             COPY_READS["bytes"] += len(data)
         return data
+
+
+class LimitedSpool:
+    """The next `length` bytes of a file-like object."""
+
+    def __init__(self, f, length: int):
+        self._f = f
+        self._left = length
+
+    def read(self, n: int = -1) -> bytes:
+        if n is None or n < 0 or n > self._left:
+            n = self._left
+        out = self._f.read(n)
+        self._left -= len(out)
+        return out
 
 
 def parse_copy_source(header: str) -> tuple[str, str, str]:
@@ -299,16 +314,27 @@ class _Sink:
 class S3ApiHandlers:
     """The S3 endpoints of the slice, over an ObjectLayer. `sse_config`
     holds the SSE-S3 master key and the KMS (None: SSE-S3 and SSE-KMS
-    answer NotImplemented; SSE-C needs none)."""
+    answer NotImplemented; SSE-C needs none). `config_sys` is the
+    server's ConfigSys, whose live config (read at each request, so a
+    set or a restore applies at once) gives the compression filters and
+    the storage classes' parity (None: no compression, the set's default
+    parity for both classes)."""
 
     # A version's tags live in its metadata, url-encoded (UserTags).
     TAGS_META_KEY = "x-mtpu-internal-tags"
     MAX_TAGS = 10
 
-    def __init__(self, object_layer, bucket_meta, sse_config=None):
+    def __init__(self, object_layer, bucket_meta, sse_config=None,
+                 config_sys=None):
         self.ol = object_layer
         self.bm = bucket_meta
         self.sse_config = sse_config
+        self.config_sys = config_sys
+
+    @property
+    def config(self):
+        return self.config_sys.config if self.config_sys is not None \
+            else None
 
     def _opts_for(self, bucket: str, query: dict) -> ObjectOptions:
         bmeta = self.bm.get(bucket)
@@ -351,13 +377,27 @@ class S3ApiHandlers:
             opts.user_defined[self.TAGS_META_KEY] = \
                 urllib.parse.urlencode(tags)
 
-    @staticmethod
-    def _apply_storage_class(ctx) -> None:
-        """x-amz-storage-class: STANDARD or REDUCED_REDUNDANCY, both the
-        set's default parity with no storage_class configuration."""
+    def _apply_storage_class(self, ctx, opts) -> None:
+        """x-amz-storage-class: STANDARD or REDUCED_REDUNDANCY, each the
+        parity of the storage_class setting's `standard` or `rrs` spec
+        ("EC:n"; an empty one keeps the set's default), as
+        cmd/erasure-object.go:611-618 applies it."""
         sc = ctx.headers.get("x-amz-storage-class", "").upper()
-        if sc and sc not in ("STANDARD", "REDUCED_REDUNDANCY"):
+        if not sc:
+            return
+        if sc not in ("STANDARD", "REDUCED_REDUNDANCY"):
             raise S3Error("InvalidStorageClass", sc)
+        config = self.config
+        if config is None:
+            return
+        spec = config.get("storage_class").get(
+            "rrs" if sc == "REDUCED_REDUNDANCY" else "standard", "") or ""
+        if spec.upper().startswith("EC:"):
+            try:
+                opts.parity = int(spec[3:])
+            except ValueError as exc:
+                raise S3Error("InvalidArgument",
+                              f"bad storage class spec {spec!r}") from exc
 
     @staticmethod
     def _apply_codec(ctx, opts) -> None:
@@ -810,17 +850,19 @@ class S3ApiHandlers:
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
         self._apply_tagging_header(ctx, opts)
-        self._apply_storage_class(ctx)
+        self._apply_storage_class(ctx, opts)
         self._apply_codec(ctx, opts)
         reader, resp_extra = ctx.body_reader, {}
         want_md5_hex = _parse_content_md5(ctx.headers)
-        if transforms.transforms_active(ctx.headers):
-            # The streaming chain (md5-verify -> encrypt): no stage holds
-            # the object, and a bad plaintext digest aborts the encode
-            # before the commit.
+        if transforms.transforms_active(ctx.headers, self.config,
+                                        ctx.object):
+            # The streaming chain (md5-verify -> compress -> encrypt): no
+            # stage holds the object, and a bad plaintext digest aborts
+            # the encode before the commit.
             reader, size, resp_extra = transforms.build_put_stream(
-                ctx.headers, self.sse_config, ctx.bucket, ctx.object,
-                reader, opts.user_defined, want_md5_hex=want_md5_hex)
+                ctx.headers, self.config, self.sse_config, ctx.bucket,
+                ctx.object, reader, opts.user_defined,
+                want_md5_hex=want_md5_hex, device=self.ol.device)
         else:
             # Checked inside the object layer as the body streams, before
             # the commit: a bad digest leaves nothing behind.
@@ -879,7 +921,8 @@ class S3ApiHandlers:
                 "This copy request is illegal because it is being made "
                 "to the same object without changing metadata.")
         src_transformed = transforms.is_transformed(src_info.user_defined)
-        dest_transforms = transforms.transforms_active(ctx.headers)
+        dest_transforms = transforms.transforms_active(
+            ctx.headers, self.config, ctx.object)
         if self_copy and not vid and not opts.versioned \
                 and not dest_transforms:
             # An unversioned REPLACE self-copy changes metadata only:
@@ -900,7 +943,7 @@ class S3ApiHandlers:
                 # finishes before the destination takes the object's
                 # write lock), then through the destination's transform
                 # chain: an encrypted source's sealed key is bound to its
-                # path, so a copy always decrypts and re-encrypts.
+                # path, so a copy always decodes and re-encodes.
                 src_headers = dict(ctx.headers)
                 # The copy-source SSE-C headers address the source.
                 for suffix in ("algorithm", "key", "key-md5"):
@@ -911,15 +954,16 @@ class S3ApiHandlers:
                 with transforms.decode_to_spool(
                         self.ol, sbucket, sobject, src_opts,
                         src_info.user_defined, src_headers,
-                        self.sse_config) as spool:
+                        self.sse_config, device=self.ol.device) as spool:
                     size = spool.seek(0, io.SEEK_END)
                     spool.seek(0)
                     reader = spool
                     if dest_transforms:
                         reader, size, copy_sse_headers = \
                             transforms.build_put_stream(
-                                ctx.headers, self.sse_config, ctx.bucket,
-                                ctx.object, spool, opts.user_defined)
+                                ctx.headers, self.config, self.sse_config,
+                                ctx.bucket, ctx.object, spool,
+                                opts.user_defined, device=self.ol.device)
                     oi = self.ol.put_object(ctx.bucket, ctx.object, reader,
                                             size, opts)
             else:
@@ -1051,14 +1095,16 @@ class S3ApiHandlers:
         opts.expected_etag = oi.etag
         resp_extra: dict = {}
         if transforms.is_transformed(oi.user_defined):
-            # The decrypt chain onto the socket (NewGetObjectReader): its
-            # keys are checked now, before the status line. A ranged GET
-            # decodes the stored stream from its start, through the
-            # package that ends the window, and ships the window.
+            # The decrypt -> decompress chain onto the socket
+            # (NewGetObjectReader): its keys are checked now, before the
+            # status line. A ranged GET decodes the stored stream from its
+            # start (through the package that ends the window when only
+            # encrypted; all of it when compressed) and ships the window.
             sink = _Sink()
             chain, closers, resp_extra = transforms.build_get_chain(
                 oi.user_defined, ctx.headers, self.sse_config, ctx.bucket,
-                ctx.object, sink, offset=offset, length=length)
+                ctx.object, sink, offset=offset, length=length,
+                device=self.ol.device)
             stored = (transforms.stored_prefix(oi.user_defined, oi.size,
                                                offset, length)
                       if rng else oi.size)
@@ -1263,7 +1309,7 @@ class S3ApiHandlers:
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
         self._apply_tagging_header(ctx, opts)
-        self._apply_storage_class(ctx)
+        self._apply_storage_class(ctx, opts)
         self._apply_codec(ctx, opts)
         try:
             upload_id = self.ol.new_multipart_upload(ctx.bucket, ctx.object,
@@ -1317,7 +1363,8 @@ class S3ApiHandlers:
     def _upload_part_copy(self, ctx, upload_id: str, part_number: int,
                           copy_source: str) -> Response:
         """UploadPartCopy (CopyObjectPartHandler): the part's bytes are a
-        range of the source, read in 1 MiB pulls."""
+        range of the source, read in 1 MiB pulls; of a compressed source,
+        a range of its decoded stream."""
         sbucket, sobject, src_opts, src_info = self._copy_source_info(
             ctx, copy_source)
         if ssemod.is_encrypted(src_info.user_defined):
@@ -1325,8 +1372,12 @@ class S3ApiHandlers:
             raise S3Error("NotImplemented",
                           f"{sobject}: UploadPartCopy of an encrypted "
                           "source")
+        compressed = bool(src_info.user_defined.get(
+            transforms.META_COMPRESSION))
+        src_size = transforms.actual_object_size(src_info.user_defined,
+                                                 src_info.size)
         rng = ctx.headers.get("x-amz-copy-source-range", "")
-        offset, length = 0, src_info.size
+        offset, length = 0, src_size
         if rng:
             # Strictly "bytes=first-last" inside the source: unlike an
             # HTTP Range, a suffix, open or overlong range is refused.
@@ -1334,16 +1385,27 @@ class S3ApiHandlers:
             if not m:
                 raise S3Error("InvalidArgument", rng)
             first, last = int(m.group(1)), int(m.group(2))
-            if first > last or last >= src_info.size:
+            if first > last or last >= src_size:
                 raise S3Error("InvalidArgument", rng)
             offset, length = first, last - first + 1
         if length > MAX_PART_SIZE:
             raise S3Error("EntityTooLarge")
-        reader = _RangeCopyReader(self.ol, sbucket, sobject, offset, length,
-                                  src_opts)
         try:
-            pi = self.ol.put_object_part(ctx.bucket, ctx.object, upload_id,
-                                         part_number, reader, length)
+            if compressed:
+                with transforms.decode_to_spool(
+                        self.ol, sbucket, sobject, src_opts,
+                        src_info.user_defined, ctx.headers,
+                        self.sse_config, device=self.ol.device) as spool:
+                    spool.seek(offset)
+                    pi = self.ol.put_object_part(
+                        ctx.bucket, ctx.object, upload_id, part_number,
+                        LimitedSpool(spool, length), length)
+            else:
+                reader = _RangeCopyReader(self.ol, sbucket, sobject, offset,
+                                          length, src_opts)
+                pi = self.ol.put_object_part(ctx.bucket, ctx.object,
+                                             upload_id, part_number, reader,
+                                             length)
         except StorageError as exc:
             raise from_object_error(exc) from exc
         root = _xml_root("CopyPartResult")

@@ -22,9 +22,18 @@ tagging, the multipart calls with UploadPartCopy, the admin heal, usage,
 KMS, ioflow, metrics and slow-requests routes, the health probes
 /minio/health/{live,ready,cluster} (unauthenticated) and the Prometheus
 scrapes /minio/v2/metrics/{cluster,node} and /minio/prometheus/metrics
-(SigV4, admin:Prometheus). A copy is authorized twice: the write on its
-destination, and s3:GetObject on its source. Every other route, and the
-rest of the /minio/ namespace, answers NotImplemented.
+(SigV4, admin:Prometheus), and the six admin config routes. A copy is
+authorized twice: the write on its destination, and s3:GetObject on its
+source. Every other route, and the rest of the /minio/ namespace,
+answers NotImplemented.
+
+With a ConfigSys, the `api` subsystem sets two things when the server is
+built (a change takes a restart, as the set-config-kv answer says): the
+request throttle, `requests_max` concurrent data-plane requests (0: no
+limit) with a wait of at most `requests_deadline` for a slot before 503
+SlowDown, in front of the admission governors (MinIO's maxClients,
+cmd/handler-api.go:36-78), and `cors_allow_origin`, the origins the CORS
+answers echo (the preflight OPTIONS answered before authentication).
 """
 
 from __future__ import annotations
@@ -38,12 +47,14 @@ import threading
 import time
 import urllib.parse
 import uuid
+from fnmatch import fnmatch
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..crypto import sse as ssemod
 from ..iam.store import IAMSys
 from ..observability import ioflow, spans
 from ..pipeline.admission import client_context
+from ..utils import parse_duration_s
 from ..utils.device import resolve_device
 from . import sign
 from .admin import ADMIN_PREFIX, AdminHandlers
@@ -442,11 +453,15 @@ class S3Server:
     SSE-S3 master key and the KMS; without it SSE-S3 and SSE-KMS answer
     NotImplemented and the KMS admin routes too. `metrics` (an
     observability.Metrics) receives the request series and serves the
-    scrapes; without it a scrape answers an empty body."""
+    scrapes; without it a scrape answers an empty body. `config_sys` (a
+    config.ConfigSys) backs the admin config routes and gives the
+    handlers their compression and storage-class settings and this
+    server its throttle and CORS origins; without it the config routes
+    answer NotImplemented and the defaults hold."""
 
     def __init__(self, object_layer, iam: IAMSys, bucket_meta,
                  host: str = "127.0.0.1", port: int = 0, device="cuda",
-                 sse_config=None, metrics=None):
+                 sse_config=None, metrics=None, config_sys=None):
         self.device = resolve_device(device)
         if object_layer.device != self.device:
             raise ValueError(f"the object layer runs on "
@@ -454,16 +469,32 @@ class S3Server:
         if sse_config is not None and sse_config.device != self.device:
             raise ValueError(f"the SSE config runs on {sse_config.device}, "
                              f"not {self.device}")
-        self.handlers = S3ApiHandlers(object_layer, bucket_meta, sse_config)
+        self.handlers = S3ApiHandlers(object_layer, bucket_meta, sse_config,
+                                      config_sys=config_sys)
         # Requests in flight, which a heal sequence yields to.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self.admin = AdminHandlers(
             object_layer, iam, lambda: self._inflight,
             kms=sse_config.kms if sse_config is not None else None,
-            metrics=metrics)
+            metrics=metrics, config_sys=config_sys)
         self.iam = iam
         self.metrics = metrics
+        kvs = config_sys.config.get("api") if config_sys is not None else {}
+        self.cors_origin = kvs.get("cors_allow_origin", "*") or "*"
+        # The request throttle; its two keys are parsed independently, so
+        # a bad deadline never turns off the limit the operator set.
+        self._requests_sem = None
+        self._requests_deadline_s = 10.0
+        try:
+            req_max = int(kvs.get("requests_max", "0") or "0")
+        except ValueError:
+            req_max = 0
+        if req_max > 0:
+            self._requests_sem = threading.BoundedSemaphore(req_max)
+        dl = parse_duration_s(kvs.get("requests_deadline", "10s"))
+        if dl is not None:
+            self._requests_deadline_s = dl
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -527,6 +558,11 @@ class S3Server:
         try:
             self._respond(h, ctx)
         finally:
+            # The throttle's slot covers the request through its written
+            # response, and is given back here and nowhere else, so no
+            # failure below the dispatch can keep it.
+            if getattr(ctx, "held_request_slot", False):
+                self._requests_sem.release()
             with self._inflight_lock:
                 self._inflight -= 1
             # A deferred trace whose body stream never ran (a client gone
@@ -587,9 +623,34 @@ class S3Server:
             if err_code in _AUTH_FAILURES:
                 m.inc("s3_auth_failures_total", code=err_code)
 
+    def _cors_allow(self, request_origin: str) -> str | None:
+        """The one origin the CORS answers echo: "*" when every origin is
+        allowed, else the request's Origin if a pattern of
+        cors_allow_origin (comma-separated, wildcards) matches it."""
+        conf = self.cors_origin
+        if conf == "*":
+            return "*"
+        if not request_origin:
+            return None
+        for pat in (o.strip() for o in conf.split(",")):
+            if pat and fnmatch(request_origin, pat):
+                return request_origin
+        return None
+
     def _process(self, ctx: RequestContext) -> Response:
         if ctx.method == "OPTIONS":
-            raise S3Error("NotImplemented", "CORS preflight")
+            # The CORS preflight, answered before authentication.
+            headers = {"Access-Control-Allow-Methods":
+                       "GET, PUT, POST, DELETE, HEAD",
+                       "Access-Control-Allow-Headers": "*",
+                       "Access-Control-Max-Age": "3600",
+                       "Content-Length": "0"}
+            allow = self._cors_allow(ctx.headers.get("origin", ""))
+            if allow:
+                headers["Access-Control-Allow-Origin"] = allow
+                if allow != "*":
+                    headers["Vary"] = "Origin"
+            return Response(200, headers)
         _reserved_metadata_check(ctx)
         # SSE-C over plain HTTP puts the customer's key on the wire
         # (setSSETLSHandler, matching any customer-key header as
@@ -644,6 +705,15 @@ class S3Server:
         ctx.api_name = name
         if self.metrics is not None:
             self.metrics.inc("s3_requests_total", api=name)
+        if self._requests_sem is not None:
+            # Held until the response is written (released in _handle),
+            # a streamed GET's body included.
+            if not self._requests_sem.acquire(
+                    timeout=self._requests_deadline_s):
+                if self.metrics is not None:
+                    self.metrics.inc("s3_requests_rejected_total")
+                raise S3Error("SlowDown", "request limit reached")
+            ctx.held_request_slot = True
         if name == "post_policy_object":
             # Signed by a form policy, not SigV4: not ported.
             raise S3Error("NotImplemented", name)
@@ -780,7 +850,11 @@ class S3Server:
             headers.setdefault("Content-Security-Policy",
                                "block-all-mixed-content")
             headers.setdefault("Server", "MinIO-TPU")
-            headers.setdefault("Access-Control-Allow-Origin", "*")
+            allow = self._cors_allow(ctx.headers.get("origin", ""))
+            if allow:
+                headers.setdefault("Access-Control-Allow-Origin", allow)
+                if allow != "*":
+                    headers.setdefault("Vary", "Origin")
             headers["x-amz-request-id"] = ctx.request_id
             streaming = resp.body_stream is not None and ctx.method != "HEAD"
             if streaming and "Content-Length" not in headers:

@@ -25,7 +25,11 @@ four drives lost, degraded GETs, HealObject (which never decrypts), a
 CopyObject that re-encrypts, and a GET with the wrong SSE-C key.
 `observability()` drives the health probes through an outage, the
 scrapes, every request's span tree and the byte-flow ledger, held to
-the bytes on the drives, over HTTP.
+the bytes on the drives, over HTTP. `config_compression()` drives the
+config subsystem and compression over HTTP: settings saved sealed with
+history, a compressed PUT, GETs whole, ranged and degraded, the heal,
+compress-then-encrypt, an incompressible PUT, an RRS PUT at 14+2, and a
+restart that loads the config and throttles.
 """
 
 from __future__ import annotations
@@ -65,7 +69,8 @@ from .object import erasure_objects
 from .object.sets import ErasureSets
 from .object.types import ObjectOptions
 from .crypto import sse as ssemod
-from .ops import aes_gcm_cuda, gf, highwayhash_torch, host_feed, rs_cuda
+from .ops import (aes_gcm_cuda, gf, highwayhash_torch, host_feed, rs_cuda,
+                  s2_cuda)
 from .ops.rs import apply_gf_matrix
 from .pipeline import admission
 from .server import Server
@@ -110,6 +115,8 @@ def counters() -> dict:
     snap["kernel_hash_launches"] = highwayhash_torch.LAUNCHES.value
     snap["kernel_seal_launches"] = aes_gcm_cuda.SEAL_LAUNCHES.value
     snap["kernel_open_launches"] = aes_gcm_cuda.OPEN_LAUNCHES.value
+    snap["kernel_compress_launches"] = s2_cuda.COMPRESS_LAUNCHES.value
+    snap["kernel_decompress_launches"] = s2_cuda.DECOMPRESS_LAUNCHES.value
     return snap
 
 
@@ -1805,6 +1812,12 @@ ADMISSION_QUIET, ADMISSION_QUIET_SECRET = "smoke-quiet", "smoke-quiet-secret"
 ADMISSION_REJECTED_SIZE = (64 << 10) + 12_345
 ADMISSION_DEADLINES = {"op_deadline_s": 1.0, "long_op_deadline_s": 2.0,
                        "breaker_threshold": 3, "probe_interval_s": 0.5}
+# The same as the `drive` subsystem's environment: a Server applies the
+# subsystem to the live settings when it is built.
+ADMISSION_DRIVE_ENV = {"MTPU_DRIVE_OP_DEADLINE": "1s",
+                       "MTPU_DRIVE_LONG_OP_DEADLINE": "2s",
+                       "MTPU_DRIVE_BREAKER_THRESHOLD": "3",
+                       "MTPU_DRIVE_PROBE_INTERVAL": "500ms"}
 
 
 class StallingDrive:
@@ -1991,7 +2004,8 @@ def admission_drive_health(root, size: int, hung_size: int, device="cuda",
     phase = _phases(dev, out)
     checks: dict = {}
     rng = np.random.default_rng(seed)
-    with robust_overrides(**ADMISSION_DEADLINES):
+    with env_vars(**ADMISSION_DRIVE_ENV), \
+            robust_overrides(**ADMISSION_DEADLINES):
         healpace.reconfigure(healpace.PaceConfig())
         admission.reconfigure_read(admission.AdmissionConfig(
             slots=4, per_client_cap=4, max_queue=16, deadline_s=60.0))
@@ -2673,5 +2687,262 @@ def observability(root, size: int, device="cuda", seed: int = 70,
     checks["ledger:degraded_get_logical"] = (
         led["degraded_get"]["logical"] == {"get-degraded": size})
     out["drive_bytes"] = {"part": part, "meta": meta}
+    out["checks"] = checks
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The config subsystem and compression (phase 4n of chip_smoke.py)
+
+CFG_BUCKET = "cfg"
+CFG_TEXT, CFG_SSE, CFG_RANDOM, CFG_RRS = ("text/obj.log", "sse/obj.log",
+                                          "random/obj.log", "rrs/obj.bin")
+CFG_RANGE = 3 << 20
+CFG_SETTINGS = (b"compression enable=on extensions=.log",
+                b"storage_class rrs=EC:2")
+CFG_THROTTLE = b"api requests_max=1 requests_deadline=1s"
+
+
+def seeded_text(size: int, seed: int) -> bytes:
+    """`size` bytes of seeded text: 1 MiB pieces at seeded offsets of a
+    4 MiB text of seeded words (lowercase, 2 to 9 letters, lines of 12),
+    so that a 64 KiB chunk compresses as prose does and none repeats
+    another whole."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    words = [bytes(rng.choice(letters, int(n)))
+             for n in rng.integers(2, 10, 2000)]
+    idx = rng.integers(0, len(words), 800_000)
+    lines = [b" ".join(words[i] for i in idx[j:j + 12])
+             for j in range(0, len(idx), 12)]
+    base = np.frombuffer(b"\n".join(lines), dtype=np.uint8)
+    piece = 1 << 20
+    starts = rng.integers(0, len(base) - piece, -(-size // piece))
+    return np.concatenate([base[s:s + piece] for s in starts])[
+        :size].tobytes()
+
+
+def _sha_get(c: S3Client, key: str, headers=None) -> tuple[int, str, int]:
+    """GET `key` into a SHA-256: (status, hex digest, bytes)."""
+    h = hashlib.sha256()
+    n = [0]
+
+    def sink(piece):
+        h.update(piece)
+        n[0] += len(piece)
+
+    status, _, _ = c.get_stream(key, sink, None, headers)
+    return status, h.hexdigest(), n[0]
+
+
+def _shape_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def config_compression(root, size: int, device="cuda", seed: int = 80,
+                       range_size: int = CFG_RANGE) -> dict:
+    """Drive the config subsystem and compression on a Server over 16
+    fresh drive directories under `root` (one 12+4 set, its S3 plane
+    alone), over HTTP:
+
+    1. `settings`: set-config-kv `compression enable=on extensions=.log`
+       and `storage_class rrs=EC:2` (each save sealed, the history one
+       entry longer each);
+    2. `put`: a `size`-byte .log object of seeded text (seeded_text),
+       stored compressed: its stored size and ratio;
+    3. `get`, `range_get`: it whole, and `range_size` bytes from its
+       middle, each equal by SHA-256;
+    4. `degraded_get`: the object lost on drives 0, 5, 12 and 15 and
+       those drives offline, a GET equal by SHA-256;
+    5. `heal`: the drives back, the admin heal of the bucket; every
+       healed file equal by SHA-256 to the original;
+    6. `sse_put`, `sse_get`: the same text as an SSE-S3 .log object
+       (compressed, then sealed) and its GET;
+    7. `random_put`: `size` // 16 seeded random bytes as a .log object,
+       stored unmarked after the probe;
+    8. `rrs_put`: a REDUCED_REDUNDANCY object, 14+2 in its xl.meta, and
+       its GET;
+    9. `throttle`: set-config-kv `api requests_max=1 requests_deadline=1s`
+       (the answer asks for a restart), the server stopped and built again
+       on the same drives (`restart`: the config loads), the compressed
+       object read back (`get_after_restart`), and a GET while the one
+       request slot is held answered 503 SlowDown (`slowdown`).
+
+    Returns each step's seconds and counter deltas (kernel E's and F's
+    launches among them), kernel A's launches by shape in each step, the
+    stored sizes and the checks."""
+    from .api import transforms as tfm
+    from .ops import rs_cuda
+
+    dev = resolve_device(device)
+    root = Path(root)
+    out: dict = {"size": size, "k": 12, "m": 4, "lost": list(S3_WIPED),
+                 "seconds": {}, "counters": {}, "gf_by_shape": {},
+                 "range_size": range_size}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    text = seeded_text(size, seed)
+    noise = np.random.default_rng(seed + 1).bytes(size // 16)
+    rrs_body = text[:size // 16]
+    want = {name: hashlib.sha256(data).hexdigest()
+            for name, data in ((CFG_TEXT, text), (CFG_RANDOM, noise),
+                               (CFG_RRS, rrs_body))}
+    b = f"/{CFG_BUCKET}"
+
+    def step(label, fn):
+        shapes = rs_cuda.LAUNCHES_BY_SHAPE.snapshot()
+        res = phase(label, fn)
+        out["gf_by_shape"][label] = _shape_delta(
+            shapes, rs_cuda.LAUNCHES_BY_SHAPE.snapshot())
+        return res
+
+    def start():
+        srv = Server([str(root / "d{1...16}")], port=0, root_user=S3_ACCESS,
+                     root_password=S3_SECRET, default_parity=4, device=dev)
+        srv.s3.start()
+        return srv
+
+    def meta(name: str):
+        return LocalStorage(str(root / "d1"), device="cpu").read_version(
+            CFG_BUCKET, name)
+
+    server = start()
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+
+        def history() -> int:
+            return len(json.loads(c.request(
+                "GET", "/minio/admin/v3/list-config-history-kv",
+                [("count", "100")])[2]))
+
+        def settings():
+            answers = [c.request("PUT", "/minio/admin/v3/set-config-kv",
+                                 body=body) for body in CFG_SETTINGS]
+            return [(st, json.loads(raw)) for st, _, raw in answers]
+
+        checks["make_bucket_ok"] = c.request("PUT", b)[0] == 200
+        before = history()
+        answers = step("settings", settings)
+        checks["settings_ok"] = answers == [(200, {"restart": False})] * 2
+        checks["history_grew"] = history() == before + len(CFG_SETTINGS)
+
+        status, _, _ = step("put", lambda: c.put_stream(
+            f"{b}/{CFG_TEXT}", _PayloadReader(text), size))
+        fi = meta(CFG_TEXT)
+        out["stored_size"] = fi.size
+        out["ratio"] = size / fi.size
+        checks["put_ok"] = status == 200
+        checks["stored_compressed"] = (
+            fi.metadata.get(tfm.META_COMPRESSION) == "s2"
+            and fi.metadata.get(tfm.META_UNCOMPRESSED_SIZE) == str(size)
+            and fi.size == int(fi.metadata[tfm.META_COMPRESSED_SIZE])
+            and fi.size < size)
+        status, digest, n = step("get", lambda: _sha_get(
+            c, f"{b}/{CFG_TEXT}"))
+        checks["get_sha256_ok"] = (status == 200 and n == size
+                                   and digest == want[CFG_TEXT])
+        first = size // 2 - range_size // 2
+        last = first + range_size - 1
+        out["range"] = [first, range_size]
+        status, digest, n = step("range_get", lambda: _sha_get(
+            c, f"{b}/{CFG_TEXT}", {"Range": f"bytes={first}-{last}"}))
+        checks["range_get_sha256_ok"] = (
+            status == 206 and n == range_size
+            and digest == hashlib.sha256(text[first:last + 1]).hexdigest())
+
+        originals = _object_files(root, CFG_BUCKET, CFG_TEXT)
+        raw = [unwrap(d) for d in server.object_layer.pools[0].disks]
+        for i in S3_WIPED:
+            shutil.rmtree(root / f"d{i + 1}" / CFG_BUCKET / CFG_TEXT)
+            raw[i].set_online(False)
+        status, digest, _ = step("degraded_get", lambda: _sha_get(
+            c, f"{b}/{CFG_TEXT}"))
+        checks["degraded_get_sha256_ok"] = (status == 200
+                                           and digest == want[CFG_TEXT])
+        for i in S3_WIPED:
+            raw[i].set_online(True)
+        state = step("heal", lambda: _heal_bucket(c, CFG_BUCKET))
+        out["heal"] = {k: state[k] for k in ("Summary", "NumScanned",
+                                             "NumHealed", "NumFailed")}
+        checks["heal_ok"] = (state["Summary"] == "finished"
+                             and state["NumFailed"] == 0)
+        checks["healed_identical"] = bool(originals) and _object_files(
+            root, CFG_BUCKET, CFG_TEXT) == originals
+
+        status, h, _ = step("sse_put", lambda: c.put_stream(
+            f"{b}/{CFG_SSE}", _PayloadReader(text), size,
+            sse_put_headers("sse-s3")))
+        fi = meta(CFG_SSE)
+        out["sse_stored_size"] = fi.size
+        checks["sse_put_ok"] = status == 200 and h.get(
+            ssemod.HDR_SSE, h.get(ssemod.HDR_SSE.title())) == "AES256"
+        checks["sse_stored_compressed"] = (
+            fi.metadata.get(tfm.META_COMPRESSION) == "s2"
+            and fi.metadata.get(ssemod.META_ACTUAL_SIZE)
+            == fi.metadata.get(tfm.META_COMPRESSED_SIZE)
+            and fi.size == ssemod.encrypted_size(
+                int(fi.metadata[tfm.META_COMPRESSED_SIZE])))
+        status, digest, _ = step("sse_get", lambda: _sha_get(
+            c, f"{b}/{CFG_SSE}"))
+        checks["sse_get_sha256_ok"] = (status == 200
+                                       and digest == want[CFG_TEXT])
+
+        status, _, _ = step("random_put", lambda: c.put_stream(
+            f"{b}/{CFG_RANDOM}", _PayloadReader(noise), len(noise)))
+        fi = meta(CFG_RANDOM)
+        checks["random_unmarked"] = (status == 200 and fi.size == len(noise)
+                                     and tfm.META_COMPRESSION
+                                     not in fi.metadata)
+        checks["random_get_sha256_ok"] = _sha_get(
+            c, f"{b}/{CFG_RANDOM}")[1] == want[CFG_RANDOM]
+
+        status, _, _ = step("rrs_put", lambda: c.put_stream(
+            f"{b}/{CFG_RRS}", _PayloadReader(rrs_body), len(rrs_body),
+            {"x-amz-storage-class": "REDUCED_REDUNDANCY"}))
+        fi = meta(CFG_RRS)
+        out["rrs_geometry"] = [fi.erasure.data_blocks,
+                               fi.erasure.parity_blocks]
+        checks["rrs_put_ok"] = status == 200
+        checks["rrs_14_2"] = out["rrs_geometry"] == [14, 2]
+        checks["rrs_get_sha256_ok"] = _sha_get(
+            c, f"{b}/{CFG_RRS}")[1] == want[CFG_RRS]
+
+        st, _, raw_answer = c.request("PUT", "/minio/admin/v3/set-config-kv",
+                                      body=CFG_THROTTLE)
+        checks["throttle_set_ok"] = (st == 200 and json.loads(raw_answer)
+                                     == {"restart": True})
+    finally:
+        server.stop()
+
+    server = step("restart", start)
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+        cfg = server.config_sys.config
+        checks["config_survived"] = (
+            cfg.get("compression")["enable"] == "on"
+            and cfg.get("storage_class")["rrs"] == "EC:2"
+            and server.s3._requests_sem is not None
+            and server.s3._requests_deadline_s == 1.0)
+        status, digest, _ = step("get_after_restart", lambda: _sha_get(
+            c, f"{b}/{CFG_TEXT}"))
+        checks["get_after_restart_sha256_ok"] = (
+            status == 200 and digest == want[CFG_TEXT])
+        sem = server.s3._requests_sem
+        if not sem.acquire(timeout=30):
+            raise AssertionError("the request slot was never free")
+        try:
+            t0 = time.perf_counter()
+            status, _, body = step("slowdown", lambda: c.request(
+                "GET", f"{b}/{CFG_RRS}"))
+            out["slowdown_wait_s"] = time.perf_counter() - t0
+        finally:
+            sem.release()
+        checks["slowdown_503"] = (status == 503
+                                  and b"<Code>SlowDown</Code>" in body)
+        checks["slot_free_again"] = _sha_get(
+            c, f"{b}/{CFG_RRS}")[1] == want[CFG_RRS]
+    finally:
+        server.stop()
     out["checks"] = checks
     return out

@@ -51,6 +51,10 @@ SIGNATURES = {
         "aes_gcm_workspace_bytes": [],
         "aes_gcm_cluster_size": [_LL],
     },
+    "s2": {
+        "s2_compress_launch": [_VP, _VP, _VP, _VP, _VP, _LL, _VP],
+        "s2_decompress_launch": [_VP, _VP, _VP, _VP, _LL, _VP],
+    },
 }
 
 _lock = threading.Lock()

@@ -4,17 +4,22 @@ cmd/server-main.go): the self-tests of the erasure code, the bitrot
 hash and AES-256-GCM on the device, the drives (each under the health
 wrapper of storage/diskcheck.py: per-op deadlines and the faulty-drive
 breaker) and one pool of erasure sets per ellipses argument, the root
-credential, the bucket metadata, the S3 server with its SSE key
+credential, the bucket metadata, the config subsystem (a ConfigSys
+sealed under the root secret and loaded from .minio.sys/config; the
+`drive` subsystem's deadlines applied from the environment before the
+drives are wrapped and again once the stored config is loaded, as
+minio_tpu/server.py:208-211 and :302-310 do), the S3 server with its SSE key
 material (the SSE-S3 master key and a LocalKMS whose key-name registry
-persists under .minio.sys, minio_tpu's _build_kms without KES), and the background services that keep the sets
+persists under .minio.sys, minio_tpu's _build_kms without KES) and the
+config, and the background services that keep the sets
 healthy (the MRF drain, the disk monitor, fresh-drive back-fill, the
 data scanner with its update tracker; MinIO's initAutoHeal and
 initDataScanner). The metrics registry comes up first, as in minio_tpu:
 every subsystem's hook is set to it, every drive's wrapper counts its
 ops into it, and a MetricsCollector over the object layer, the scanner
 and the MRF drain fills its snapshot gauges at each scrape. FS mode,
-distributed endpoints, TLS, the config subsystem, KES, events, the trace
-hub and the audit log are not ported.
+distributed endpoints, TLS, KES, events, the trace hub and the audit log
+are not ported.
 
 On the card the server also sets up, once, the state its first request
 would otherwise build inside its own memory window (`_warm`): the
@@ -22,7 +27,8 @@ threads started from then on get stacks of THREAD_STACK bytes, below the
 2 MiB of a transparent huge page, so each costs the pages it touches
 rather than a huge page; the workers of the fan-out pools and of each
 drive's pool are started; the pipelined PUT's pool of pinned batch
-buffers is filled to its capacity; and each set geometry passes the
+buffers is filled to its capacity; the compression codec passes its
+self-test (kernels E and F); and each set geometry passes the
 streaming self-test, an encrypted object through the pipelined PUT and
 a degraded GET in memory, which loads kernels A to D and leaves the
 caching host allocator the pinned blocks, and the threads' allocator
@@ -48,6 +54,7 @@ from .background import (
     MRFHealer,
 )
 from .bucket.metadata import BucketMetadataSys
+from .config import Config, ConfigSys
 from .crypto import LocalKMS, SSEConfig
 from .crypto.aead import AESGCM
 from .erasure import registry as codec_registry
@@ -65,10 +72,11 @@ from .object.pools import ErasureServerPools
 from .object.sets import ErasureSets, read_format
 from .observability import Metrics, spans
 from .observability.metrics_v2 import MetricsCollector
+from .ops import s2
 from .ops.highwayhash_torch import hash256_batch
 from .pipeline import admission
 from .pipeline import metrics as pipeline_metrics
-from .storage.diskcheck import DiskHealth, MetricsDisk
+from .storage.diskcheck import DiskHealth, MetricsDisk, configure_robustness
 from .storage.fileinfo import new_uuid
 from .storage.local import LocalStorage
 from .utils import ellipses, fanout
@@ -171,6 +179,25 @@ def streaming_self_test(device, data_blocks: int, parity_blocks: int,
                            f"{data_blocks}+{parity_blocks}")
 
 
+def s2_self_test(device) -> None:
+    """The compression codec on `device` (kernels E and F on the card):
+    one batch of a known chunk (32 zero bytes, CRC32C 0x8a9136aa), 64 KiB
+    of repeated text and a ragged tail compressed, framed and decoded
+    back; a compressed chunk not shorter than its text, a wrong CRC or a
+    byte that differs stops the server."""
+    text = b"minio_tpu_torch s2 self-test " * 2260
+    sizes = [32, s2.CHUNK, 12_345]
+    raw = bytes(32) + text[:s2.CHUNK] + text[:12_345]
+    codec = s2.S2Batch(device)
+    crcs, blocks = codec.compress_chunks(raw, sizes)
+    framed = s2.frames_of(raw, sizes, crcs, blocks)
+    dec = s2.FrameDecoder(device)
+    dec.feed(s2.STREAM_ID + framed)
+    if (crcs[0] != s2.mask_crc(0x8A9136AA) or len(blocks[1]) >= s2.CHUNK
+            or dec.finish() != raw):
+        raise RuntimeError("s2 self-test failed")
+
+
 def bitrot_self_test(device) -> None:
     """The boot gate of the bitrot hash (bitrotSelfTest,
     cmd/bitrot.go:207-238): HighwayHash-256 on `device` (kernel B on the
@@ -244,6 +271,9 @@ class Server:
                                                      "minioadmin")
         self.root_password = root_password or os.environ.get(
             "MTPU_ROOT_PASSWORD", "minioadmin")
+        # The drive deadlines from the environment now, before the drives
+        # are wrapped; the stored config's once it is loaded (below).
+        configure_robustness(Config().get("drive"))
         if any("://" in ep for ep in endpoint_args):
             raise NotImplementedError("distributed endpoints are not ported")
         if (len(endpoint_args) == 1
@@ -273,6 +303,13 @@ class Server:
             self._warm()
         self.iam = IAMSys(self.root_user, self.root_password)
         self.bucket_meta = BucketMetadataSys(self.object_layer)
+        # The config, sealed under the root secret (one launch of kernel D
+        # to load it on the card); the env still wins inside Config.get.
+        self.config_sys = ConfigSys(self.object_layer,
+                                    secret=self.root_password,
+                                    device=self.device)
+        self.config_sys.load()
+        configure_robustness(self.config_sys.config.get("drive"))
         # The background services (initAutoHeal, initDataScanner), in
         # minio_tpu's order. Every write marks the update tracker, and
         # the scanner skips the buckets it finds unmarked.
@@ -297,7 +334,8 @@ class Server:
                          device=self.device))
         self.s3 = S3Server(self.object_layer, self.iam, self.bucket_meta,
                            host=address, port=port, device=self.device,
-                           sse_config=self.sse_config, metrics=self.metrics)
+                           sse_config=self.sse_config, metrics=self.metrics,
+                           config_sys=self.config_sys)
         self.s3.admin.scanner = self.scanner
         # The scrape-time collector over the live subsystems.
         self.s3.admin.collector = MetricsCollector(
@@ -324,6 +362,7 @@ class Server:
             block = erasure_objects.BLOCK_SIZE_V2
             prefill_blocks_pool(Erasure(k, m, block, device=self.device))
             streaming_self_test(self.device, k, m, block)
+        s2_self_test(self.device)
 
     def _wrap_disk(self, raw, ep: str):
         """A drive as the sets see it: `raw` under the metrics, disk-id

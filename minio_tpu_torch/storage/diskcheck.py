@@ -101,8 +101,8 @@ ROBUST = RobustConfig()
 
 
 def configure_robustness(kvs) -> RobustConfig:
-    """Apply the `drive` subsystem's key-value settings (a dict until the
-    port has a config subsystem) onto the live ROBUST."""
+    """Apply the `drive` subsystem's key-value settings (config.Config's
+    resolved view: env > stored > default) onto the live ROBUST."""
     ROBUST.enabled = kvs.get("enable", "on") != "off"
     for attr, key, default in (
         ("op_deadline_s", "op_deadline", 30.0),

@@ -63,7 +63,10 @@ def run(phase: str, wrapped: bool) -> dict:
     DATA.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(dir=DATA)
     try:
-        with robust_overrides(enabled=wrapped):
+        # The env for the Server each phase builds (it applies the drive
+        # subsystem), the override for the code that runs outside one.
+        with entry.env_vars(MTPU_DRIVE_ENABLE="on" if wrapped else "off"), \
+                robust_overrides(enabled=wrapped):
             t0 = time.perf_counter()
             res = PHASES[phase](tmp)
             seconds = time.perf_counter() - t0

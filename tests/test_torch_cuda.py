@@ -18,13 +18,15 @@ import struct
 
 import chip_smoke
 from minio_tpu_torch.crypto.aead import AESGCM
+from minio_tpu_torch import entry
 from minio_tpu_torch.entry import (admission_drive_health,
+                                   config_compression,
                                    object_codec_put_get_heal,
                                    object_put_get_heal, object_self_heal,
                                    observability, put_get_heal, s3_core,
                                    s3_put_get_heal, s3_sse)
 from minio_tpu_torch.erasure import device_engine, registry
-from minio_tpu_torch.ops import aes_gcm, aes_gcm_cuda
+from minio_tpu_torch.ops import aes_gcm, aes_gcm_cuda, s2, s2_cuda
 from minio_tpu_torch.ops import gf, highwayhash_torch as hh, rs, rs_cuda
 
 pytestmark = pytest.mark.cuda
@@ -581,3 +583,130 @@ def test_observability_on_card(cuda, tmp_path):
     for step in ("put", "get", "degraded_get", "heal"):
         assert c[step]["kernel_seal_launches"] == 0, step
         assert c[step]["kernel_open_launches"] == 0, step
+
+
+# --- kernels E and F (csrc/s2.cu) ----------------------------------------
+
+@pytest.fixture(scope="module")
+def s2_answers():
+    """chip_smoke's phase-3 chunk pool and the plain codec's answer for
+    each distinct chunk (the plain codec is a Python loop)."""
+    pool = chip_smoke.s2_pool(np.random.default_rng(1234))
+    return pool, chip_smoke.s2_plain(pool)
+
+
+@pytest.mark.parametrize("chunks", chip_smoke.S2_BATCHES)
+def test_s2_kernels_match_plain(cuda, s2_answers, chunks):
+    """Kernel E's blocks, CRCs and lengths and kernel F's raw bytes and
+    statuses equal the plain versions' over a batch cycling through 64 KiB
+    of text, random bytes and zeros, the 12,345 B tail, lengths 0 to 8 and
+    the copy-remainder runs."""
+    pool, plain = s2_answers
+    names = chip_smoke.s2_batch_names(pool, chunks)
+    before = s2_cuda.COMPRESS_LAUNCHES.value
+    rows, out, crcs, lens = chip_smoke.s2_run_e(pool, names)
+    assert s2_cuda.COMPRESS_LAUNCHES.value == before + 1
+    for (_, _, o), name, crc, ln in zip(rows, names, crcs, lens):
+        assert out[o:o + ln].tobytes() == plain[name][0], name
+        assert crc == plain[name][1], name
+    frames = [plain[n] for n in names]
+    _, fout, status = chip_smoke.s2_run_f([f[3] for f in frames],
+                                          [f[2] for f in frames],
+                                          [len(pool[n]) for n in names])
+    assert status == [f[5] for f in frames] == [s2.STATUS_OK] * chunks
+    assert fout.tobytes() == b"".join(pool[n] for n in names)
+
+
+def test_s2_decompress_status_flags(cuda, s2_answers):
+    """F flags a flipped CRC byte (1) and a truncated block (2), as the
+    plain version does, and decodes the good frame between them."""
+    pool, plain = s2_answers
+    bad = bytearray(plain["text0"][3])
+    bad[2] ^= 0x01
+    bodies = [bytes(bad), plain["text2"][3], plain["text3"][3][:-9]]
+    _, fout, status = chip_smoke.s2_run_f(bodies, [0, 0, 0],
+                                          [chip_smoke.PACKAGE] * 3)
+    assert status == [s2.STATUS_CRC, s2.STATUS_OK, s2.STATUS_CORRUPT]
+    p = chip_smoke.PACKAGE
+    assert fout[p:2 * p].tobytes() == pool["text2"]
+
+
+def test_s2_stream_through_the_transforms_on_card(cuda):
+    """CompressReader and DecompressWriter on the card give minio_tpu's
+    frames (the plain codec's bytes) and the text back; E launches once a
+    batch of 128 chunks plus the probe."""
+    import io
+
+    from minio_tpu_torch.api import transforms as tfm
+
+    text = entry.seeded_text((16 << 20) + 12_345, 3)
+    before = s2_cuda.COMPRESS_LAUNCHES.value
+    meta: dict = {}
+    r = tfm.CompressReader(io.BytesIO(text), meta, device=cuda)
+    stored = r.read()
+    assert s2_cuda.COMPRESS_LAUNCHES.value - before == 1 + 3
+    # The first four chunks' frames are the plain codec's.
+    assert stored.startswith(s2.compress_stream(
+        text[:4 * chip_smoke.PACKAGE], device="cpu"))
+    out = io.BytesIO()
+    w = tfm.DecompressWriter(out, device=cuda)
+    for i in range(0, len(stored), 1 << 20):
+        w.write(stored[i:i + (1 << 20)])
+    w.close()
+    assert out.getvalue() == text
+    assert meta[tfm.META_COMPRESSED_SIZE] == str(len(stored))
+
+
+def test_compressed_sse_bounded_rss_on_card(cuda, tmp_path):
+    """A compressed SSE-S3 192 MiB PUT and its GET grow the resident set
+    by less than minio_tpu's 96 MiB bound: the codec batches and never
+    buffers the object."""
+    from minio_tpu_torch.server import Server
+
+    size = 192 << 20
+    text = entry.seeded_text(size, 9)
+    peak: dict = {}
+    server = Server([str(tmp_path / "d{1...16}")], port=0,
+                    root_user=entry.S3_ACCESS, root_password=entry.S3_SECRET,
+                    default_parity=4, device=cuda)
+    server.config_sys.config.set_kv("compression", enable="on",
+                                    extensions=".log")
+    server.s3.start()
+    try:
+        c = entry.S3Client(server.endpoint, entry.S3_ACCESS,
+                           entry.S3_SECRET)
+        assert c.request("PUT", "/rss")[0] == 200
+        with entry._rss_peak(peak, "put"):
+            st, _, _ = c.put_stream("/rss/big.log",
+                                    entry._PayloadReader(text), size,
+                                    entry.sse_put_headers("sse-s3"))
+        assert st == 200
+        with entry._rss_peak(peak, "get"):
+            st, _, ok = entry._get_exact(c, "/rss/big.log", text)
+        assert st == 200 and ok
+    finally:
+        server.stop()
+    assert peak["put"] < 96 << 20 and peak["get"] < 96 << 20, peak
+
+
+def test_config_compression_on_card(cuda, tmp_path):
+    """Phase 4n at 4 MiB + 12,345 B on the card: E in the compressed
+    PUTs and the probe, F in the compressed GETs, neither in the heal, C
+    in the settings' saves, D in the SSE GET and the config's load at the
+    restart, kernel A at 14+2 for the RRS object."""
+    res = config_compression(tmp_path, 4 * (1 << 20) + 12_345, device=cuda,
+                             range_size=1 << 20)
+    assert all(res["checks"].values()), res["checks"]
+    c = res["counters"]
+    for step in ("put", "sse_put"):
+        assert c[step]["kernel_compress_launches"] > 0, step
+    assert c["random_put"]["kernel_compress_launches"] == 1
+    for step in ("get", "range_get", "degraded_get", "sse_get",
+                 "get_after_restart"):
+        assert c[step]["kernel_decompress_launches"] > 0, step
+    assert c["heal"]["kernel_compress_launches"] == 0
+    assert c["heal"]["kernel_decompress_launches"] == 0
+    assert c["heal"]["kernel_gf_launches"] > 0
+    assert c["settings"]["kernel_seal_launches"] >= 2
+    assert c["restart"]["kernel_open_launches"] >= 1
+    assert res["gf_by_shape"]["rrs_put"].get("2x14", 0) > 0

@@ -4,9 +4,9 @@ kernels C and D are held to it on the card).
 
 - The SSE cases of tests/test_streaming_transforms.py and the cases of
   tests/test_kms.py, case for case on both packages' servers (the
-  compression cases are left out: the port has no compression; the
-  192 MiB bounded-RSS case runs on the card, in tests/test_torch_cuda.py
-  and phase 4k of chip_smoke.py). Objects are a few 64 KiB packages
+  compression cases are in tests/test_torch_compression.py; the 192 MiB
+  bounded-RSS case runs on the card, in tests/test_torch_cuda.py and
+  phase 4k of chip_smoke.py). Objects are a few 64 KiB packages
   over 12 KiB erasure blocks.
 - Each package reads the SSE-S3, SSE-C and SSE-KMS objects the other
   wrote (one root password), a named KMS key's registry included.
