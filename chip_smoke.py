@@ -48,9 +48,10 @@ Phases, each of which must pass (nothing is caught):
     and length of E and every raw byte and status of F, in batches of 1,
     33, 128 and 4,097 chunks cycling through 64 KiB of phase 4n's seeded
     text, random bytes (blocks longer than the chunk) and zeros, the
-    12,345 B tail, lengths 0 to 8 and tests/test_s2.py's copy-remainder
-    runs, and F on a flipped CRC byte (status 1) and a truncated block
-    (status 2);
+    12,345 B tail, lengths 0 to 8, tests/test_s2.py's copy-remainder
+    runs, periodic chunks, a first match at lane 31 of E's window and
+    chunks of 9, 31 and 40 B, and F on a flipped CRC byte (status 1) and
+    a truncated block (status 2);
  4. the main path: put_get_heal at 12+4 with 1 MiB blocks over a
     256 MiB + 12,345 B object, on the pipelined drivers (this host has
     more than one core): PUT, healthy GET, shards 0, 5, 12 and 15 lost,
@@ -1052,12 +1053,41 @@ def check_aes_kernels(rng, errs: dict) -> None:
 # Phase 3 of kernels E and F: the batches (chunk counts) and the chunk
 # contents, cycled through each batch: 64 KiB of phase 4n's seeded text at
 # eight offsets, 64 KiB of random bytes (a block longer than the chunk)
-# twice, 64 KiB of zeros, the object's 12,345 B tail, lengths 0 to 8, and
-# tests/test_s2.py's copy-remainder runs. The plain codec is a Python
-# loop, so it runs once a distinct chunk and the batches' expectations
-# are assembled from those answers (chunks are independent).
+# twice, 64 KiB of zeros, the object's 12,345 B tail, lengths 0 to 8,
+# tests/test_s2.py's copy-remainder runs, and the hard cases of E's
+# 32-position window: 64 KiB of periods 2, 3, 31, 32 and 33 (equal hashes
+# on several lanes of a window) with a byte changed every 997, a chunk
+# whose first match is found at lane 31, and chunks of 9, 31 and 40 B of
+# three letters (a partial window at the limit); and text a third random,
+# whose block is longer than kernel F stages. The plain codec is a
+# Python loop, so it runs once a distinct chunk and the batches'
+# expectations are assembled from those answers (chunks are independent).
 S2_BATCHES = (1, 33, 128, 4097)
 S2_RUNS = (65, 66, 67, 68, 129, 130, 131)
+S2_PERIODS = (2, 3, 31, 32, 33)
+S2_SHORT = (9, 31, 40)
+
+
+def periodic_chunk(rng, period: int, size: int, every: int = 997) -> bytes:
+    """`size` bytes repeating `period` random bytes, one byte in `every`
+    changed: matches restart after each change inside periodic data."""
+    out = bytearray((rng.bytes(period) * (size // period + 1))[:size])
+    for i in range(every // 2, size, every):
+        out[i] ^= 1 + int(rng.integers(255))
+    return bytes(out)
+
+
+def lane31_chunk(rng, tail: bytes) -> bytes:
+    """31 bytes whose words neither repeat nor share a hash with the first
+    word, the first word again, then `tail`: the first match of the chunk
+    is found by lane 31 of the first window (ops/s2.py window_parse)."""
+    from minio_tpu_torch.ops import s2
+
+    while True:
+        head = rng.bytes(31)
+        chunk = head + head[:4] + tail
+        if s2.window_parse(chunk).matches[0][0] == 31:
+            return chunk
 
 
 def s2_pool(rng) -> dict:
@@ -1070,6 +1100,19 @@ def s2_pool(rng) -> dict:
                  "zeros": bytes(PACKAGE), "tail": text[8 * PACKAGE:]})
     pool.update({f"len{n}": text[:n] for n in range(9)})
     pool.update({f"run{n}": b"a" * n for n in S2_RUNS})
+    pool.update({f"period{p}": periodic_chunk(rng, p, PACKAGE)
+                 for p in S2_PERIODS})
+    pool["lane31"] = lane31_chunk(rng, text[:4096])
+    # Text with a third of its 512-byte runs random: a block (~55 KB)
+    # longer than kernel F stages, whose rest F reads from global memory.
+    mixed = bytearray(text[:PACKAGE])
+    for i in range(0, PACKAGE, 512):
+        if rng.random() < 1 / 3:
+            mixed[i:i + 512] = rng.bytes(512)
+    pool["mixed"] = bytes(mixed)
+    pool.update({f"short{n}": bytes(rng.choice(np.frombuffer(b"abc", np.uint8),
+                                               n))
+                 for n in S2_SHORT})
     return pool
 
 
@@ -1158,7 +1201,9 @@ def check_s2_kernels(rng, errs: dict) -> None:
     """Phase 3 of kernels E and F, exact: every block, CRC and length of
     E and every raw byte and status of F against the plain versions, at
     S2_BATCHES over s2_pool(); F on a frame with a flipped CRC byte
-    (status 1) and on a truncated block (status 2)."""
+    (status 1) and on a truncated block (status 2), on a valid block
+    longer than F stages, and on a batch of hostile frames
+    (s2_run_hostile)."""
     pool = s2_pool(rng)
     t0 = time.perf_counter()
     plain = s2_plain(pool)
@@ -1213,6 +1258,146 @@ def check_s2_kernels(rng, errs: dict) -> None:
     errs["s2_decompress"] = max(errs["s2_decompress"], err)
     log(f"s2_decompress tampered (CRC, good, truncated): kernel {status}, "
         f"plain {p_status.tolist()}, max_abs_err {err}")
+    # A valid block longer than F's staged window: the rest of its body is
+    # read from global memory.
+    body = long_block_body(PACKAGE)
+    p_out, p_status = s2.decompress_plain(
+        torch.frombuffer(bytearray(body), dtype=torch.uint8),
+        torch.tensor([[0, 0, len(body), 0, PACKAGE]], dtype=torch.int64),
+        PACKAGE)
+    _, fout, status = s2_run_f([body], [0], [PACKAGE])
+    err = max(status[0], int(p_status[0]),
+              _bytes_err(fout.tobytes(), p_out.numpy().tobytes()),
+              _bytes_err(fout.tobytes(), b"a" * PACKAGE))
+    errs["s2_decompress"] = max(errs["s2_decompress"], err)
+    log(f"s2_decompress a {len(body)} B body of 1-byte copies: status "
+        f"{status}, max_abs_err {err}")
+    # Malformed and valid blocks at every check of F, in one batch: random
+    # tags cut, flipped and extended, copies at S2_FAR_OFFSETS, and the
+    # long block cut and flipped past F's staged window.
+    t0 = time.perf_counter()
+    status, p_status, fout, p_out, rows = s2_run_hostile(
+        rng, 200, [(body[4:], PACKAGE)])
+    err = max(abs(a - b) for a, b in zip(status, p_status))
+    for (_, _, _, o, n), st in zip(rows, p_status):
+        if st != s2.STATUS_CORRUPT:
+            err = max(err, _bytes_err(fout[o:o + n].tobytes(),
+                                      p_out[o:o + n].tobytes()))
+    errs["s2_decompress"] = max(errs["s2_decompress"], err)
+    log(f"s2_decompress {len(rows)} hostile frames "
+        f"({p_status.count(s2.STATUS_CORRUPT)} malformed): max_abs_err "
+        f"{err} in {time.perf_counter() - t0:.2f} s")
+
+
+def long_block_body(n: int) -> bytes:
+    """A frame body (masked CRC, snappy block) of n bytes "a": a literal
+    byte, then n - 1 one-byte copies at offset 1 (three bytes a tag), a
+    valid block about three times the raw length."""
+    from minio_tpu_torch.ops import s2
+
+    block = (s2._varint(n) + bytes([0, ord("a")])
+             + bytes([2, 1, 0]) * (n - 1))
+    return struct.pack("<I", s2._masked_crc(b"a" * n)) + block
+
+
+# Kind-3 copy offsets that no 64 KiB block takes; from 0x80000000 on they
+# are negative as 32-bit ints. Kernel F flags each as malformed.
+S2_FAR_OFFSETS = (0x10000, 0x7FFFFFFF, 0x80000000, 0xC0000000, 0xFFFF0000)
+S2_BODY_STAGE = 48_640  # the bytes of a block that kernel F stages
+
+
+def s2_random_tags(rng) -> tuple[bytes, int]:
+    """A valid block of random tags (every kind and header form: literal
+    lengths in 0-4 extra bytes, offsets in 1, 2 or 4 bytes) and its raw
+    length."""
+    from minio_tpu_torch.ops import s2
+
+    tags, o = bytearray(), 0
+    for _ in range(int(rng.integers(1, 12))):
+        if o == 0 or rng.random() < 0.4:
+            n = int(rng.integers(1, 70))
+            extra = int(rng.integers(0 if n <= 60 else 1, 5))
+            tags += (bytes([(n - 1) << 2]) if not extra else
+                     bytes([(59 + extra) << 2])
+                     + (n - 1).to_bytes(extra, "little"))
+            tags += rng.bytes(n)
+        else:
+            kind = int(rng.integers(1, 4))
+            off = int(rng.integers(1, (min(o, 2047) if kind == 1 else o) + 1))
+            n = int(rng.integers(4, 12) if kind == 1 else rng.integers(1, 65))
+            if kind == 1:
+                tags += bytes([((off >> 8) << 5) | ((n - 4) << 2) | 1,
+                               off & 0xFF])
+            else:
+                tags += bytes([((n - 1) << 2) | kind]) + off.to_bytes(
+                    2 if kind == 2 else 4, "little")
+        o += n
+    return s2._varint(o) + bytes(tags), o
+
+
+def s2_hostile_blocks(rng, n: int, long_blocks=()) -> list:
+    """(block, raw length F is given) at every check of kernel F: copies
+    at S2_FAR_OFFSETS (as the first tag and after a literal); n random
+    valid blocks (s2_random_tags), each also cut, flipped or extended, and
+    with a last copy at the output's edge (offset o) and past it (o + 1);
+    and each of `long_blocks` (longer than F stages) whole, cut and
+    flipped past the staged window, and ending in a far copy."""
+    from minio_tpu_torch.ops import s2
+
+    cases = []
+    for off in S2_FAR_OFFSETS:
+        far = bytes([(7 << 2) | 3]) + off.to_bytes(4, "little")
+        cases.append((s2._varint(8) + far, 8))
+        cases.append((s2._varint(24) + bytes([15 << 2]) + rng.bytes(16)
+                      + far, 24))
+    for _ in range(n):
+        block, want = s2_random_tags(rng)
+        cases.append((block, want))
+        cases.append((block[:int(rng.integers(len(block) + 1))], want))
+        bad = bytearray(block + rng.bytes(int(rng.integers(3))))
+        bad[int(rng.integers(len(bad)))] ^= 1 << int(rng.integers(8))
+        cases.append((bytes(bad),
+                      int(rng.choice([want, want + 1, max(0, want - 1)]))))
+        tags = block[len(s2._varint(want)):]
+        for off in (want, want + 1):
+            cases.append((s2._varint(want + 4) + tags + bytes([(3 << 2) | 2])
+                          + off.to_bytes(2, "little"), want + 4))
+    for block, want in long_blocks:
+        cases.append((block, want))
+        for _ in range(2):
+            cases.append((block[:int(rng.integers(S2_BODY_STAGE,
+                                                  len(block)))], want))
+            bad = bytearray(block)
+            bad[int(rng.integers(S2_BODY_STAGE, len(bad)))] ^= \
+                1 << int(rng.integers(8))
+            cases.append((bytes(bad), want))
+        cases.append((block + bytes([(7 << 2) | 3])
+                      + S2_FAR_OFFSETS[2].to_bytes(4, "little"), want))
+    return cases
+
+
+def s2_run_hostile(rng, n: int, long_blocks=()):
+    """Kernel F and decompress_plain over s2_hostile_blocks as the frames
+    of one batch, each with the masked CRC of its decode (one in eight
+    flipped; 0 where it does not decode): (F's statuses, the plain
+    statuses, F's output, the plain output, the desc rows)."""
+    from minio_tpu_torch.ops import s2
+
+    bodies, out_lens = [], []
+    for block, cap in s2_hostile_blocks(rng, n, long_blocks):
+        try:
+            crc = s2._masked_crc(s2._decompress_block_py(block, cap))
+        except ValueError:
+            crc = 0
+        if rng.random() < 1 / 8:
+            crc ^= 1 << int(rng.integers(32))
+        bodies.append(struct.pack("<I", crc) + block)
+        out_lens.append(cap)
+    rows, fout, status = s2_run_f(bodies, [0] * len(bodies), out_lens)
+    p_out, p_status = s2.decompress_plain(
+        torch.frombuffer(bytearray(b"".join(bodies)), dtype=torch.uint8),
+        torch.tensor(rows, dtype=torch.int64), sum(out_lens))
+    return (status, p_status.tolist(), fout, p_out.numpy(), rows)
 
 
 def settle_heap() -> None:
@@ -2211,11 +2396,12 @@ def run_config_compression() -> tuple[dict, dict]:
 def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5 for kernels E and F: CUDA events over calls at 1, 128 (a
     launch of the port's batch) and 4,097 chunks (the whole 4n object) of
-    phase 4n's text, the plain versions' times at 1 and 128, and the byte
-    bound: the bytes read once and written once over HBM_BYTES_PER_S (no
-    operation count bounds a sequential match loop lower). `launches`
-    holds each kernel's launches by main path, and 4n's by chunk count
-    under "s2_by_chunks"."""
+    phase 4n's text and at 128 chunks of random bytes and of zeros (the
+    longest and the shortest chain of windows), the plain versions' times
+    at 1 and 128 chunks of text, and the byte bound: the bytes read once
+    and written once over HBM_BYTES_PER_S (no operation count bounds a
+    sequential match loop lower). `launches` holds each kernel's launches
+    by main path, and 4n's by chunk count under "s2_by_chunks"."""
     from minio_tpu_torch.entry import seeded_text
     from minio_tpu_torch.ops import s2, s2_cuda
     from minio_tpu_torch.utils.timing import time_calls
@@ -2223,9 +2409,11 @@ def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     text = seeded_text(4096 * PACKAGE + 12_345, 80)
     by_chunks = launches["s2_by_chunks"]
     shapes = {"s2_compress": [], "s2_decompress": []}
-    for n in (1, 128, 4097):
+    for kind, n in (("text", 1), ("text", 128), ("text", 4097),
+                    ("random", 128), ("zeros", 128)):
         sizes = [PACKAGE] * min(n, 4096) + ([12_345] if n == 4097 else [])
-        raw = text[:sum(sizes)]
+        raw = {"text": lambda m: text[:m], "random": rng.bytes,
+               "zeros": bytes}[kind](sum(sizes))
         rows, in_off, out_off = [], 0, 0
         for sz in sizes:
             rows.append((in_off, sz, out_off))
@@ -2260,7 +2448,7 @@ def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
         f_ms = time_calls(lambda x: s2_cuda.decompress_cuda(x, fdesc, fo),
                           [fdata], reps)
         e_plain = f_plain = None
-        if n < 4097:
+        if kind == "text" and n < 4097:
             cd, cdesc = data.cpu(), desc.cpu()
             t0 = time.perf_counter()
             s2.compress_plain(cd, cdesc, out_off)
@@ -2277,12 +2465,14 @@ def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
                 ("s2_decompress", f_ms, f_plain, f_bytes)):
             bound = 1e3 * nbytes / HBM_BYTES_PER_S
             shapes[name].append({
-                "chunks": n, "raw_bytes": len(raw), "block_bytes": stored,
+                "data": kind, "chunks": n, "raw_bytes": len(raw),
+                "block_bytes": stored,
                 "ms": ms, "gbps_raw": len(raw) / ms / 1e6,
                 "plain_ms": plain_ms, "bound_ms": bound,
                 "share_of_bound": bound / ms, "bound_by": "bytes",
-                "launches_4n": by_chunks[name].get(str(n), 0)})
-            log(f"{name} {n} chunks ({len(raw)} B raw, {stored} B of "
+                "launches_4n": (by_chunks[name].get(str(n), 0)
+                                if kind == "text" else 0)})
+            log(f"{name} {n} chunks of {kind} ({len(raw)} B raw, {stored} B of "
                 f"blocks): {ms:.4f} ms a call ({len(raw) / ms / 1e6:.3f} "
                 f"GB/s of raw), plain "
                 f"{'not run' if plain_ms is None else f'{plain_ms:.1f} ms'}"
@@ -2292,7 +2482,8 @@ def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
         del data, out, fdata
     rows = []
     for name, line in (("s2_compress", 115), ("s2_decompress", 199)):
-        main = next(r for r in shapes[name] if r["chunks"] == 128)
+        main = next(r for r in shapes[name]
+                    if r["chunks"] == 128 and r["data"] == "text")
         rows.append({
             "name": name, "route": "cuda",
             "source": "minio_tpu_torch/csrc/s2.cu",

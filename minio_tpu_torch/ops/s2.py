@@ -19,6 +19,10 @@ line. They are the plain versions of kernels E and F, run on the CPU
 sequential byte codec has no useful PyTorch formulation, as the plain
 HighwayHash is a Python loop.
 
+`window_parse`, `window_block` and `warp_decode_block` model kernels E
+and F's warp designs; the tests hold them to the plain versions, and no
+path of the port runs them.
+
 `S2Batch` is the host side of a batch on the codec's device: one staged
 copy of the raw chunks (or frame bodies) to the card, one launch, one
 copy back. `compress_stream` and `decompress_stream` are the one-shot
@@ -28,6 +32,7 @@ forms (tests, tools); `FrameDecoder` decodes a stream fed in pieces.
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,11 +97,13 @@ def _masked_crc(data) -> int:
     return mask_crc(_crc32c_py(data))
 
 
-# The segmented CRC of kernels E and F, in plain integers: 32 lanes each
-# take the register of one segment (lane 0 from 0xffffffff, the others
-# from 0), multiply it by x^(8 * bytes after the segment) mod P, and the
-# lanes' products XOR to the register of the whole. tests/test_torch_s2.py
-# holds this model to _crc32c_py; the kernel's arithmetic follows it.
+# The segmented CRC of kernels E and F, in plain integers: each lane (64
+# in E, warps 2 and 3 while warps 0 and 1 write the block; 128 in F, the
+# whole block) takes the register of one segment (lane 0 from
+# 0xffffffff, the others from 0), multiplies it by x^(8 * bytes after the
+# segment) mod P, and the lanes' products XOR to the register of the
+# whole. tests/test_torch_s2.py holds this model to _crc32c_py; the
+# kernels' arithmetic follows it.
 
 def multmodp(a: int, b: int) -> int:
     """a * b mod P in the reflected representation (zlib's multmodp)."""
@@ -347,6 +354,193 @@ def compress_block(data) -> bytes:
 
 def decompress_block(data) -> bytes:
     return _decompress_block_py(data)
+
+
+# ---------------------------------------------------------------------------
+# Models of kernels E and F's warp designs, in plain Python. The kernels
+# follow them and tests/test_torch_s2.py holds them to the serial loops
+# above and to snappy.c; no CPU path runs them.
+
+WARP = 32
+
+
+class WindowParse(NamedTuple):
+    """Kernel E's parse of one chunk by a warp: each match as (pos, cand,
+    length); the hash-table writes as (hash, position) lists, one a match
+    (the writes before it and its seeds) and a last one after the last
+    match; the windows and the 128-byte extension steps it took."""
+    matches: list
+    writes: list
+    windows: int
+    steps: int
+
+
+def window_parse(chunk) -> WindowParse:
+    """Kernel E's 32-position window over one chunk of 8 to CHUNK bytes.
+
+    At window start `pos`, lane l takes position p = pos + l (lanes past
+    limit = len - 4 sit out). Its candidate is the position of the
+    highest lane below it with the same hash (its peers), else the table
+    entry as it stood before the window; it hits where the serial loop
+    would: cand < p, p - cand <= 0xffff, equal words. Up to the first
+    lane f that hits (or the window's last lane), the highest lane of
+    each peer group writes the table: the last write the serial loop
+    makes there. A hit extends to snappy.c's length, emits, and seeds up
+    to three positions in the serial loop's order; the next window
+    starts after the match."""
+    b = bytes(chunk)
+    blen = len(b)
+    if not MIN_MATCH + 4 <= blen <= CHUNK:
+        raise ValueError(f"a window parse takes 8 to {CHUNK} B, got {blen}")
+    arr = np.frombuffer(b + b"\0\0\0", dtype=np.uint8).astype(np.uint32)
+    load = ((arr[:-3] | (arr[1:-2] << 8) | (arr[2:-1] << 16)
+             | (arr[3:] << 24))[:blen])
+    hashes = ((load * np.uint32(0x1E35A7BD)) >> np.uint32(
+        32 - HASH_BITS)).tolist()
+    load = load.tolist()
+    table = [0] * HASH_SIZE
+    limit = blen - MIN_MATCH
+    matches, writes, seg = [], [], []
+    pos = windows = steps = 0
+    while pos <= limit:
+        windows += 1
+        lanes = min(WARP, limit - pos + 1)
+        hs = hashes[pos:pos + lanes]
+        last: dict = {}
+        cands = []
+        for lane, h in enumerate(hs):
+            cands.append(pos + last[h] if h in last else table[h])
+            last[h] = lane
+        f = next((lane for lane in range(lanes)
+                  if cands[lane] < pos + lane
+                  and pos + lane - cands[lane] <= 0xFFFF
+                  and load[cands[lane]] == load[pos + lane]), None)
+        upto = lanes - 1 if f is None else f
+        highest = {h: lane for lane, h in enumerate(hs[:upto + 1])}
+        for lane, h in enumerate(hs[:upto + 1]):
+            if highest[h] == lane:
+                table[h] = pos + lane
+                seg.append((h, pos + lane))
+        if f is None:
+            pos += WARP
+            continue
+        p, cand = pos + f, cands[f]
+        mlen = _match_length(b, cand, p, blen)
+        # The warp's steps: bytes 4-11 are compared in the window; from
+        # byte 12, 32 words a step until a lane finds the first mismatch
+        # or the cap.
+        cap = min(blen - p, 0xFFFF)
+        m = 12
+        while m < cap and mlen >= 12:
+            steps += 1
+            if mlen < m + 4 * WARP:
+                break
+            m += 4 * WARP
+        s = p + 1
+        while s + MIN_MATCH <= p + mlen and s <= limit and s < p + 4:
+            table[hashes[s]] = s
+            seg.append((hashes[s], s))
+            s += 1
+        matches.append((p, cand, mlen))
+        writes.append(seg)
+        seg = []
+        pos = p + mlen
+    writes.append(seg)
+    return WindowParse(matches, writes, windows, steps)
+
+
+def window_block(chunk) -> bytes:
+    """The snappy block of one chunk (at most CHUNK bytes) from
+    window_parse's matches: what kernel E writes."""
+    b = bytes(chunk)
+    out = bytearray(_varint(len(b)))
+    if len(b) < MIN_MATCH + 4:
+        _emit_literal(out, b)
+        return bytes(out)
+    lit = 0
+    for p, cand, mlen in window_parse(b).matches:
+        if p > lit:
+            _emit_literal(out, b[lit:p])
+        _emit_copy(out, p - cand, mlen)
+        lit = p + mlen
+    if len(b) > lit:
+        _emit_literal(out, b[lit:])
+    return bytes(out)
+
+
+def _lane_tag(data, i: int) -> tuple:
+    """Kernel F's parse of a tag as if one started at data[i]: (length
+    less one, kind, header length, offset, bad), bad where a check of
+    snappy.c fails that does not depend on the output so far."""
+    n = len(data)
+    word = int.from_bytes(data[i:i + 5].ljust(5, b"\0"), "little")
+    tag, x = word & 0xFF, word >> 8
+    l6, kind = tag >> 2, tag & 3
+    if kind == 0:
+        extra = l6 - 59 if l6 >= 60 else 0
+        hdr = 1 + extra
+        lm1 = x & ((1 << (8 * extra)) - 1) if extra else l6
+        off = 0
+    else:
+        hdr = {1: 2, 2: 3, 3: 5}[kind]
+        lm1 = (l6 & 7) + 3 if kind == 1 else l6
+        off = ((tag >> 5) << 8) | (x & 0xFF) if kind == 1 else (
+            x & 0xFFFF if kind == 2 else x)
+    j = i + hdr
+    bad = j > n or lm1 >= CHUNK or (
+        lm1 >= n - j if kind == 0 else off == 0 or off >= CHUNK)
+    return lm1, kind, hdr, off, bad
+
+
+def warp_decode_block(data, cap: int = CHUNK) -> bytes:
+    """Kernel F's decode of a snappy block into at most `cap` bytes (the
+    frame's raw length, at most CHUNK).
+
+    At window start i (a tag), lane l parses a tag as if one started at
+    i + l (_lane_tag: the checks that do not depend on the output). The
+    warp walks the window's tags lane to lane, each tag's header and
+    length giving the next tag's lane, checks the length against the
+    header's and the offset against the output, and copies the tag 32
+    lanes a step: a copy of `length` bytes at offset `off` takes
+    out[o + k] = out[o - off + (k mod off)], every source byte before o,
+    so the lanes of a step are independent even where off < length. The
+    window ends at the first tag past it. Malformed blocks raise as
+    _decompress_block_py does."""
+    data = bytes(data)
+    if not 0 <= cap <= CHUNK:
+        raise ValueError(f"kernel F decodes at most {CHUNK} B, not {cap}")
+    want, i = _read_varint(data)
+    if i < 0 or want > cap:
+        raise ValueError("corrupt snappy block")
+    n = len(data)
+    # The kernel reads its lanes' words and a literal's bytes from a
+    # staged buffer that goes on past the block: so does the model.
+    padded = data + bytes(8 * WARP)
+    out = bytearray()
+    while i < n:
+        lanes = [_lane_tag(data, i + lane) for lane in range(WARP)]
+        cur = 0
+        while True:
+            lm1, kind, hdr, off, bad = lanes[cur]
+            length, o = lm1 + 1, len(out)
+            if bad or lm1 >= want - o or (kind != 0 and off > o):
+                raise ValueError("corrupt snappy block")
+            j = i + cur + hdr
+            for k0 in range(0, length, WARP):
+                ks = range(k0, min(length, k0 + WARP))
+                if kind == 0:
+                    out += padded[j + k0:j + ks.stop]
+                else:
+                    out += bytes(out[o - off + (k if off >= length
+                                                 else k % off)]
+                                 for k in ks)
+            cur += hdr + (length if kind == 0 else 0)
+            if cur >= WARP or i + cur >= n:
+                break
+        i += cur
+    if len(out) != want:
+        raise ValueError("corrupt snappy block")
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------

@@ -599,8 +599,9 @@ def s2_answers():
 def test_s2_kernels_match_plain(cuda, s2_answers, chunks):
     """Kernel E's blocks, CRCs and lengths and kernel F's raw bytes and
     statuses equal the plain versions' over a batch cycling through 64 KiB
-    of text, random bytes and zeros, the 12,345 B tail, lengths 0 to 8 and
-    the copy-remainder runs."""
+    of text, random bytes and zeros, the 12,345 B tail, lengths 0 to 8,
+    the copy-remainder runs and the hard cases of E's window: periodic
+    chunks, a first match at lane 31, chunks of 9, 31 and 40 B."""
     pool, plain = s2_answers
     names = chip_smoke.s2_batch_names(pool, chunks)
     before = s2_cuda.COMPRESS_LAUNCHES.value
@@ -629,6 +630,69 @@ def test_s2_decompress_status_flags(cuda, s2_answers):
     assert status == [s2.STATUS_CRC, s2.STATUS_OK, s2.STATUS_CORRUPT]
     p = chip_smoke.PACKAGE
     assert fout[p:2 * p].tobytes() == pool["text2"]
+
+
+def test_s2_decompress_long_block(cuda):
+    """F decodes a valid block longer than its staged window (1-byte
+    copies, three bytes a tag), reading the rest of the body from global
+    memory, as the plain version does."""
+    p = chip_smoke.PACKAGE
+    body = chip_smoke.long_block_body(p)
+    plain, p_status = s2.decompress_plain(
+        torch.frombuffer(bytearray(body), dtype=torch.uint8),
+        torch.tensor([[0, 0, len(body), 0, p]], dtype=torch.int64), p)
+    _, fout, status = chip_smoke.s2_run_f([body, body[:-1]], [0, 0],
+                                          [p, p])
+    assert p_status.tolist() == [s2.STATUS_OK]
+    assert status == [s2.STATUS_OK, s2.STATUS_CORRUPT]
+    assert fout[:p].tobytes() == plain.numpy().tobytes() == b"a" * p
+    # The longest valid block of 64 KiB (a 10-byte varint, then a byte a
+    # literal behind a 5-byte tag) decodes; one byte more is malformed.
+    block = (b"\x80\x80\x84" + b"\x80" * 6 + b"\x00"
+             + (b"\xfc\x00\x00\x00\x00b") * p)
+    body = struct.pack("<I", s2._masked_crc(b"b" * p)) + block
+    _, fout, status = chip_smoke.s2_run_f([body, body + b"b"], [0, 0],
+                                          [p, p])
+    assert status == [s2.STATUS_OK, s2.STATUS_CORRUPT]
+    assert fout[:p].tobytes() == b"b" * p
+
+
+@pytest.mark.parametrize("off", chip_smoke.S2_FAR_OFFSETS)
+def test_s2_decompress_far_offset(cuda, s2_answers, off):
+    """A 4-byte copy offset that no block takes (negative as a 32-bit int
+    from 0x80000000 on) is malformed (status 2) as the first tag and after
+    a literal, and the good frame beside them in the batch decodes: the
+    launch faults nowhere."""
+    pool, plain = s2_answers
+    far = bytes([(7 << 2) | 3]) + off.to_bytes(4, "little")
+    bodies = [bytes(4) + s2._varint(8) + far,
+              bytes(4) + s2._varint(24) + bytes([15 << 2]) + bytes(16) + far,
+              plain["text0"][3]]
+    p = chip_smoke.PACKAGE
+    _, fout, status = chip_smoke.s2_run_f(bodies, [0, 0, 0], [8, 24, p])
+    assert status == [s2.STATUS_CORRUPT, s2.STATUS_CORRUPT, s2.STATUS_OK]
+    assert fout[32:].tobytes() == pool["text0"]
+
+
+def test_s2_decompress_hostile_blocks_match_plain(cuda, s2_answers):
+    """F's statuses and raw bytes equal decompress_plain's over the blocks
+    that hold F's warp model to the serial decode on the CPU
+    (chip_smoke.s2_hostile_blocks: random tags of every kind cut, flipped
+    and extended, copies at far offsets) and over two blocks longer than
+    F's staged window (the 1-byte-copy block and the "mixed" chunk's),
+    cut and flipped past it, as frames of one batch."""
+    pool, plain = s2_answers
+    p = chip_smoke.PACKAGE
+    longs = [(chip_smoke.long_block_body(p)[4:], p), (plain["mixed"][0], p)]
+    assert plain["mixed"][2] == 0
+    assert min(len(b) for b, _ in longs) > chip_smoke.S2_BODY_STAGE
+    status, p_status, fout, p_out, rows = chip_smoke.s2_run_hostile(
+        np.random.default_rng(11), 1500, longs)
+    assert status == p_status
+    assert {s2.STATUS_OK, s2.STATUS_CRC, s2.STATUS_CORRUPT} <= set(status)
+    for (_, _, _, o, n), st in zip(rows, p_status):
+        if st != s2.STATUS_CORRUPT:
+            assert fout[o:o + n].tobytes() == p_out[o:o + n].tobytes(), o
 
 
 def test_s2_stream_through_the_transforms_on_card(cuda):

@@ -12,7 +12,13 @@ minio_tpu's (minio_tpu/ops/s2.py), on the CPU.
 - The plain versions on tensors (compress_plain, decompress_plain): the
   statuses of F, no write outside a frame's slot.
 - The segmented CRC model of kernels E and F against the byte-at-a-time
-  CRC.
+  CRC, at the kernels' 64 and 128 lanes too.
+- The models of the kernels' warp designs: E's 32-position window
+  (s2.window_parse) against the serial loop, match for match and table
+  for table, and its blocks against snappy.c's; F's warp decode with its
+  `k mod off` copy (s2.warp_decode_block) against the serial decode, on
+  phase 3's chunk pool, periodic chunks of periods 1 to 33, chunks of 9
+  to 40 bytes, corrupted blocks and a fuzz over small alphabets.
 Kernels E and F are held to these plain versions on the card
 (tests/test_torch_cuda.py, phase 3 of chip_smoke.py).
 """
@@ -28,6 +34,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import chip_smoke
 from minio_tpu.api import transforms as jax_tfm
 from minio_tpu.ops import s2 as jax_s2
 from minio_tpu_torch.api import transforms as tfm
@@ -104,6 +111,15 @@ def test_segmented_crc_model(n):
     data = random.Random(n).randbytes(n)
     assert s2.segmented_crc32c(data) == s2._crc32c_py(data) \
         == jax_s2._crc32c_py(data)
+
+
+@pytest.mark.parametrize("lanes", [64, 128])
+@pytest.mark.parametrize("n", [0, 1, 63, 65, 127, 129, 12_345, 65_536])
+def test_segmented_crc_model_kernel_lanes(lanes, n):
+    """The CRC split of kernel E (warps 2 and 3: 64 lanes) and of kernel F
+    (the block: 128 lanes) equals the byte-at-a-time CRC."""
+    data = random.Random(n + lanes).randbytes(n)
+    assert s2.segmented_crc32c(data, lanes=lanes) == s2._crc32c_py(data)
 
 
 def test_framed_stream_roundtrip(native):
@@ -346,3 +362,193 @@ def test_wrappers_refuse_cpu_launch_and_bad_desc():
                                 64)
     with pytest.raises(RuntimeError):
         s2.S2Batch()  # the card by default; none here
+
+
+# --- the models of the kernels' warp designs -----------------------------
+
+def _serial_parse(chunk):
+    """_compress_block_py's loop over one chunk of 8 B or more, keeping
+    its matches and its table writes: (matches, writes up to and with each
+    match's seeds, then the writes after the last match)."""
+    b = bytes(chunk)
+    arr = np.frombuffer(b + b"\0\0\0", dtype=np.uint8).astype(np.uint32)
+    load = ((arr[:-3] | (arr[1:-2] << 8) | (arr[2:-1] << 16)
+             | (arr[3:] << 24))[:len(b)])
+    hashes = ((load * np.uint32(0x1E35A7BD)) >> np.uint32(18)).tolist()
+    load = load.tolist()
+    table = [0] * s2.HASH_SIZE
+    limit = len(b) - s2.MIN_MATCH
+    matches, writes, seg = [], [], []
+    pos = 0
+    while pos <= limit:
+        h = hashes[pos]
+        cand = table[h]
+        table[h] = pos
+        seg.append((h, pos))
+        if cand < pos and pos - cand <= 0xFFFF and load[cand] == load[pos]:
+            mlen = s2._match_length(b, cand, pos, len(b))
+            s = pos + 1
+            while s + 4 <= pos + mlen and s <= limit and s < pos + 4:
+                table[hashes[s]] = s
+                seg.append((hashes[s], s))
+                s += 1
+            matches.append((pos, cand, mlen))
+            writes.append(seg)
+            seg = []
+            pos += mlen
+        else:
+            pos += 1
+    writes.append(seg)
+    return matches, writes
+
+
+def _hold_window(native, chunk):
+    """E's window against the serial loop (the same matches, the same
+    table at every match) and snappy.c; F's warp decode against the
+    serial decode."""
+    chunk = bytes(chunk)
+    block = s2.window_block(chunk)
+    assert block == s2._compress_block_py(chunk) \
+        == native.compress_block(chunk)
+    assert s2.warp_decode_block(block, len(chunk)) \
+        == s2._decompress_block_py(block, len(chunk)) == chunk
+    if len(chunk) < 8:
+        return None
+    wp = s2.window_parse(chunk)
+    matches, writes = _serial_parse(chunk)
+    assert wp.matches == matches
+    assert len(wp.writes) == len(writes)
+    t_win, t_ser = [0] * s2.HASH_SIZE, [0] * s2.HASH_SIZE
+    for w_win, w_ser in zip(wp.writes, writes):
+        for h, p in w_win:
+            t_win[h] = p
+        for h, p in w_ser:
+            t_ser[h] = p
+        assert all(t_win[h] == t_ser[h] for h, _ in w_win + w_ser)
+        # A window's lanes write distinct entries; every write is one the
+        # serial loop makes.
+        assert set(w_win) <= set(w_ser)
+    return wp
+
+
+@pytest.fixture(scope="module")
+def phase3_pool():
+    """Phase 3's chunk pool (chip_smoke.s2_pool), as the card tests
+    take it."""
+    return chip_smoke.s2_pool(np.random.default_rng(1234))
+
+
+@pytest.mark.parametrize("group", [f"text{i}" for i in range(8)] + [
+    "random", "zeros", "tail", "len", "run", "period", "lane31", "short",
+    "mixed"])
+def test_window_model_phase3_pool(native, phase3_pool, group):
+    names = [n for n in phase3_pool if n.startswith(group)]
+    assert names
+    for name in names:
+        wp = _hold_window(native, phase3_pool[name])
+        if name == "lane31":
+            assert wp.matches[0][0] == 31  # lane 31 of the first window
+    if group == "random":
+        # 64 KiB of random bytes: 2,048 windows and one a chance match,
+        # no extension step.
+        for name in names:
+            wp = s2.window_parse(phase3_pool[name])
+            assert 2048 <= wp.windows <= 2048 + len(wp.matches)
+            assert wp.steps == 0
+    if group == "zeros":
+        # One window, one match to the chunk's end: 512 steps of 128 B.
+        wp = s2.window_parse(phase3_pool["zeros"])
+        assert (wp.windows, wp.steps, wp.matches) == (1, 512,
+                                                      [(1, 0, 65_535)])
+
+
+@pytest.mark.parametrize("period", range(1, 34))
+def test_window_model_periodic(native, period):
+    """Periods 1-33: equal hashes on several lanes of one window, and
+    matches that restart after each changed byte."""
+    rng = np.random.default_rng(period)
+    for size in (4096, 997 + period):
+        _hold_window(native, chip_smoke.periodic_chunk(rng, period, size,
+                                                       every=251))
+
+
+@pytest.mark.parametrize("n", range(9, 41))
+def test_window_model_short_chunks(native, n):
+    """Chunks of 9 to 40 bytes: a partial window at the limit."""
+    rng = np.random.default_rng(n)
+    for alphabet in (b"a", b"ab", b"abc", bytes(range(256))):
+        pick = np.frombuffer(alphabet, dtype=np.uint8)
+        for _ in range(6):
+            _hold_window(native, bytes(rng.choice(pick, n)))
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.integers(1, 5), st.binary(min_size=0, max_size=400),
+       st.integers(1, 6))
+def test_window_model_fuzz_small_alphabets(k, raw, rep):
+    data = bytes(b % k + 97 for b in raw) * rep
+    _hold_window(jax_s2, data)
+
+
+def test_warp_decode_corrupt_blocks():
+    """F's warp decode fails on exactly the truncated, cut and flipped
+    blocks that the serial decode fails on, and agrees where both
+    decode."""
+    rng = random.Random(11)
+    chunks = [b"the quick brown fox jumps " * 40, bytes(300),
+              chip_smoke.periodic_chunk(np.random.default_rng(3), 7, 900)]
+    for chunk in chunks:
+        block = s2._compress_block_py(chunk)
+        cases = [block[:i] for i in range(len(block))]
+        for _ in range(60):
+            bad = bytearray(block)
+            bad[rng.randrange(len(bad))] ^= 1 << rng.randrange(8)
+            cases.append(bytes(bad))
+        for case in cases:
+            for cap in (len(chunk), len(chunk) - 1):
+                _same_decode(case, cap)
+    # Random valid tags of every kind and header form, cut, flipped or
+    # extended, a last copy at the output's edge and past it, and copies at
+    # offsets no block takes: the cases the card tests send through F.
+    for case, cap in chip_smoke.s2_hostile_blocks(np.random.default_rng(11),
+                                                  1500):
+        _same_decode(case, cap)
+
+
+@pytest.mark.parametrize("off", chip_smoke.S2_FAR_OFFSETS)
+def test_warp_decode_far_offsets(off):
+    """A 4-byte copy offset of 64 KiB or more (negative as a 32-bit int
+    from 0x80000000 on) is malformed in both decodes, as the first tag and
+    after a literal."""
+    far = bytes([(7 << 2) | 3]) + off.to_bytes(4, "little")
+    for block, cap in ((s2._varint(8) + far, 8),
+                       (s2._varint(24) + bytes([15 << 2]) + bytes(16) + far,
+                        24)):
+        for decode in (s2._decompress_block_py, s2.warp_decode_block):
+            with pytest.raises(ValueError):
+                decode(block, cap)
+
+
+def _same_decode(case, cap):
+    outs = []
+    for decode in (s2._decompress_block_py, s2.warp_decode_block):
+        try:
+            outs.append(decode(case, cap))
+        except ValueError:
+            outs.append(None)
+    assert outs[0] == outs[1], (case, cap)
+
+
+def test_longest_valid_block():
+    """A block that decodes to 64 KiB is at most 10 + 6 x 65,536 bytes
+    long (kernel F's kMaxBlock): a 10-byte varint, then each byte a
+    literal behind a 5-byte tag. That block decodes; one byte more does
+    not, in either decode."""
+    block = (b"\x80\x80\x84" + b"\x80" * 6 + b"\x00"
+             + b"\xfc\x00\x00\x00\x00b" * s2.CHUNK)
+    assert len(block) == 10 + 6 * s2.CHUNK
+    assert s2._decompress_block_py(block, s2.CHUNK) == b"b" * s2.CHUNK
+    assert s2.warp_decode_block(block, s2.CHUNK) == b"b" * s2.CHUNK
+    for decode in (s2._decompress_block_py, s2.warp_decode_block):
+        with pytest.raises(ValueError):
+            decode(block + b"b", s2.CHUNK)
