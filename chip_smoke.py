@@ -239,6 +239,35 @@ Phases, each of which must pass (nothing is caught):
     SlowDown. Counters zeroed just before and read just after each step;
     prints each step's seconds and launches and {"config_compression":
     ...};
+ 4o. object lock, the bucket quota and lifecycle expiry over HTTP
+    (entry.s3_lock_quota_lifecycle): a Server over 16 drive directories
+    (one 12+4 set, 1 MiB blocks), its S3 plane alone. A WORM bucket
+    (versioning, COMPLIANCE default retention of a day): two versions of
+    one key of 256 MiB + 12,345 B (A, B), v1's DELETE by id answered 403
+    with no file of the key changed, a DeleteObjects naming v1 answered
+    with its Error, a DELETE writing a marker, v1's retention lengthened
+    (200) and shortened (403), v1 read degraded with drives 0, 5, 12 and
+    15 offline and the key lost there (A, B; exact by SHA-256), each
+    version healed (A, B; part files equal, version journals equal), a
+    2 x 16 MiB multipart object under the default retention. GOVERNANCE
+    and legal hold: 16 MiB versions deleted 403 then 204 with the bypass
+    header, and 403 under the hold, 204 after ?legal-hold OFF, its files
+    gone from every drive. A 300 MiB hard quota set and read back over
+    the admin route, a 256 MiB + 12,345 B PUT, a 64 MiB PUT and a 64 MiB
+    UploadPart each answered 409 QuotaExceeded from their headers (no
+    kernel launch, no drive file changed), one scanner cycle after which
+    the quota reads the scanner's usage, the quota cleared and the 64 MiB
+    PUT stored. Lifecycle: an unversioned bucket expiring logs/ after a
+    day (a 256 MiB + 12,345 B logs/ object, a keep/ object, an open
+    upload) and a versioned one expiring noncurrent versions beyond the
+    newest and orphan markers (three 16 MiB versions, an orphan marker);
+    the scanner's lifecycle steps called with now two days ahead, then
+    one real scan cycle: the logs/ object gone from every drive, keep/
+    unchanged, the oldest noncurrent version gone, the marker and the
+    upload gone, ilm_expired_total 3 in a cluster scrape. Counters zeroed
+    just before and read just after each step; the .minio.sys objects it
+    wrote then checked as phase 3b checks 4j's. Prints each step's
+    seconds and launches and {"lock_quota_lifecycle": ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
@@ -251,9 +280,9 @@ Phases, each of which must pass (nothing is caught):
     the bound and its launches in 4k; kernels E and F at 1, 128 and 4,097
     chunks of 4n's text against their byte bound, with their launches in
     4n) and print one JSON line {"kernels": [...]}, whose launches are
-    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l and 4m (by path in
-    "launches_by_path"; E's and F's those of 4n); every kernel must have
-    launched on the main paths;
+    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l, 4m, 4n and 4o (by path
+    in "launches_by_path"; E's and F's those of 4n); every kernel must
+    have launched on the main paths;
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -278,6 +307,9 @@ ROOT = Path(__file__).resolve().parent
 OBJECT_SIZE = (256 << 20) + 12_345
 TRACE_SIZE = (64 << 20) + 12_345
 ADMISSION_SIZE = (64 << 20) + 12_345
+LQL_SMALL = 16 << 20     # phase 4o's versions, parts and small objects
+LQL_REFUSED = 64 << 20   # 4o's PUT and UploadPart past the quota
+LQL_QUOTA = 300 << 20    # 4o's hard quota
 INLINE_SIZE = 100 << 10
 # Phase 4e: multipart parts (minio-go's 16 MiB part size) and the small
 # objects' sizes.
@@ -398,10 +430,12 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def path_shard_lengths() -> list[int]:
     """The shard lengths the main paths give the kernels: a full block's,
     and the ragged last block's of each object or part that phases 4,
-    4b, 4c, 4d, 4e, 4f, 4i, 4k, 4l and 4m store (an inline or small
+    4b, 4c, 4d, 4e, 4f, 4i, 4k, 4l, 4m and 4o store (an inline or small
     object is one short block; 4i's UploadPartCopy parts end in 7 B and
     12,338 B; an encrypted object's stored size is its plaintext's plus
-    28 B a 64 KiB package; 4l's refused PUTs are never encoded)."""
+    28 B a 64 KiB package; 4l's and 4o's refused writes are never
+    encoded; 4o's 16 MiB and 64 MiB objects and parts are whole
+    blocks)."""
     from minio_tpu_torch.crypto.sse import encrypted_size
     from minio_tpu_torch.entry import part_copy_ranges
 
@@ -427,9 +461,11 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     15 hold for each object, through its distribution: the heal rebuilds
     them all, a degraded GET (4e's big objects, 4i's versions of ver/big
     and the copies' pulls from them, 4k's encrypted objects, 4m's plain
-    one) the data shards among them."""
+    one, 4o's WORM key read by version) the data shards among them."""
     from minio_tpu_torch.entry import (OBS_BUCKET, OBS_OBJECT, S3_BUCKET,
-                                       S3_WIPED, SSE_MODES, s3_object_names)
+                                       S3_WIPED, SSE_MODES,
+                                       lock_quota_lifecycle_keys,
+                                       s3_object_names)
     from minio_tpu_torch.object.metadata import hash_order
 
     recs = {(LOST, LOST), (LOST, (0, 5)), ((3,), (3,))}
@@ -438,6 +474,7 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     keys += [(f"{b}/{name}", b == "ver") for b, name in CORE_OBJECTS]
     keys += [(f"{S3_BUCKET}/sse/{mode}.bin", True) for mode in SSE_MODES]
     keys += [(f"{OBS_BUCKET}/{OBS_OBJECT}", True)]
+    keys += lock_quota_lifecycle_keys()
     for key, read_degraded in keys:
         dist = hash_order(key, K + M)
         lost = tuple(sorted(dist[d] - 1 for d in S3_WIPED))
@@ -2393,6 +2430,73 @@ def run_config_compression() -> tuple[dict, dict]:
     return line, launches
 
 
+LQL_STEPS = {
+    "worm_put_v1": ("AB", "CDEF"), "worm_put_v2": ("AB", "CDEF"),
+    "worm_delete_v1": ("", "ABCDEF"), "worm_delete_objects": ("", "ABCDEF"),
+    "worm_delete_marker": ("", "ABCDEF"), "worm_tighten": ("", "ABCDEF"),
+    "worm_shorten": ("", "ABCDEF"), "worm_degraded_get": ("AB", "CDEF"),
+    "worm_heal": ("AB", "CDEF"), "worm_multipart": ("AB", "CDEF"),
+    "gov_put": ("AB", "CDEF"), "gov_delete": ("", "ABCDEF"),
+    "hold_put": ("AB", "CDEF"), "hold_delete": ("", "ABCDEF"),
+    "quota_set": ("", "CDEF"), "quota_put": ("AB", "CDEF"),
+    "quota_refused_put": ("", "ABCDEF"), "quota_refused_part": ("", "ABCDEF"),
+    "quota_scan": ("", "CDEF"), "quota_clear": ("", "CDEF"),
+    "quota_put_after_clear": ("AB", "CDEF"), "ilm_setup": ("AB", "CDEF"),
+    "ilm_sweep": ("", "ABCDEF"), "ilm_scan": ("", "CDEF")}
+
+
+def run_lock_quota_lifecycle() -> tuple[dict, dict, dict]:
+    """Phase 4o: entry.s3_lock_quota_lifecycle, object lock, the hard
+    quota and lifecycle expiry of a Server over HTTP."""
+    from minio_tpu_torch.entry import s3_lock_quota_lifecycle
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_lock_quota_lifecycle(tmp, OBJECT_SIZE, device="cuda",
+                                      small_size=LQL_SMALL,
+                                      refused_size=LQL_REFUSED,
+                                      quota=LQL_QUOTA, seed=90)
+        launches = read_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"lock/quota/lifecycle checks failed: {failed}")
+    card = card_line()
+    per_step = {}
+    for name, (need, forbid) in LQL_STEPS.items():
+        c = res["counters"][name]
+        n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+             "C": c["kernel_seal_launches"], "D": c["kernel_open_launches"],
+             "E": c["kernel_compress_launches"],
+             "F": c["kernel_decompress_launches"]}
+        per_step[name] = dict(n, seconds=res["seconds"][name],
+                              gf_by_shape=res["gf_by_shape"][name])
+        if (not all(n[k] > 0 for k in need)
+                or any(n[k] for k in forbid)):
+            raise AssertionError(f"4o {name}: launches {n}, A by shape "
+                                 f"{res['gf_by_shape'][name]}, want "
+                                 f"{need or 'none'}, never {forbid}")
+        log(f"4o {name}: {res['seconds'][name]:.4f} s, launches A {n['A']} "
+            f"B {n['B']} C {n['C']} D {n['D']} E {n['E']} F {n['F']} "
+            f"({card})")
+    log(f"4o total {sum(res['seconds'].values()):.3f} s in its steps; "
+        f"healed drives by version {res['worm_healed']}; quota usage "
+        f"{res['quota_usage']}; ilm_expired_total "
+        f"{res['ilm_expired_total']}")
+    line = {"card": card, "size": res["size"], "small_size": LQL_SMALL,
+            "refused_size": LQL_REFUSED, "quota": LQL_QUOTA, "k": K,
+            "m": M, "lost": res["lost"], "worm_healed": res["worm_healed"],
+            "quota_usage": res["quota_usage"],
+            "ilm_expired_total": res["ilm_expired_total"],
+            "seconds": res["seconds"], "launches": per_step,
+            "checks": res["checks"]}
+    return line, launches, res["system_objects"]
+
+
 def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5 for kernels E and F: CUDA events over calls at 1, 128 (a
     launch of the port's batch) and 4,097 chunks (the whole 4n object) of
@@ -2847,6 +2951,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cfg_line, cfg_launches = run_config_compression()
     log(f"config/compression phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lql_line, lql_launches, lql_system_objects = run_lock_quota_lifecycle()
+    lql_line["phase_seconds"] = time.perf_counter() - t0
+    log(f"lock/quota/lifecycle phase {lql_line['phase_seconds']:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
@@ -2856,12 +2964,14 @@ def main() -> int:
                       "s3_sse": sse_launches[name],
                       "admission": admission_launches[name],
                       "observability": obs_launches[name],
-                      "config_compression": cfg_launches[name]}
+                      "config_compression": cfg_launches[name],
+                      "lock_quota_lifecycle": lql_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
     by_path["s2_by_chunks"] = cfg_line["s2_launches_by_chunks"]
     gc.callbacks.remove(on_gc)
+    check_system_object_kernels(rng, errs, lql_system_objects)
     log(f"collector passes over 20 ms in the main paths (generation, s): "
         f"{PAUSES}")
     log(f"hedge windows restarted after an oversleeping wait: {RESTARTS}")
@@ -2885,6 +2995,7 @@ def main() -> int:
     print(json.dumps({"admission": admission_line}), flush=True)
     print(json.dumps({"observability": obs_line}), flush=True)
     print(json.dumps({"config_compression": cfg_line}), flush=True)
+    print(json.dumps({"lock_quota_lifecycle": lql_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ scanner's snapshot), kms (KMSKeyStatusHandler and KES CreateKey over
 the server's LocalKMS), ioflow (the byte-flow ledger with the heal/MRF
 scoreboard), metrics (the Prometheus exposition, also behind the scrape
 routes), slow-requests (the span plane's exemplar store, GET and
-DELETE) and the six config routes (cmd/admin-handlers-config-kv.go:
+DELETE), the six config routes (cmd/admin-handlers-config-kv.go:
 get, set, del and help of a subsystem's KV set, the history list with
-its sealed entries opened, and restore). The heal reads the `heal`
+its sealed entries opened, and restore) and the bucket quota's set and
+get (cmd/admin-bucket-handlers.go). The heal reads the `heal`
 subsystem: its I/O gate waits while more than `max_io` requests are in
 flight, and it pauses a hundredth of `max_sleep` after each object. The
 rest of the admin API is not ported: its routes answer NotImplemented.
@@ -51,7 +52,9 @@ _ROUTES = {("GET", "datausage"): "data_usage_info",
            ("DELETE", "del-config-kv"): "del_config_kv",
            ("GET", "help-config-kv"): "help_config_kv",
            ("GET", "list-config-history-kv"): "list_config_history",
-           ("PUT", "restore-config-history-kv"): "restore_config_history"}
+           ("PUT", "restore-config-history-kv"): "restore_config_history",
+           ("PUT", "set-bucket-quota"): "set_bucket_quota",
+           ("GET", "get-bucket-quota"): "get_bucket_quota"}
 ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "usage_info": "admin:DataUsageInfo",
            "ioflow_report": "admin:ServerInfo",
@@ -66,7 +69,9 @@ ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "del_config_kv": "admin:ConfigUpdate",
            "help_config_kv": "admin:ConfigUpdate",
            "list_config_history": "admin:ConfigUpdate",
-           "restore_config_history": "admin:ConfigUpdate"}
+           "restore_config_history": "admin:ConfigUpdate",
+           "set_bucket_quota": "admin:SetBucketQuota",
+           "get_bucket_quota": "admin:GetBucketQuota"}
 # api keys read once, when the S3 server is built: a set of one of them
 # answers {"restart": true}.
 _RESTART_KEYS = {"requests_max", "requests_deadline"}
@@ -80,16 +85,19 @@ class AdminHandlers:
     server's registry and `collector` its MetricsCollector (the server
     attaches it), which the metrics and ioflow routes read. `config_sys`
     is the server's ConfigSys (None: the config routes answer
-    NotImplemented, the heal takes the subsystem's defaults)."""
+    NotImplemented, the heal takes the subsystem's defaults).
+    `bucket_meta` is the server's BucketMetadataSys, where the quota
+    routes keep a bucket's quota (None: they answer NotImplemented)."""
 
     def __init__(self, object_layer, iam, inflight, kms=None, metrics=None,
-                 config_sys=None):
+                 config_sys=None, bucket_meta=None):
         self.ol = object_layer
         self.iam = iam
         self.inflight = inflight
         self.kms = kms
         self.metrics = metrics
         self.config_sys = config_sys
+        self.bm = bucket_meta
         self.heal_state = AllHealState()
         self.scanner = None
         self.collector = None
@@ -418,3 +426,41 @@ class AdminHandlers:
         except KMSError as exc:
             raise S3Error("InvalidArgument", str(exc)) from exc
         return self._json({"created": key_id})
+
+    # ---------- bucket quota (PutBucketQuotaConfigHandler,
+    # GetBucketQuotaConfigHandler) ----------
+
+    def _quota_bucket(self, ctx) -> str:
+        if self.bm is None:
+            raise S3Error("NotImplemented", "no bucket metadata sys")
+        bucket = ctx.qdict.get("bucket", "")
+        if not bucket:
+            raise S3Error("InvalidArgument", "bucket required")
+        return bucket
+
+    def set_bucket_quota(self, ctx) -> Response:
+        """PUT set-bucket-quota?bucket=: madmin's {"quota": bytes,
+        "quotatype": "hard" | "fifo"}, stored; an empty body clears it."""
+        bucket = self._quota_bucket(ctx)
+        if ctx.body:
+            try:
+                cfg = json.loads(ctx.body)
+                quota = int(cfg.get("quota") or 0)
+                qtype = (cfg.get("quotatype") or "hard").lower()
+            except (ValueError, TypeError, AttributeError) as exc:
+                raise S3Error("InvalidArgument", f"bad quota: {exc}") from exc
+            if quota < 0 or qtype not in ("hard", "fifo"):
+                raise S3Error("InvalidArgument", "bad quota config")
+            raw = json.dumps({"quota": quota, "quotatype": qtype})
+        else:
+            raw = ""
+        self.bm.update(bucket, "quota_json", raw)
+        return self._json({"status": "ok"})
+
+    def get_bucket_quota(self, ctx) -> Response:
+        raw = getattr(self.bm.get(self._quota_bucket(ctx)), "quota_json",
+                      "") or ""
+        if not raw:
+            return self._json({})
+        return Response(200, {"Content-Type": "application/json"},
+                        raw.encode())

@@ -103,6 +103,32 @@ class S3Client:
         finally:
             conn.close()
 
+    def put_refused(self, path: str, size: int, query=None
+                    ) -> tuple[int, dict, bytes]:
+        """Send the headers of a `size`-byte PUT (signed UNSIGNED-PAYLOAD)
+        and read the answer before any body byte: the answer of a write
+        the server refuses from its headers alone (a hard quota). A
+        server that waits for the body instead times out the read."""
+        query = list(query or [])
+        headers = sign.sign_v4_request(self.secret_key, self.access_key,
+                                       "PUT", self.endpoint, path, query,
+                                       {"Content-Length": str(size)},
+                                       region=REGION,
+                                       payload_hash=sign.UNSIGNED_PAYLOAD)
+        qs = urllib.parse.urlencode(query)
+        url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
+        conn = http.client.HTTPConnection(self.endpoint, timeout=TIMEOUT_S)
+        try:
+            conn.putrequest("PUT", url, skip_host=True,
+                            skip_accept_encoding=True)
+            for k, v in headers.items():
+                conn.putheader(k, v)
+            conn.endheaders()
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
     def get_stream(self, path: str, sink, query=None, headers=None
                    ) -> tuple[int, dict, int]:
         """GET with the body handed to sink(piece) in pieces of at most

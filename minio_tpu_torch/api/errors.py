@@ -72,6 +72,10 @@ API_ERRORS: dict[str, APIError] = {e.code: e for e in [
     _E("NoSuchCORSConfiguration", "The CORS configuration does not exist.", HTTPStatus.NOT_FOUND),
     _E("NoSuchWebsiteConfiguration", "The specified bucket does not have a website configuration.", HTTPStatus.NOT_FOUND),
     _E("ServerSideEncryptionConfigurationNotFoundError", "The server side encryption configuration was not found.", HTTPStatus.NOT_FOUND),
+    _E("NoSuchLifecycleConfiguration", "The lifecycle configuration does not exist.", HTTPStatus.NOT_FOUND),
+    _E("NoSuchObjectLockConfiguration", "The specified object does not have a ObjectLock configuration.", HTTPStatus.NOT_FOUND),
+    _E("ObjectLockConfigurationNotFoundError", "Object Lock configuration does not exist for this bucket.", HTTPStatus.NOT_FOUND),
+    _E("QuotaExceeded", "Bucket quota exceeded.", HTTPStatus.CONFLICT),
 ]}
 
 
@@ -121,6 +125,7 @@ def from_object_error(exc: Exception) -> "S3Error":
         (oe.ErrLessData, "IncompleteBody"),
         (oe.ErrBadDigest, "BadDigest"),
         (oe.ErrOperationTimedOut, "SlowDown"),
+        (oe.ErrQuotaExceeded, "QuotaExceeded"),
     ]
     for etype, code in mapping:
         if isinstance(exc, etype):

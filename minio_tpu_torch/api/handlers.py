@@ -9,16 +9,23 @@ object tagging, the multipart calls with UploadPartCopy, server-side
 encryption (SSE-S3, SSE-C and SSE-KMS) and compression through
 api/transforms.py (PutObject, GetObject whole and ranged, HeadObject,
 CopyObject that decodes and re-encodes, and the bucket's ?encryption
-document, stored and applied to no PUT, as minio_tpu does), and the
-`storage_class` setting's parity for REDUCED_REDUNDANCY and STANDARD.
+document, stored and applied to no PUT, as minio_tpu does), the
+`storage_class` setting's parity for REDUCED_REDUNDANCY and STANDARD,
+object lock (the bucket's ?object-lock document and its default
+retention on PutObject, CopyObject and NewMultipartUpload, the lock
+headers, ?retention and ?legal-hold, and retention enforced on the
+single DELETE and on DeleteObjects; MinIO's cmd/bucket-object-lock.go),
+the hard bucket quota on PutObject, CopyObject (at the source's logical
+size) and UploadPart (cmd/bucket-quota.go), and the bucket's
+?lifecycle document, validated when written (the scanner applies it).
 
 Each handler takes the parsed request and returns a Response; the
 server has checked the signature and the action (a copy's source too)
-before. What the port does not serve yet (object lock, quota,
-lifecycle, tiers, replication, events) is refused with NotImplemented,
-never served half: a bucket with such a configuration, an object whose
-bytes need a transform the port lacks, and the request headers that ask
-for one. Two SSE cases that minio_tpu gets wrong are refused too: an
+before. What the port does not serve yet (remote tiers, replication,
+events) is refused with NotImplemented, never served half: a bucket with
+such a configuration (a lifecycle rule with a Transition among them), an
+object whose bytes live on a tier, and a ?lifecycle document with a
+Transition. Two SSE cases that minio_tpu gets wrong are refused too: an
 encrypted multipart upload (minio_tpu stores its parts in plaintext)
 and an UploadPartCopy from an encrypted source (minio_tpu copies the
 ciphertext into the part). An UploadPartCopy from a compressed source,
@@ -31,14 +38,19 @@ from __future__ import annotations
 import base64
 import binascii
 import datetime
+import functools
 import io
 import json
 import re
 import threading
+import time
 import urllib.parse
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 
+from ..bucket import objectlock
+from ..bucket.lifecycle import Lifecycle, LifecycleError
+from ..bucket.quota import BucketQuotaSys
 from ..crypto import sse as ssemod
 from ..erasure import registry
 from ..iam.policy import Policy
@@ -56,19 +68,24 @@ MAX_KEY_LENGTH = 1024
 
 # Bucket configurations whose effect on the data path is not ported: a
 # bucket that has one is not served.
-_UNPORTED_BUCKET_CONFIG = (
-    "lifecycle_xml", "quota_json", "object_lock_xml",
-    "notification_xml", "replication_xml",
-)
+_UNPORTED_BUCKET_CONFIG = ("notification_xml", "replication_xml")
 # The prefix of every SSE request header (SSE-S3, SSE-KMS and SSE-C):
 # the multipart calls refuse them.
 _SSE_HEADER_PREFIX = "x-amz-server-side-encryption"
-_LOCK_HEADERS = (
-    "x-amz-object-lock-mode", "x-amz-object-lock-retain-until-date",
-    "x-amz-object-lock-legal-hold",
-)
 # Stored metadata of objects whose bytes live on a remote tier.
 _UNPORTED_OBJECT_META = ("x-mtpu-internal-transition-tier",)
+
+
+@functools.lru_cache(maxsize=256)
+def _holds_transition(lifecycle_xml: str) -> bool:
+    """Whether a stored lifecycle document has a Transition rule, read
+    as the scanner reads it (a rule that does not parse is dropped)."""
+    try:
+        rules = Lifecycle.parse(lifecycle_xml, best_effort=True).rules
+    except LifecycleError:
+        return False
+    return any(r.transition_tier or r.transition_days is not None
+               or r.transition_date is not None for r in rules)
 
 
 def iso8601(ns: int) -> str:
@@ -318,18 +335,20 @@ class S3ApiHandlers:
     server's ConfigSys, whose live config (read at each request, so a
     set or a restore applies at once) gives the compression filters and
     the storage classes' parity (None: no compression, the set's default
-    parity for both classes)."""
+    parity for both classes). `quota` is the server's BucketQuotaSys
+    (None: one over a listing walk)."""
 
     # A version's tags live in its metadata, url-encoded (UserTags).
     TAGS_META_KEY = "x-mtpu-internal-tags"
     MAX_TAGS = 10
 
     def __init__(self, object_layer, bucket_meta, sse_config=None,
-                 config_sys=None):
+                 config_sys=None, quota=None):
         self.ol = object_layer
         self.bm = bucket_meta
         self.sse_config = sse_config
         self.config_sys = config_sys
+        self.quota = quota or BucketQuotaSys(object_layer, bucket_meta)
 
     @property
     def config(self):
@@ -342,6 +361,10 @@ class S3ApiHandlers:
             if getattr(bmeta, f):
                 raise S3Error("NotImplemented",
                               f"bucket {bucket}: {f} is not ported")
+        if bmeta.lifecycle_xml and _holds_transition(bmeta.lifecycle_xml):
+            raise S3Error("NotImplemented",
+                          f"bucket {bucket}: lifecycle transition is not "
+                          "ported")
         # versionId "null" stays the literal, so that the object layer
         # sees a targeted request (a delete of the null version removes
         # it instead of writing a marker); the journal maps it to "".
@@ -349,12 +372,83 @@ class S3ApiHandlers:
                              versioned=bmeta.versioning_enabled,
                              version_suspended=bmeta.versioning_suspended)
 
+    # ---------- object lock (cmd/bucket-object-lock.go) ----------
+
+    def _lock_config(self, bucket: str):
+        xml_text = self.bm.get(bucket).object_lock_xml
+        if not xml_text:
+            return None
+        try:
+            return objectlock.LockConfig.parse(xml_text)
+        except Exception:  # noqa: BLE001 - a bad config never blocks IO
+            return None
+
+    def _apply_object_lock(self, ctx, opts) -> None:
+        """The x-amz-object-lock-* headers of a new write, checked, or
+        else the bucket's default retention, into its metadata
+        (ParseObjectLockHeaders and PutObjectHandler's default)."""
+        try:
+            explicit = objectlock.extract_lock_headers(ctx.headers)
+        except ValueError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        cfg = self._lock_config(ctx.bucket)
+        if explicit:
+            if cfg is None or not cfg.enabled:
+                raise S3Error("InvalidRequest",
+                              "Bucket is missing ObjectLockConfiguration")
+            opts.user_defined.update(explicit)
+        elif cfg is not None:
+            opts.user_defined.update(cfg.default_retention_meta())
+
     @staticmethod
-    def _refuse_unported_headers(ctx) -> None:
-        if any(h in ctx.headers for h in _LOCK_HEADERS):
-            # No bucket of the port has an object lock configuration.
-            raise S3Error("InvalidRequest",
-                          "Bucket is missing ObjectLockConfiguration")
+    def _bypass_governance(ctx, object_: str) -> bool:
+        """The bypass header, honoured only for a caller the server
+        allows s3:BypassGovernanceRetention on the object (MinIO's
+        enforceRetentionBypassForDelete; minio_tpu reads the header
+        alone)."""
+        return (ctx.headers.get(objectlock.HDR_BYPASS_GOVERNANCE,
+                                "").lower() == "true"
+                and ctx.may_bypass_governance(object_))
+
+    def _enforce_retention(self, ctx, bucket: str, object_: str,
+                           version_id: str) -> None:
+        """Refuse to delete a retained or held version
+        (enforceRetentionBypassForDelete)."""
+        try:
+            oi = self.ol.get_object_info(
+                bucket, object_, ObjectOptions(version_id=version_id,
+                                               versioned=bool(version_id)))
+        except StorageError:
+            return  # missing, or a marker: nothing to retain
+        reason = objectlock.check_deletable(
+            oi.user_defined, self._bypass_governance(ctx, object_))
+        if reason is not None:
+            raise S3Error("AccessDenied", reason)
+
+    def _enforce_delete_retention(self, ctx, opts, object_: str,
+                                  vid: str) -> None:
+        """A delete by version id destroys that version, and an untargeted
+        one in an unversioned bucket the only copy: both are held to the
+        retention. An untargeted versioned delete writes a marker."""
+        if vid:
+            self._enforce_retention(ctx, ctx.bucket, object_, vid)
+        elif not opts.versioned:
+            self._enforce_retention(ctx, ctx.bucket, object_, "")
+
+    def _lock_target_info(self, ctx):
+        opts = ObjectOptions(
+            version_id=ctx.qdict.get("versionId", ""),
+            versioned=self.bm.get(ctx.bucket).versioning_enabled)
+        try:
+            return self.ol.get_object_info(ctx.bucket, ctx.object, opts)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+
+    def _check_quota(self, bucket: str, size: int) -> None:
+        try:
+            self.quota.check(bucket, size)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
 
     def _validate_tags(self, tags: list[tuple[str, str]]) -> None:
         """The one rule set of both tag writes (the ?tagging XML and the
@@ -547,9 +641,10 @@ class S3ApiHandlers:
         self.bm.update(ctx.bucket, "policy_json", "")
         return Response(204)
 
-    def _xml_subresource(self, ctx, fld: str, missing_code: str) -> Response:
+    def _xml_subresource(self, ctx, fld: str, missing_code: str,
+                         pre_put=None) -> Response:
         """GET, PUT and DELETE of a bucket configuration kept as an XML
-        blob."""
+        blob; `pre_put` checks a PUT's document first."""
         self._check_bucket(ctx.bucket)
         if ctx.method == "GET":
             val = getattr(self.bm.get(ctx.bucket), fld)
@@ -558,6 +653,8 @@ class S3ApiHandlers:
             return Response(200, {"Content-Type": "application/xml"},
                             val.encode())
         if ctx.method == "PUT":
+            if pre_put is not None:
+                pre_put()
             try:
                 ET.fromstring(ctx.body)
             except ET.ParseError as exc:
@@ -602,6 +699,49 @@ class S3ApiHandlers:
         it (minio_tpu's PutObject reads only the request's headers)."""
         return self._xml_subresource(
             ctx, "sse_xml", "ServerSideEncryptionConfigurationNotFoundError")
+
+    def bucket_lifecycle(self, ctx) -> Response:
+        """?lifecycle: a PUT's rules are validated as they are written
+        (ParseLifecycleConfig and Validate): XML that does not parse is
+        MalformedXML, a rule that does not validate InvalidArgument. A
+        valid document with a Transition is NotImplemented: the port has
+        no remote tiers."""
+        def validate():
+            try:
+                lc = Lifecycle.parse(ctx.body.decode())
+            except LifecycleError as exc:
+                raise S3Error("MalformedXML", str(exc)) from exc
+            try:
+                lc.validate()
+            except LifecycleError as exc:
+                raise S3Error("InvalidArgument", str(exc)) from exc
+            if _holds_transition(ctx.body.decode()):
+                raise S3Error("NotImplemented",
+                              "lifecycle transition is not ported")
+
+        return self._xml_subresource(
+            ctx, "lifecycle_xml", "NoSuchLifecycleConfiguration",
+            pre_put=validate)
+
+    def bucket_object_lock(self, ctx) -> Response:
+        """?object-lock: a PUT needs versioning Enabled and a document
+        that parses (PutBucketObjectLockConfigHandler)."""
+        def validate():
+            if not self.bm.get(ctx.bucket).versioning_enabled:
+                raise S3Error(
+                    "InvalidBucketState",
+                    "Versioning must be 'Enabled' on the bucket to apply "
+                    "an Object Lock configuration.")
+            try:
+                objectlock.LockConfig.parse(ctx.body.decode())
+            except ET.ParseError as exc:
+                raise S3Error("MalformedXML", str(exc)) from exc
+            except ValueError as exc:
+                raise S3Error("InvalidArgument", str(exc)) from exc
+
+        return self._xml_subresource(
+            ctx, "object_lock_xml", "ObjectLockConfigurationNotFoundError",
+            pre_put=validate)
 
     # ---------- listing ----------
 
@@ -783,6 +923,17 @@ class S3ApiHandlers:
         for key, vid in objects:
             try:
                 opts = self._opts_for(ctx.bucket, {"versionId": vid})
+                # Retention is held per key, as on the single DELETE.
+                try:
+                    self._enforce_delete_retention(ctx, opts, key, vid)
+                except S3Error as s3e:
+                    e = ET.SubElement(root, "Error")
+                    ET.SubElement(e, "Key").text = key
+                    if vid:
+                        ET.SubElement(e, "VersionId").text = vid
+                    ET.SubElement(e, "Code").text = s3e.api.code
+                    ET.SubElement(e, "Message").text = str(s3e)
+                    continue
                 self.ol.delete_object(ctx.bucket, key, opts)
                 if not quiet:
                     d = ET.SubElement(root, "Deleted")
@@ -841,7 +992,6 @@ class S3ApiHandlers:
         copy_source = ctx.headers.get("x-amz-copy-source", "")
         if copy_source:
             return self._copy_object(ctx, copy_source)
-        self._refuse_unported_headers(ctx)
         size = ctx.content_length
         if size is None:
             raise S3Error("MissingContentLength")
@@ -852,6 +1002,8 @@ class S3ApiHandlers:
         self._apply_tagging_header(ctx, opts)
         self._apply_storage_class(ctx, opts)
         self._apply_codec(ctx, opts)
+        self._apply_object_lock(ctx, opts)
+        self._check_quota(ctx.bucket, size)
         reader, resp_extra = ctx.body_reader, {}
         want_md5_hex = _parse_content_md5(ctx.headers)
         if transforms.transforms_active(ctx.headers, self.config,
@@ -906,15 +1058,18 @@ class S3ApiHandlers:
             opts.user_defined = extract_user_metadata(ctx.headers)
         else:
             # Retention and hold never copy from the source (the
-            # destination's come from this request), nor do the internal
-            # markers.
+            # destination's come from this request or the bucket's
+            # default), nor do the internal markers.
             opts.user_defined = {
                 k: v for k, v in src_info.user_defined.items()
-                if k not in _LOCK_HEADERS
+                if k not in objectlock.LOCK_META_KEYS
                 and not k.startswith("x-mtpu-internal-")}
-        # A copy writes a new object: the same refusals as a PUT (lock
-        # headers; no quota is configured, so its check passes).
-        self._refuse_unported_headers(ctx)
+        # A copy writes a new object: the lock headers or the default
+        # retention, and the hard quota at the source's logical size (a
+        # compressed source grows back at the destination).
+        self._apply_object_lock(ctx, opts)
+        self._check_quota(ctx.bucket, transforms.actual_object_size(
+            src_info.user_defined, src_info.size))
         if self_copy and not vid and directive != "REPLACE":
             raise S3Error(
                 "InvalidRequest",
@@ -1041,7 +1196,7 @@ class S3ApiHandlers:
         if oi.version_id and oi.version_id != "null":
             headers["x-amz-version-id"] = oi.version_id
         for k, v in oi.user_defined.items():
-            if k.startswith("x-amz-meta-"):
+            if k.startswith("x-amz-meta-") or k in objectlock.LOCK_META_KEYS:
                 headers[k] = v
             elif k in _REMEMBERED_HEADERS and k != "content-type":
                 headers[k.title()] = v
@@ -1163,6 +1318,8 @@ class S3ApiHandlers:
     def delete_object(self, ctx) -> Response:
         self._check_bucket(ctx.bucket)
         opts = self._opts_for(ctx.bucket, ctx.qdict)
+        self._enforce_delete_retention(ctx, opts, ctx.object,
+                                       ctx.qdict.get("versionId", ""))
         headers = {}
         try:
             oi = self.ol.delete_object(ctx.bucket, ctx.object, opts)
@@ -1298,19 +1455,93 @@ class S3ApiHandlers:
     def put_object_acl(self, ctx) -> Response:
         return self.put_acl(ctx)
 
+    # ---------- retention and legal hold (PutObjectRetentionHandler,
+    # PutObjectLegalHoldHandler and their GETs) ----------
+
+    def object_retention(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        oi = self._lock_target_info(ctx)
+        if ctx.method == "GET":
+            mode, until = objectlock.retention_state(oi.user_defined)
+            if not mode:
+                raise S3Error("NoSuchObjectLockConfiguration")
+            return Response(200, {"Content-Type": "application/xml"},
+                            objectlock.retention_xml(
+                                mode, objectlock.iso8601_utc(until)))
+        cfg = self._lock_config(ctx.bucket)
+        if cfg is None or not cfg.enabled:
+            raise S3Error("InvalidRequest",
+                          "Bucket is missing ObjectLockConfiguration")
+        try:
+            mode, until_iso = objectlock.parse_retention_body(ctx.body)
+        except ET.ParseError as exc:
+            raise S3Error("MalformedXML", str(exc)) from exc
+        except ValueError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        # Tightening is always allowed. COMPLIANCE is never loosened;
+        # GOVERNANCE is shortened only with the bypass.
+        old_mode, old_until = objectlock.retention_state(oi.user_defined)
+        if old_mode and old_until > time.time():
+            shortens = objectlock.parse_iso8601(until_iso) < old_until
+            if old_mode == objectlock.MODE_COMPLIANCE and (
+                    shortens or mode != objectlock.MODE_COMPLIANCE):
+                raise S3Error("AccessDenied",
+                              "COMPLIANCE retention cannot be loosened")
+            if (old_mode == objectlock.MODE_GOVERNANCE and shortens
+                    and not self._bypass_governance(ctx, ctx.object)):
+                raise S3Error("AccessDenied",
+                              "governance retention shortening requires "
+                              "bypass")
+        try:
+            self.ol.update_object_metadata(
+                ctx.bucket, ctx.object, oi.version_id or "",
+                {objectlock.META_MODE: mode,
+                 objectlock.META_RETAIN_UNTIL: until_iso})
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        return Response(200)
+
+    def object_legal_hold(self, ctx) -> Response:
+        self._check_bucket(ctx.bucket)
+        oi = self._lock_target_info(ctx)
+        if ctx.method == "GET":
+            if objectlock.META_LEGAL_HOLD not in oi.user_defined:
+                raise S3Error("NoSuchObjectLockConfiguration")
+            status = "ON" if objectlock.legal_hold_on(oi.user_defined) \
+                else "OFF"
+            return Response(200, {"Content-Type": "application/xml"},
+                            objectlock.legal_hold_xml(status))
+        cfg = self._lock_config(ctx.bucket)
+        if cfg is None or not cfg.enabled:
+            raise S3Error("InvalidRequest",
+                          "Bucket is missing ObjectLockConfiguration")
+        try:
+            status = objectlock.parse_legal_hold_body(ctx.body)
+        except ET.ParseError as exc:
+            raise S3Error("MalformedXML", str(exc)) from exc
+        except ValueError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        try:
+            self.ol.update_object_metadata(
+                ctx.bucket, ctx.object, oi.version_id or "",
+                {objectlock.META_LEGAL_HOLD: status})
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        return Response(200)
+
     # ---------- multipart ----------
 
     def new_multipart_upload(self, ctx) -> Response:
         self._check_bucket(ctx.bucket)
         if not valid_object_name(ctx.object):
             raise S3Error("InvalidArgument", ctx.object)
-        self._refuse_unported_headers(ctx)
         self._refuse_multipart_sse(ctx)
         opts = self._opts_for(ctx.bucket, ctx.qdict)
         opts.user_defined = extract_user_metadata(ctx.headers)
         self._apply_tagging_header(ctx, opts)
         self._apply_storage_class(ctx, opts)
         self._apply_codec(ctx, opts)
+        self._apply_object_lock(ctx, opts)
         try:
             upload_id = self.ol.new_multipart_upload(ctx.bucket, ctx.object,
                                                      opts)
@@ -1350,6 +1581,8 @@ class S3ApiHandlers:
             raise S3Error("MissingContentLength")
         if size > MAX_PART_SIZE:
             raise S3Error("EntityTooLarge")
+        # Multipart is no way round the quota (enforceBucketQuotaHard).
+        self._check_quota(ctx.bucket, size)
         part_opts = ObjectOptions(
             want_md5_hex=_parse_content_md5(ctx.headers))
         try:

@@ -17,15 +17,19 @@ responses by API and status, errors by code, auth failures.
 The routes of the slice are the bucket calls, versioning, bucket policy
 and tagging, the canned bucket answers and ACLs, ListObjects v1 and v2,
 ListObjectVersions, Put/Copy/Get/Head/DeleteObject with server-side
-encryption, the bucket's ?encryption document, DeleteObjects, object
+encryption, the bucket's ?encryption, ?lifecycle and ?object-lock
+documents, an object's ?retention and ?legal-hold, DeleteObjects, object
 tagging, the multipart calls with UploadPartCopy, the admin heal, usage,
-KMS, ioflow, metrics and slow-requests routes, the health probes
+KMS, ioflow, metrics, slow-requests and bucket quota routes, the
+health probes
 /minio/health/{live,ready,cluster} (unauthenticated) and the Prometheus
 scrapes /minio/v2/metrics/{cluster,node} and /minio/prometheus/metrics
 (SigV4, admin:Prometheus), and the six admin config routes. A copy is
 authorized twice: the write on its destination, and s3:GetObject on its
-source. Every other route, and the rest of the /minio/ namespace,
-answers NotImplemented.
+source. The x-amz-bypass-governance-retention header counts only for a
+caller who may take s3:BypassGovernanceRetention on the object, as in
+MinIO (minio_tpu reads the header alone). Every other route, and the
+rest of the /minio/ namespace, answers NotImplemented.
 
 With a ConfigSys, the `api` subsystem sets two things when the server is
 built (a change takes a restart, as the set-config-kv answer says): the
@@ -138,9 +142,8 @@ _MUTATING_SUBRESOURCE_ACTIONS = {
 # Routes minio_tpu serves that the port does not yet: answered
 # NotImplemented once the request is authenticated and authorized.
 _UNPORTED_ROUTES = frozenset({
-    "listen_notification", "bucket_lifecycle", "bucket_object_lock",
-    "bucket_replication", "bucket_notification", "object_retention",
-    "object_legal_hold", "select_object_content", "restore_object",
+    "listen_notification", "bucket_replication", "bucket_notification",
+    "select_object_content", "restore_object",
 })
 
 # The op class of each route, minio_tpu's: the heal pacer counts the disk
@@ -277,6 +280,9 @@ class RequestContext:
         self.wire_length = content_length
         self._body: bytes | None = None
         self.request_id = uuid.uuid4().hex[:16].upper()
+        # Whether the caller may bypass GOVERNANCE retention on an object
+        # of the bucket; the server sets it once the caller is known.
+        self.may_bypass_governance = lambda object_: False
         parts = path.lstrip("/").split("/", 1)
         self.bucket = parts[0] if parts[0] else ""
         self.object = parts[1] if len(parts) > 1 else ""
@@ -457,11 +463,14 @@ class S3Server:
     config.ConfigSys) backs the admin config routes and gives the
     handlers their compression and storage-class settings and this
     server its throttle and CORS origins; without it the config routes
-    answer NotImplemented and the defaults hold."""
+    answer NotImplemented and the defaults hold. `quota` (a
+    bucket.quota.BucketQuotaSys) admits writes under the buckets' hard
+    quotas; without it one over a listing walk does."""
 
     def __init__(self, object_layer, iam: IAMSys, bucket_meta,
                  host: str = "127.0.0.1", port: int = 0, device="cuda",
-                 sse_config=None, metrics=None, config_sys=None):
+                 sse_config=None, metrics=None, config_sys=None,
+                 quota=None):
         self.device = resolve_device(device)
         if object_layer.device != self.device:
             raise ValueError(f"the object layer runs on "
@@ -470,14 +479,14 @@ class S3Server:
             raise ValueError(f"the SSE config runs on {sse_config.device}, "
                              f"not {self.device}")
         self.handlers = S3ApiHandlers(object_layer, bucket_meta, sse_config,
-                                      config_sys=config_sys)
+                                      config_sys=config_sys, quota=quota)
         # Requests in flight, which a heal sequence yields to.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self.admin = AdminHandlers(
             object_layer, iam, lambda: self._inflight,
             kms=sse_config.kms if sse_config is not None else None,
-            metrics=metrics, config_sys=config_sys)
+            metrics=metrics, config_sys=config_sys, bucket_meta=bucket_meta)
         self.iam = iam
         self.metrics = metrics
         kvs = config_sys.config.get("api") if config_sys is not None else {}
@@ -727,6 +736,17 @@ class S3Server:
             bucket_policy = self.handlers.bm.get(ctx.bucket).policy()
         authorize(self.iam, bucket_policy, auth_result, action, ctx.bucket,
                   ctx.object)
+
+        def may_bypass_governance(object_: str) -> bool:
+            try:
+                authorize(self.iam, bucket_policy, auth_result,
+                          "s3:BypassGovernanceRetention", ctx.bucket,
+                          object_)
+            except S3Error:
+                return False
+            return True
+
+        ctx.may_bypass_governance = may_bypass_governance
         # A copy reads a second object: s3:GetObject on its source too.
         if name in ("put_object", "put_object_part"):
             copy_source = ctx.headers.get("x-amz-copy-source", "")

@@ -1,14 +1,22 @@
 """The data scanner, the port's copy of minio_tpu/background/scanner.py:
-a continuous namespace crawl that keeps the data-usage snapshot and
-heals a sample of the objects it visits, under an adaptive throttle
-(MinIO's cmd/data-scanner.go: runDataScanner :90, healObjectSelectProb
-:52, dynamicSleeper :1160; cmd/data-usage-cache.go).
+a continuous namespace crawl that keeps the data-usage snapshot, heals a
+sample of the objects it visits and applies the buckets' lifecycle
+rules, under an adaptive throttle (MinIO's cmd/data-scanner.go:
+runDataScanner :90, healObjectSelectProb :52, applyActions :937,
+dynamicSleeper :1160; cmd/data-usage-cache.go).
 
-Left out: lifecycle (ILM) expiry and transition, noncurrent-version and
-delete-marker expiry, and the abort of stale multipart uploads. The port
-has no lifecycle engine (`bucket/lifecycle.py`, `tier.py`) and stores no
-lifecycle configuration, so no bucket of the port has rules; a drive set
-that minio_tpu wrote with rules is scanned here without them.
+Lifecycle (bucket/lifecycle.py): a current version past its Expiration
+is expired as an S3 DELETE without a version id would do it in its
+bucket, a delete marker where versioning is enabled (minio_tpu deletes
+with no options there, which finds no version and expires nothing);
+noncurrent versions past NoncurrentDays beyond the newest
+NewerNoncurrentVersions are deleted, except a version under retention or
+legal hold, which MinIO keeps (evalActionFromLifecycle) and minio_tpu
+deletes; a delete marker left alone goes with ExpiredObjectDeleteMarker;
+and AbortIncompleteMultipartUpload aborts the bucket's stale uploads.
+Every deletion adds one to `ilm_expired_total`. Transitions to a remote
+tier are not ported: the S3 handlers refuse a bucket whose rules hold
+one.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from ..bucket import objectlock
+from ..bucket.lifecycle import Lifecycle, LifecycleError
+from ..object.types import ObjectOptions
 from ..observability import ioflow
 from ..utils.errors import (
     ErrBucketNotFound,
@@ -114,10 +125,23 @@ class DynamicSleeper:
         return done
 
 
+def parse_lifecycle(xml_text: str) -> Lifecycle:
+    """A bucket's stored rules, read leniently: a rule that fails to
+    parse is dropped alone, and a document that does not parse gives no
+    rules, so the scanner keeps cycling (the write path validates)."""
+    try:
+        return Lifecycle.parse(xml_text, best_effort=True)
+    except LifecycleError:
+        return Lifecycle([])
+
+
 class DataScanner:
-    """Scan cycles over every bucket and object: keeps the DataUsageInfo
-    and heals a sampled subset. `tracker` (a DataUpdateTracker) lets a
-    cycle skip the buckets no write touched since the last."""
+    """Scan cycles over every bucket and object: keeps the DataUsageInfo,
+    heals a sampled subset and applies the lifecycle rules that
+    `bucket_meta` (a BucketMetadataSys; None: no rules) stores.
+    `tracker` (a DataUpdateTracker) lets a cycle skip the buckets no
+    write touched since the last. `metrics` receives the scanner_* and
+    ilm_expired_total series, `logger` the errors of a cycle."""
 
     USAGE_PATH = "scanner/data-usage.json"
     META_BUCKET = ".minio.sys"
@@ -126,16 +150,23 @@ class DataScanner:
     # heal sampling never starves (dataUsageUpdateDirCycles).
     FULL_SCAN_CYCLES = 16
 
-    def __init__(self, object_layer, heal_prob: int = HEAL_OBJECT_SELECT_PROB,
-                 sleeper: DynamicSleeper | None = None, tracker=None):
+    def __init__(self, object_layer, bucket_meta=None,
+                 heal_prob: int = HEAL_OBJECT_SELECT_PROB,
+                 sleeper: DynamicSleeper | None = None, metrics=None,
+                 logger=None, tracker=None):
         self.ol = object_layer
+        self.bm = bucket_meta
         self.heal_prob = max(1, heal_prob)
         self.sleeper = sleeper or DynamicSleeper()
+        self.metrics = metrics
+        self.logger = logger
         self.usage = DataUsageInfo()
         self.tracker = tracker
         self.cycles_completed = 0
         self.buckets_skipped_last_cycle = 0
         self._counter = 0
+        # The multipart tree, walked at most once a cycle.
+        self._cycle_uploads = None
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         # A cycle's progress, and the objects visited ever.
@@ -182,7 +213,9 @@ class DataScanner:
 
     def _scan_cycle(self, full_pass: bool) -> DataUsageInfo:
         usage = DataUsageInfo()
+        now_ns = time.time_ns()
         self.buckets_skipped_last_cycle = 0
+        self._cycle_uploads = None
         buckets = [b for b in self.ol.list_buckets()
                    if not b.name.startswith(".")]
         self.cycle_started_ns = time.monotonic_ns()
@@ -190,7 +223,7 @@ class DataScanner:
         self.cycle_buckets_total = len(buckets)
         self.cycle_buckets_done = 0
         cycle_objects = 0
-        self._cycle_objects_seen = cycle_objects
+        self._publish_progress(cycle_objects)
         for b in buckets:
             # An unchanged bucket keeps its last usage with no work per
             # object, except on the periodic full pass.
@@ -203,7 +236,11 @@ class DataScanner:
                 usage.objects_total_size += bu_prev.objects_size
                 self.buckets_skipped_last_cycle += 1
                 self.cycle_buckets_done += 1
+                if self.metrics is not None:
+                    self.metrics.inc("scanner_buckets_skipped_total")
                 continue
+            rules = parse_lifecycle(self.bm.get(b.name).lifecycle_xml
+                                    if self.bm is not None else "")
             bu = BucketUsage()
             marker = ""
             while True:
@@ -214,6 +251,8 @@ class DataScanner:
                     self._counter += 1
                     self.objects_scanned_total += 1
                     cycle_objects += 1
+                    if self._apply_lifecycle(b.name, oi, rules, now_ns):
+                        continue
                     bu.objects_count += 1
                     bu.objects_size += oi.size
                     bu.versions_count += max(1, oi.num_versions)
@@ -221,14 +260,21 @@ class DataScanner:
                     if self._counter % self.heal_prob == 0:
                         self._heal_one(b.name, oi.name)
                 done()
-                self._cycle_objects_seen = cycle_objects
+                self._publish_progress(cycle_objects)
                 if not res.is_truncated:
                     break
                 marker = res.next_marker
+            # Version-level ILM (noncurrent expiry, orphan delete markers)
+            # and the abort of stale uploads run only where a rule asks.
+            if rules.any_noncurrent_or_marker_rules():
+                self._versions_sweep(b.name, rules, now_ns)
+            if rules.any_abort_mpu_rules():
+                self._abort_stale_uploads(b.name, rules, now_ns)
             usage.buckets_usage[b.name] = bu
             usage.objects_total_count += bu.objects_count
             usage.objects_total_size += bu.objects_size
             self.cycle_buckets_done += 1
+            self._publish_progress(cycle_objects)
         usage.buckets_count = len(usage.buckets_usage)
         usage.last_update_ns = time.time_ns()
         self.usage = usage
@@ -239,6 +285,13 @@ class DataScanner:
         if self.tracker is not None:
             self.tracker.save()
         self.cycles_completed += 1
+        self._publish_progress(cycle_objects)
+        if self.metrics is not None:
+            self.metrics.inc("scanner_cycles_total")
+            self.metrics.set_gauge("scanner_objects_total",
+                                   usage.objects_total_count)
+            self.metrics.set_gauge("scanner_cycle_duration_seconds",
+                                   round(self.last_cycle_duration_s, 3))
         return usage
 
     def progress(self) -> dict:
@@ -269,13 +322,176 @@ class DataScanner:
             "lastCycleDurationSeconds": round(self.last_cycle_duration_s, 3),
         }
 
+    def _publish_progress(self, cycle_objects: int) -> None:
+        self._cycle_objects_seen = cycle_objects
+        if self.metrics is None:
+            return
+        p = self.progress()
+        self.metrics.set_gauge("scanner_cycle_progress", p["progress"])
+        self.metrics.set_gauge("scanner_objects_per_second",
+                               p["objectsPerSecond"])
+        self.metrics.set_gauge("scanner_cycle_eta_seconds", p["etaSeconds"])
+
+    def _log(self, exc: Exception, context: str) -> None:
+        if self.logger is not None:
+            self.logger.log_once_if(exc, context)
+
+    def _expired(self) -> None:
+        if self.metrics is not None:
+            self.metrics.inc("ilm_expired_total")
+
+    def _apply_lifecycle(self, bucket: str, oi, rules, now_ns: int) -> bool:
+        """Expire the current version `oi` if a rule says so, as an
+        untargeted DELETE does in its bucket: a delete marker where
+        versioning is enabled, else the (null) version removed. True
+        when it expired."""
+        if not rules.expire_current(oi.name, oi.user_defined,
+                                    oi.mod_time_ns, now_ns / 1e9):
+            return False
+        bmeta = self.bm.get(bucket)
+        try:
+            self.ol.delete_object(bucket, oi.name, ObjectOptions(
+                versioned=bmeta.versioning_enabled,
+                version_suspended=bmeta.versioning_suspended))
+        except StorageError as exc:
+            self._log(exc, f"ilm:{bucket}")
+            return False
+        self._expired()
+        return True
+
+    def _versions_sweep(self, bucket: str, rules, now_ns: int) -> None:
+        """Version-level lifecycle (applyVersionActions): delete the
+        noncurrent versions past NoncurrentDays beyond the newest
+        NewerNoncurrentVersions, unless retained or held, and a latest
+        delete marker whose key has no other version
+        (ExpiredObjectDeleteMarker).
+
+        A version's noncurrent age runs from its successor's mod time,
+        when it became noncurrent, never from its own. A page may split a
+        key's versions, so the successor's time and the noncurrent rank
+        carry across pages, and an orphan marker is confirmed by a
+        listing of its key before it goes."""
+        key_marker = vid_marker = ""
+        carry_key, carry_mtime, carry_rank = "", None, 0
+        while True:
+            res = self.ol.list_object_versions(
+                bucket, key_marker=key_marker,
+                version_id_marker=vid_marker, max_keys=1000)
+            by_key: dict[str, list] = {}
+            for v in res.versions:
+                by_key.setdefault(v.name, []).append(v)
+            # The resume markers must name a surviving version: a deleted
+            # one no longer resolves in the next page's listing.
+            survivor_key, survivor_vid = key_marker, vid_marker
+            deleted_last = False
+            rank_by_key: dict[str, int] = {}
+            for key, versions in by_key.items():
+                noncur_limit, keep_newer = rules.noncurrent_policy(key)
+                wants_marker = rules.wants_delete_marker_cleanup(key)
+                if noncur_limit is None and not wants_marker:
+                    continue
+                # Newest first: versions[i]'s successor is versions[i-1],
+                # or the previous page's last when the key was split.
+                prev_mtime = carry_mtime if key == carry_key else None
+                rank = carry_rank if key == carry_key else 0
+                for v in versions:
+                    expired = False
+                    if not v.is_latest and prev_mtime is not None:
+                        rank += 1  # 1 is the newest noncurrent version
+                        noncur_days = (now_ns - prev_mtime) / 1e9 / 86400
+                        if (noncur_limit is not None
+                                and noncur_days >= noncur_limit
+                                and rank > keep_newer
+                                and not self._retained(v)):
+                            self._delete_version(bucket, key, v.version_id)
+                            expired = True
+                    prev_mtime = v.mod_time_ns
+                    if expired:
+                        deleted_last = v is res.versions[-1]
+                    else:
+                        survivor_key, survivor_vid = key, v.version_id
+                        if v is res.versions[-1]:
+                            deleted_last = False
+                rank_by_key[key] = rank
+                if (len(versions) == 1 and versions[0].is_latest
+                        and versions[0].delete_marker and wants_marker):
+                    # An orphan on this page: a page boundary can hide the
+                    # key's older versions, so list the key first.
+                    check = self.ol.list_object_versions(bucket, prefix=key,
+                                                         max_keys=10)
+                    mine = [x for x in check.versions if x.name == key]
+                    if (len(mine) == 1 and mine[0].delete_marker
+                            and mine[0].version_id
+                            == versions[0].version_id):
+                        self._delete_version(bucket, key,
+                                             versions[0].version_id)
+            if res.versions:
+                last = res.versions[-1]
+                carry_key, carry_mtime = last.name, last.mod_time_ns
+                carry_rank = rank_by_key.get(last.name, 0)
+            if not res.is_truncated:
+                return
+            if deleted_last:
+                # The page ended on a deleted version: resume from the last
+                # survivor (some work may repeat; nothing is skipped).
+                key_marker, vid_marker = survivor_key, survivor_vid
+            else:
+                key_marker = res.next_key_marker
+                vid_marker = res.next_version_id_marker
+
+    @staticmethod
+    def _retained(v) -> bool:
+        """A version under retention or legal hold stays past its
+        noncurrent expiry (enforceRetentionForDeletion, with no
+        governance bypass)."""
+        return (not v.delete_marker and objectlock.check_deletable(
+            v.user_defined, bypass_governance=False) is not None)
+
+    def _delete_version(self, bucket: str, key: str, version_id: str) -> None:
+        try:
+            self.ol.delete_object(bucket, key,
+                                  ObjectOptions(version_id=version_id))
+        except StorageError as exc:
+            self._log(exc, f"ilm-version:{bucket}")
+            return
+        self._expired()
+
+    def _abort_stale_uploads(self, bucket: str, rules, now_ns: int) -> None:
+        """AbortIncompleteMultipartUpload: each upload of the bucket is
+        judged by the rules whose prefix matches its object, so a short
+        rule for one prefix never aborts uploads only a longer one
+        covers. The multipart tree is walked once a cycle."""
+        if self._cycle_uploads is None:
+            self._cycle_uploads = [
+                (es, rec) for pool in self.ol.pools for es in pool.sets
+                for rec in es.list_multipart_uploads_all()]
+        for es, ((b, o, upload_id), started_ns) in self._cycle_uploads:
+            if b != bucket:
+                continue
+            days = rules.abort_mpu_after_days(o)
+            if days is None or now_ns - started_ns < days * 86400 * 10 ** 9:
+                continue
+            try:
+                es.abort_multipart_upload(b, o, upload_id)
+            except Exception as exc:  # noqa: BLE001 - retried next cycle
+                self._log(exc, f"ilm-mpu:{bucket}")
+
     def _heal_one(self, bucket: str, object_: str) -> None:
         try:
-            self.ol.heal_object(bucket, object_)
+            res = self.ol.heal_object(bucket, object_)
         except (ErrObjectNotFound, ErrVersionNotFound):
-            pass  # gone between the listing and the heal
-        except Exception:  # noqa: BLE001 - the sample is best effort
-            pass
+            return  # gone between the listing and the heal
+        except Exception as exc:  # noqa: BLE001 - the sample is best effort
+            if self.metrics is not None:
+                self.metrics.inc("heal_failures_total")
+            self._log(exc, f"scan-heal:{bucket}")
+            return
+        if self.metrics is not None:
+            self.metrics.inc("scanner_heal_checks_total")
+            # Pools answer a list when the object is in more than one.
+            results = res if isinstance(res, list) else [res]
+            if any(r.get("healed") for r in results):
+                self.metrics.inc("heal_objects_total", trigger="scanner")
 
     def start(self, interval_s: float = 60.0) -> "DataScanner":
         self.load_usage()
@@ -284,8 +500,8 @@ class DataScanner:
             while not self._stop.wait(interval_s):
                 try:
                     self.scan_cycle()
-                except Exception:  # noqa: BLE001 - keep scanning
-                    pass
+                except Exception as exc:  # noqa: BLE001 - keep scanning
+                    self._log(exc, "scanner-cycle")
 
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name="mtpu-scanner")

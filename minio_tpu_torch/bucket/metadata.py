@@ -3,9 +3,10 @@
 the object `buckets/<bucket>/metadata.json` of the `.minio.sys` bucket
 through the object layer, and cached. The blob and its xl.meta are byte
 for byte minio_tpu's. The port honours the versioning status, the
-bucket policy and the tagging blob; the S3 handlers refuse a bucket
-whose other stored configurations (lifecycle, SSE, quota, object lock,
-notification, replication) they would have to honour.
+bucket policy, the tagging and SSE blobs, the lifecycle rules, the
+object lock configuration and the quota; the S3 handlers refuse a bucket
+whose other stored configurations (notification, replication, or a
+lifecycle rule with a Transition) they would have to honour.
 """
 
 from __future__ import annotations

@@ -29,7 +29,11 @@ the bytes on the drives, over HTTP. `config_compression()` drives the
 config subsystem and compression over HTTP: settings saved sealed with
 history, a compressed PUT, GETs whole, ranged and degraded, the heal,
 compress-then-encrypt, an incompressible PUT, an RRS PUT at 14+2, and a
-restart that loads the config and throttles.
+restart that loads the config and throttles. `s3_lock_quota_lifecycle()`
+drives object lock, the hard bucket quota and lifecycle expiry over HTTP:
+WORM versions refused deletion, read degraded and healed, GOVERNANCE and
+legal hold, PUT and UploadPart refused by the quota, the quota reading
+the scanner's usage, and the scanner's lifecycle sweep.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from .erasure.streaming import (
 from .api.client import S3Client
 from .api.handlers import copy_reads_snapshot
 from .background import healpace
+from .background.scanner import parse_lifecycle
 from .iam.store import Credentials, IAMSys
 from .object import erasure_objects
 from .object.sets import ErasureSets
@@ -2944,5 +2949,442 @@ def config_compression(root, size: int, device="cuda", seed: int = 80,
             c, f"{b}/{CFG_RRS}")[1] == want[CFG_RRS]
     finally:
         server.stop()
+    out["checks"] = checks
+    return out
+
+
+LQL_WORM, LQL_GOV, LQL_QUOTA = "worm", "govhold", "quota"
+LQL_LOGS, LQL_VERSIONS = "ilm-logs", "ilm-versions"
+LQL_KEY = "locked.bin"
+LQL_MP_KEY = "multipart.bin"
+LQL_LOGS_KEY, LQL_KEEP_KEY, LQL_OPEN_KEY = ("logs/big.log", "keep/obj.bin",
+                                            "logs/open.bin")
+LQL_DOC, LQL_ORPHAN = "doc.bin", "orphan.bin"
+LQL_LOCK_XML = (b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+                b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>COMPLIANCE"
+                b"</Mode><Days>1</Days></DefaultRetention></Rule>"
+                b"</ObjectLockConfiguration>")
+LQL_LOCK_ONLY_XML = (b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+                     b"</ObjectLockEnabled></ObjectLockConfiguration>")
+LQL_LOGS_LC = (b"<LifecycleConfiguration><Rule><ID>logs</ID><Status>Enabled"
+               b"</Status><Filter><Prefix>logs/</Prefix></Filter><Expiration>"
+               b"<Days>1</Days></Expiration></Rule><Rule><ID>uploads</ID>"
+               b"<Status>Enabled</Status><Filter><Prefix></Prefix></Filter>"
+               b"<AbortIncompleteMultipartUpload><DaysAfterInitiation>1"
+               b"</DaysAfterInitiation></AbortIncompleteMultipartUpload>"
+               b"</Rule></LifecycleConfiguration>")
+LQL_VERSIONS_LC = (b"<LifecycleConfiguration><Rule><ID>noncurrent</ID>"
+                   b"<Status>Enabled</Status><Filter><Prefix></Prefix>"
+                   b"</Filter><NoncurrentVersionExpiration><NoncurrentDays>1"
+                   b"</NoncurrentDays><NewerNoncurrentVersions>1"
+                   b"</NewerNoncurrentVersions></NoncurrentVersionExpiration>"
+                   b"<Expiration><ExpiredObjectDeleteMarker>true"
+                   b"</ExpiredObjectDeleteMarker></Expiration></Rule>"
+                   b"</LifecycleConfiguration>")
+LQL_AHEAD_NS = 2 * 86400 * 10 ** 9  # the lifecycle sweep's "now" ahead
+
+
+def lock_quota_lifecycle_keys() -> list[tuple[str, bool]]:
+    """(bucket/key, read degraded) of s3_lock_quota_lifecycle's objects
+    whose shards on drives 0, 5, 12 and 15 are lost and rebuilt: the
+    WORM key, both versions read (v1 degraded) and healed."""
+    return [(f"{LQL_WORM}/{LQL_KEY}", True)]
+
+
+def _drive_stat(root: Path) -> dict:
+    """(size, mtime ns) of every file of the 16 drives: a write shows."""
+    return {str(p.relative_to(root)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for i in range(1, 17) for p in (root / f"d{i}").rglob("*")
+            if p.is_file()}
+
+
+def _files_under(root: Path, bucket: str, name: str) -> int:
+    return sum(1 for i in range(1, 17)
+               for p in (root / f"d{i}" / bucket / name).rglob("*")
+               if p.is_file())
+
+
+def _iso_in(seconds: float) -> str:
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                         time.gmtime(time.time() + seconds))
+
+
+def _retention_xml(mode: str, until: str) -> bytes:
+    return (f"<Retention><Mode>{mode}</Mode><RetainUntilDate>{until}"
+            "</RetainUntilDate></Retention>").encode()
+
+
+def s3_lock_quota_lifecycle(root, size: int, device="cuda",
+                            small_size: int = 16 << 20,
+                            refused_size: int = 64 << 20,
+                            quota: int = 300 << 20, seed: int = 90) -> dict:
+    """Drive object lock, the hard bucket quota and lifecycle expiry on a
+    Server over 16 fresh drive directories under `root` (one 12+4 set,
+    its S3 plane alone), over HTTP, with seeded objects:
+
+    1. WORM bucket (versioning, COMPLIANCE default retention of a day):
+       `worm_put_v1`, `worm_put_v2` two `size`-byte versions of one key;
+       `worm_delete_v1` its DELETE by version id answers 403 AccessDenied
+       and no file of the key changes on any drive; `worm_delete_objects`
+       a DeleteObjects naming v1 returns the key's Error;
+       `worm_delete_marker` a DELETE without a version writes a marker;
+       `worm_tighten` v1's retention lengthened (200) and `worm_shorten`
+       shortened (403); `worm_degraded_get` with the key lost on drives 0,
+       5, 12 and 15 and those drives offline, v1's GET is its exact bytes;
+       `worm_heal` the drives back, each version healed (the admin heal
+       walks latest versions only, and the latest is the marker), every
+       part file of the key equal to its copy before the loss and every
+       drive's version journal (ids, mod times, markers, data dirs,
+       sizes) equal to the one before (a healed marker's entry is
+       rewritten as minio_tpu rewrites it);
+       `worm_multipart` two `small_size` parts, the object under the
+       default retention;
+    2. GOVERNANCE and legal hold (`gov_put`, `hold_put`): a version with
+       lock-mode and retain-until headers, deleted 403 then 204 with the
+       bypass header (`gov_delete`); one with a legal hold, deleted 403,
+       the hold set OFF, deleted 204 and gone from every drive
+       (`hold_delete`);
+    3. quota bucket: `quota_set` a `quota`-byte hard quota through the
+       admin route, read back; `quota_put` a `size`-byte PUT;
+       `quota_refused_put`, `quota_refused_part` a `refused_size` PUT and
+       UploadPart answered 409 QuotaExceeded from their headers, no
+       drive file changed; `quota_scan` one scanner cycle, after which
+       the quota reads the scanner's usage; `quota_clear` the quota
+       cleared with an empty body, and `quota_put_after_clear` the
+       refused PUT's size accepted;
+    4. lifecycle: an unversioned bucket expiring logs/ after a day and
+       aborting uploads after a day, holding a `size`-byte logs/ object,
+       a keep/ object and an open upload; a versioned bucket expiring
+       noncurrent versions after a day beyond the newest one, and orphan
+       delete markers, holding three `small_size` versions of one key and
+       an orphan marker (`ilm_setup`). `ilm_sweep` runs the scanner's
+       lifecycle steps with `now` two days ahead (the expiry of each
+       listed object, the versions sweep, the stale-upload abort), then
+       `ilm_scan` one real scan cycle: the logs/ object gone from every
+       drive, keep/ unchanged, the newest noncurrent version kept and the
+       oldest gone, the marker gone, the upload's journal gone, and
+       ilm_expired_total in a scrape equal to the deletions.
+
+    Returns each step's seconds and counter deltas, kernel A's launches
+    by shape in each step, the version ids, the usage the quota read, the
+    size of every object the server wrote under .minio.sys (bucket
+    metadata, the usage snapshot; kernels A and B encode them) and the
+    checks."""
+    from .ops import rs_cuda
+
+    dev = resolve_device(device)
+    root = Path(root)
+    out: dict = {"size": size, "small_size": small_size,
+                 "refused_size": refused_size, "quota": quota, "k": 12,
+                 "m": 4, "lost": list(S3_WIPED), "seconds": {},
+                 "counters": {}, "gf_by_shape": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    rng = np.random.default_rng(seed)
+    big = [rng.bytes(size) for _ in range(2)]
+    # Two parts, the GOVERNANCE and the held object, keep/, three versions.
+    small = [rng.bytes(small_size) for _ in range(8)]
+    want_big = [hashlib.sha256(b).hexdigest() for b in big]
+
+    def step(label, fn):
+        shapes = rs_cuda.LAUNCHES_BY_SHAPE.snapshot()
+        res = phase(label, fn)
+        out["gf_by_shape"][label] = _shape_delta(
+            shapes, rs_cuda.LAUNCHES_BY_SHAPE.snapshot())
+        return res
+
+    server = Server([str(root / "d{1...16}")], port=0, root_user=S3_ACCESS,
+                    root_password=S3_SECRET, default_parity=4, device=dev)
+    system_sizes: set = set()
+    put_object = server.object_layer.put_object
+
+    def noting_put(bucket, name, reader, size, opts=None):
+        if bucket == ".minio.sys":
+            system_sizes.add(size)
+        return put_object(bucket, name, reader, size, opts)
+
+    server.object_layer.put_object = noting_put
+    server.s3.start()
+    try:
+        c = S3Client(server.endpoint, S3_ACCESS, S3_SECRET)
+
+        def put(path: str, data: bytes, headers=None):
+            return c.put_stream(path, _PayloadReader(data), len(data),
+                                headers)
+
+        # 1. The WORM bucket.
+        w = f"/{LQL_WORM}"
+        checks["worm_setup_ok"] = [
+            c.request("PUT", w)[0],
+            c.request("PUT", w, [("versioning", "")], body=ENABLED_XML)[0],
+            c.request("PUT", w, [("object-lock", "")],
+                      body=LQL_LOCK_XML)[0]] == [200, 200, 200]
+        vids = []
+        for n, label in enumerate(("worm_put_v1", "worm_put_v2")):
+            status, h, _ = step(label, lambda n=n: put(f"{w}/{LQL_KEY}",
+                                                       big[n]))
+            vids.append(h.get("x-amz-version-id", ""))
+            checks[f"{label}_ok"] = status == 200 and bool(vids[-1])
+        out["version_ids"] = vids
+        v1 = vids[0]
+        files_before = _object_files(root, LQL_WORM, LQL_KEY)
+        status, _, body = step("worm_delete_v1", lambda: c.request(
+            "DELETE", f"{w}/{LQL_KEY}", [("versionId", v1)]))
+        checks["worm_delete_v1_403"] = (
+            status == 403 and b"<Code>AccessDenied</Code>" in body)
+        checks["worm_v1_files_unchanged"] = (
+            files_before == _object_files(root, LQL_WORM, LQL_KEY))
+        doc = (f"<Delete><Object><Key>{LQL_KEY}</Key><VersionId>{v1}"
+               "</VersionId></Object></Delete>").encode()
+        status, _, body = step("worm_delete_objects", lambda: c.request(
+            "POST", w, [("delete", "")], body=doc))
+        checks["worm_delete_objects_error"] = (
+            status == 200 and b"<Error><Key>" + LQL_KEY.encode() in body
+            and b"<Code>AccessDenied</Code>" in body
+            and b"<Deleted>" not in body)
+        status, h, _ = step("worm_delete_marker", lambda: c.request(
+            "DELETE", f"{w}/{LQL_KEY}"))
+        checks["worm_delete_marker_ok"] = (
+            status == 204 and h.get("x-amz-delete-marker") == "true")
+        marker = h.get("x-amz-version-id", "")
+        ret = f"{w}/{LQL_KEY}"
+        status, _, _ = step("worm_tighten", lambda: c.request(
+            "PUT", ret, [("retention", ""), ("versionId", v1)],
+            body=_retention_xml("COMPLIANCE", _iso_in(2 * 86400))))
+        checks["worm_tighten_200"] = status == 200
+        status, _, body = step("worm_shorten", lambda: c.request(
+            "PUT", ret, [("retention", ""), ("versionId", v1)],
+            body=_retention_xml("COMPLIANCE", _iso_in(3600))))
+        checks["worm_shorten_403"] = (
+            status == 403 and b"<Code>AccessDenied</Code>" in body)
+        key_dirs = [root / f"d{i + 1}" / LQL_WORM / LQL_KEY for i in range(16)]
+        originals = _object_files(root, LQL_WORM, LQL_KEY)
+        journals = [_journal_versions(p / "xl.meta") for p in key_dirs]
+        raw = [unwrap(d) for d in server.object_layer.pools[0].disks]
+        for i in S3_WIPED:
+            shutil.rmtree(root / f"d{i + 1}" / LQL_WORM / LQL_KEY)
+            raw[i].set_online(False)
+
+        def degraded_get():
+            h = hashlib.sha256()
+            status, _, n = c.get_stream(f"{w}/{LQL_KEY}", h.update,
+                                        [("versionId", v1)])
+            return status, h.hexdigest(), n
+
+        status, digest, n = step("worm_degraded_get", degraded_get)
+        checks["worm_degraded_get_exact"] = (
+            status == 200 and n == size and digest == want_big[0])
+        for i in S3_WIPED:
+            raw[i].set_online(True)
+        ol = server.object_layer
+        healed = step("worm_heal", lambda: [
+            len(ol.heal_object(LQL_WORM, LQL_KEY, version_id=v)["healed"])
+            for v in (v1, vids[1], marker)])
+        out["worm_healed"] = healed
+        after = _object_files(root, LQL_WORM, LQL_KEY)
+        checks["worm_healed_identical"] = (
+            sum("/part." in k for k in originals) == 2 * 16
+            and {k: v for k, v in after.items() if "/part." in k}
+            == {k: v for k, v in originals.items() if "/part." in k}
+            and [_journal_versions(p / "xl.meta") for p in key_dirs]
+            == journals)
+
+        def multipart():
+            mp = f"{w}/{LQL_MP_KEY}"
+            _, _, body = c.request("POST", mp, [("uploads", "")])
+            upload = re.search(rb"<UploadId>(.*?)</UploadId>",
+                               body).group(1).decode()
+            etags = []
+            for n in range(2):
+                _, h, _ = c.request("PUT", mp, [("partNumber", str(n + 1)),
+                                                 ("uploadId", upload)],
+                                     body=small[n])
+                etags.append(h["ETag"])
+            done = ("<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n + 1}</PartNumber><ETag>{e}</ETag>"
+                "</Part>" for n, e in enumerate(etags))
+                + "</CompleteMultipartUpload>").encode()
+            return c.request("POST", mp, [("uploadId", upload)], body=done)
+
+        status, _, _ = step("worm_multipart", multipart)
+        _, h, _ = c.request("HEAD", f"{w}/{LQL_MP_KEY}")
+        checks["worm_multipart_retained"] = (
+            status == 200 and h.get("x-amz-object-lock-mode") == "COMPLIANCE"
+            and bool(h.get("x-amz-object-lock-retain-until-date")))
+
+        # 2. GOVERNANCE and legal hold.
+        g = f"/{LQL_GOV}"
+        checks["gov_setup_ok"] = [
+            c.request("PUT", g)[0],
+            c.request("PUT", g, [("versioning", "")], body=ENABLED_XML)[0],
+            c.request("PUT", g, [("object-lock", "")],
+                      body=LQL_LOCK_ONLY_XML)[0]] == [200, 200, 200]
+        status, h, _ = step("gov_put", lambda: put(f"{g}/gov.bin", small[2], {
+            "x-amz-object-lock-mode": "GOVERNANCE",
+            "x-amz-object-lock-retain-until-date": _iso_in(86400)}))
+        gov_vid = h.get("x-amz-version-id", "")
+        checks["gov_put_ok"] = status == 200
+        gov = step("gov_delete", lambda: [c.request(
+            "DELETE", f"{g}/gov.bin", [("versionId", gov_vid)],
+            headers=hdr)[0] for hdr in (
+            None, {"x-amz-bypass-governance-retention": "true"})])
+        checks["gov_delete_403_then_204"] = gov == [403, 204]
+        status, h, _ = step("hold_put", lambda: put(
+            f"{g}/held.bin", small[3], {"x-amz-object-lock-legal-hold": "ON"}))
+        hold_vid = h.get("x-amz-version-id", "")
+        checks["hold_put_ok"] = status == 200
+        checks["hold_files_written"] = _files_under(root, LQL_GOV,
+                                                    "held.bin") > 0
+
+        def hold_delete():
+            path, q = f"{g}/held.bin", [("versionId", hold_vid)]
+            first = c.request("DELETE", path, q)[0]
+            off = c.request("PUT", path, [("legal-hold", "")] + q,
+                            body=b"<LegalHold><Status>OFF</Status>"
+                                 b"</LegalHold>")[0]
+            return [first, off, c.request("DELETE", path, q)[0]]
+
+        checks["hold_delete_403_off_204"] = step(
+            "hold_delete", hold_delete) == [403, 200, 204]
+        checks["hold_files_gone"] = _files_under(root, LQL_GOV,
+                                                 "held.bin") == 0
+
+        # 3. The quota bucket.
+        qb = f"/{LQL_QUOTA}"
+        checks["quota_bucket_ok"] = c.request("PUT", qb)[0] == 200
+        admin = "/minio/admin/v3"
+
+        def set_quota():
+            st = c.request("PUT", f"{admin}/set-bucket-quota",
+                           [("bucket", LQL_QUOTA)], body=json.dumps(
+                               {"quota": quota, "quotatype": "hard"}
+                           ).encode())[0]
+            _, _, body = c.request("GET", f"{admin}/get-bucket-quota",
+                                   [("bucket", LQL_QUOTA)])
+            return st, json.loads(body)
+
+        st, got = step("quota_set", set_quota)
+        checks["quota_set_read_back"] = st == 200 and got == {
+            "quota": quota, "quotatype": "hard"}
+        status, _, _ = step("quota_put", lambda: put(f"{qb}/big.bin",
+                                                     big[1]))
+        checks["quota_put_ok"] = status == 200
+        time.sleep(1.1)  # past the quota's 1 s usage cache
+        drives = _drive_stat(root)
+        status, _, body = step("quota_refused_put", lambda: c.put_refused(
+            f"{qb}/over.bin", refused_size))
+        checks["quota_refused_put_409"] = (
+            status == 409 and b"<Code>QuotaExceeded</Code>" in body)
+        _, _, body = c.request("POST", f"{qb}/part.bin", [("uploads", "")])
+        upload = re.search(rb"<UploadId>(.*?)</UploadId>",
+                           body).group(1).decode()
+        drives_part = _drive_stat(root)
+        status, _, body = step("quota_refused_part", lambda: c.put_refused(
+            f"{qb}/part.bin", refused_size,
+            [("partNumber", "1"), ("uploadId", upload)]))
+        checks["quota_refused_part_409"] = (
+            status == 409 and b"<Code>QuotaExceeded</Code>" in body)
+        checks["quota_refused_no_drive_change"] = (
+            drives_part == _drive_stat(root)
+            and {k: v for k, v in drives_part.items() if k in drives}
+            == drives)
+        c.request("DELETE", f"{qb}/part.bin", [("uploadId", upload)])
+        usage = step("quota_scan", lambda: server.scanner.scan_cycle())
+        stored = usage.buckets_usage[LQL_QUOTA].objects_size
+        server.quota.invalidate(LQL_QUOTA)
+        out["quota_usage"] = {"scanner": stored,
+                              "feed": server._scanner_usage()[LQL_QUOTA],
+                              "quota_read": server.quota._bucket_size(
+                                  LQL_QUOTA)}
+        checks["quota_reads_scanner_usage"] = (
+            stored == size and out["quota_usage"]["feed"] == size
+            and out["quota_usage"]["quota_read"] == size)
+        status, _, _ = step("quota_clear", lambda: c.request(
+            "PUT", f"{admin}/set-bucket-quota", [("bucket", LQL_QUOTA)],
+            body=b""))
+        checks["quota_cleared"] = status == 200 and json.loads(c.request(
+            "GET", f"{admin}/get-bucket-quota",
+            [("bucket", LQL_QUOTA)])[2]) == {}
+        over = np.random.default_rng(seed + 1).bytes(refused_size)
+        status, _, _ = step("quota_put_after_clear", lambda: put(
+            f"{qb}/over.bin", over))
+        checks["quota_put_after_clear_ok"] = status == 200
+
+        # 4. Lifecycle.
+        lb, vb = f"/{LQL_LOGS}", f"/{LQL_VERSIONS}"
+
+        def ilm_setup():
+            codes = [c.request("PUT", lb)[0],
+                     c.request("PUT", lb, [("lifecycle", "")],
+                               body=LQL_LOGS_LC)[0],
+                     put(f"{lb}/{LQL_LOGS_KEY}", big[0])[0],
+                     put(f"{lb}/{LQL_KEEP_KEY}", small[4])[0],
+                     c.request("POST", f"{lb}/{LQL_OPEN_KEY}",
+                               [("uploads", "")])[0],
+                     c.request("PUT", vb)[0],
+                     c.request("PUT", vb, [("versioning", "")],
+                               body=ENABLED_XML)[0],
+                     c.request("PUT", vb, [("lifecycle", "")],
+                               body=LQL_VERSIONS_LC)[0]]
+            doc_vids = []
+            for n in range(3):
+                st, h, _ = put(f"{vb}/{LQL_DOC}", small[5 + n])
+                codes.append(st)
+                doc_vids.append(h.get("x-amz-version-id", ""))
+            st, h, _ = c.request("DELETE", f"{vb}/{LQL_ORPHAN}")
+            codes.append(st)
+            return codes, doc_vids
+
+        codes, doc_vids = step("ilm_setup", ilm_setup)
+        out["doc_version_ids"] = doc_vids
+        checks["ilm_setup_ok"] = codes == [200] * 11 + [204]
+        keep_before = _object_files(root, LQL_LOGS, LQL_KEEP_KEY)
+        checks["ilm_logs_written"] = _files_under(root, LQL_LOGS,
+                                                  LQL_LOGS_KEY) > 0
+        scanner = server.scanner
+        es = server.object_layer.pools[0].sets[0]
+        checks["ilm_upload_open"] = any(
+            (b, o) == (LQL_LOGS, LQL_OPEN_KEY)
+            for (b, o, _), _ in es.list_multipart_uploads_all())
+
+        def sweep():
+            ahead = time.time_ns() + LQL_AHEAD_NS
+            logs_rules = parse_lifecycle(LQL_LOGS_LC.decode())
+            expired = [oi.name for oi in server.object_layer.list_objects(
+                LQL_LOGS, max_keys=1000).objects
+                if scanner._apply_lifecycle(LQL_LOGS, oi, logs_rules, ahead)]
+            scanner._versions_sweep(
+                LQL_VERSIONS, parse_lifecycle(LQL_VERSIONS_LC.decode()),
+                ahead)
+            scanner._cycle_uploads = None
+            scanner._abort_stale_uploads(LQL_LOGS, logs_rules, ahead)
+            return expired
+
+        expired = step("ilm_sweep", sweep)
+        step("ilm_scan", scanner.scan_cycle)
+        left = [v.version_id for v in server.object_layer.list_object_versions(
+            LQL_VERSIONS, max_keys=100).versions]
+        scrape = c.request("GET", "/minio/v2/metrics/cluster")[2].decode()
+        m = re.search(r"^mtpu_ilm_expired_total(?:\{[^}]*\})? (\S+)$",
+                      scrape, re.M)
+        out["ilm_expired_total"] = float(m.group(1)) if m else None
+        out["ilm_left_versions"] = left
+        checks["ilm_logs_expired"] = (
+            expired == [LQL_LOGS_KEY]
+            and _files_under(root, LQL_LOGS, LQL_LOGS_KEY) == 0)
+        checks["ilm_keep_unchanged"] = (
+            bool(keep_before)
+            and _object_files(root, LQL_LOGS, LQL_KEEP_KEY) == keep_before)
+        checks["ilm_noncurrent_swept"] = left == doc_vids[:0:-1]
+        checks["ilm_orphan_marker_gone"] = _files_under(
+            root, LQL_VERSIONS, LQL_ORPHAN) == 0
+        checks["ilm_upload_aborted"] = not any(
+            (b, o) == (LQL_LOGS, LQL_OPEN_KEY)
+            for (b, o, _), _ in es.list_multipart_uploads_all())
+        checks["ilm_expired_total_scraped"] = out["ilm_expired_total"] == 3
+    finally:
+        server.stop()
+    out["system_objects"] = {f"write-{n}": size
+                             for n, size in enumerate(sorted(system_sizes))}
     out["checks"] = checks
     return out

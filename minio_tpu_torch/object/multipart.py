@@ -343,6 +343,40 @@ class MultipartMixin:
                 continue  # an unreadable disk or journal: the next disk
         return out
 
+    def list_multipart_uploads_all(self) -> list:
+        """Every upload of the set as ((bucket, object, upload id),
+        started ns), from the first drive whose journals read."""
+        out = []
+        for disk in self.disks:
+            if disk is None:
+                continue
+            try:
+                for name, meta_blob in disk.walk_dir(SYSTEM_META_BUCKET,
+                                                     "multipart"):
+                    fi = XLMeta.from_bytes(meta_blob).to_file_info(
+                        SYSTEM_META_BUCKET, name, None)
+                    target = fi.metadata.get("x-mtpu-internal-object", "")
+                    if "/" not in target:
+                        continue
+                    b, o = target.split("/", 1)
+                    out.append(((b, o, name.rsplit("/", 1)[-1]),
+                                fi.mod_time_ns))
+                break
+            except (StorageError, OSError, ValueError):
+                continue  # an unreadable disk or journal: the next disk
+        return out
+
+    def cleanup_stale_uploads(self, expiry_ns: int) -> None:
+        """Abort the uploads older than `expiry_ns` (cleanupStaleUploads,
+        cmd/erasure-multipart.go:100)."""
+        now = time.time_ns()
+        for upload, started_ns in self.list_multipart_uploads_all():
+            if now - started_ns > expiry_ns:
+                try:
+                    self.abort_multipart_upload(*upload)
+                except StorageError:
+                    pass  # gone already, or retried at the next sweep
+
     def abort_multipart_upload(self, bucket: str, object_: str,
                                upload_id: str) -> None:
         _, _, upload_path = self._upload_fi(bucket, object_, upload_id)

@@ -1,9 +1,10 @@
 """Observability of the port, its copy of minio_tpu/observability: the
 metrics registry (`metrics`) and its descriptor catalog and scrape-time
-collector (`metrics_v2`), request spans (`spans`) and the byte-flow
-ledger (`ioflow`). The trace hub, pub/sub, audit log, profiler and
-bandwidth monitor are not ported yet."""
+collector (`metrics_v2`), request spans (`spans`), the byte-flow ledger
+(`ioflow`) and the server's logger (`logger`). The trace hub, pub/sub,
+audit log, profiler and bandwidth monitor are not ported yet."""
 
+from .logger import Logger
 from .metrics import Metrics
 
 
@@ -18,4 +19,4 @@ def carry(fn):
     return ioflow.carry(spans.bound(spans.capture(), fn))
 
 
-__all__ = ["Metrics", "carry"]
+__all__ = ["Logger", "Metrics", "carry"]

@@ -11,10 +11,12 @@ drives are wrapped and again once the stored config is loaded, as
 minio_tpu/server.py:208-211 and :302-310 do), the S3 server with its SSE key
 material (the SSE-S3 master key and a LocalKMS whose key-name registry
 persists under .minio.sys, minio_tpu's _build_kms without KES) and the
-config, and the background services that keep the sets
-healthy (the MRF drain, the disk monitor, fresh-drive back-fill, the
-data scanner with its update tracker; MinIO's initAutoHeal and
-initDataScanner). The metrics registry comes up first, as in minio_tpu:
+config, the bucket quotas (a BucketQuotaSys over the scanner's usage
+snapshot), and the background services that keep the sets healthy (the
+MRF drain, the disk monitor, fresh-drive back-fill, the data scanner
+with its update tracker, which applies the buckets' lifecycle rules;
+MinIO's initAutoHeal and initDataScanner). The metrics registry and the
+logger come up first, as in minio_tpu:
 every subsystem's hook is set to it, every drive's wrapper counts its
 ops into it, and a MetricsCollector over the object layer, the scanner
 and the MRF drain fills its snapshot gauges at each scrape. FS mode,
@@ -54,6 +56,7 @@ from .background import (
     MRFHealer,
 )
 from .bucket.metadata import BucketMetadataSys
+from .bucket.quota import BucketQuotaSys
 from .config import Config, ConfigSys
 from .crypto import LocalKMS, SSEConfig
 from .crypto.aead import AESGCM
@@ -70,7 +73,7 @@ from .iam.store import IAMSys
 from .object import erasure_objects, metadata
 from .object.pools import ErasureServerPools
 from .object.sets import ErasureSets, read_format
-from .observability import Metrics, spans
+from .observability import Logger, Metrics, spans
 from .observability.metrics_v2 import MetricsCollector
 from .ops import s2
 from .ops.highwayhash_torch import hash256_batch
@@ -264,6 +267,7 @@ class Server:
         # first format read, and every subsystem's hook points at them.
         self.metrics = Metrics()
         _install_metrics(self.metrics)
+        self.logger = Logger()
         erasure_self_test(self.device)
         bitrot_self_test(self.device)
         aead_self_test(self.device)
@@ -316,7 +320,8 @@ class Server:
         self.mrf = MRFHealer(self.object_layer)
         self.update_tracker = DataUpdateTracker(self.object_layer)
         self.object_layer.update_tracker = self.update_tracker
-        self.scanner = DataScanner(self.object_layer,
+        self.scanner = DataScanner(self.object_layer, self.bucket_meta,
+                                   metrics=self.metrics, logger=self.logger,
                                    tracker=self.update_tracker)
         # Disk liveness: offline detection, and the MRF drained on a
         # reconnect (monitorAndConnectEndpoints).
@@ -332,16 +337,28 @@ class Server:
             kms=LocalKMS(self.root_password,
                          persist=_KMSRegistry(self.object_layer),
                          device=self.device))
+        # Quota admission reads the scanner's usage, never a walk on the
+        # PUT path, once a cycle has run (a 1 s TTL cache over it).
+        self.quota = BucketQuotaSys(self.object_layer, self.bucket_meta,
+                                    usage_fn=self._scanner_usage)
         self.s3 = S3Server(self.object_layer, self.iam, self.bucket_meta,
                            host=address, port=port, device=self.device,
                            sse_config=self.sse_config, metrics=self.metrics,
-                           config_sys=self.config_sys)
+                           config_sys=self.config_sys, quota=self.quota)
         self.s3.admin.scanner = self.scanner
         # The scrape-time collector over the live subsystems.
         self.s3.admin.collector = MetricsCollector(
             self.metrics, object_layer=self.object_layer,
             scanner=self.scanner, iam=self.iam, mrf=self.mrf)
         self._stop = threading.Event()
+
+    def _scanner_usage(self) -> dict | None:
+        """{bucket: bytes} of the scanner's last snapshot; None before
+        its first cycle, when the quota falls back to a listing walk."""
+        if not self.scanner.usage.last_update_ns:
+            return None
+        return {b: u.objects_size
+                for b, u in self.scanner.usage.buckets_usage.items()}
 
     def _warm(self) -> None:
         """The card's state that the first request would set up (the

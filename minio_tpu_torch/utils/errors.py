@@ -122,6 +122,11 @@ class ErrInvalidPart(StorageError):
     (InvalidPart)."""
 
 
+class ErrQuotaExceeded(StorageError):
+    """A write would cross the bucket's hard quota (BucketQuotaExceeded,
+    cmd/bucket-quota.go)."""
+
+
 class RSError(Exception):
     """Base class for Reed-Solomon codec errors (klauspost/reedsolomon)."""
 

@@ -774,3 +774,26 @@ def test_config_compression_on_card(cuda, tmp_path):
     assert c["settings"]["kernel_seal_launches"] >= 2
     assert c["restart"]["kernel_open_launches"] >= 1
     assert res["gf_by_shape"]["rrs_put"].get("2x14", 0) > 0
+
+
+def test_lock_quota_lifecycle_on_card(cuda, tmp_path):
+    """Phase 4o on a 12+4 set at 16 MiB: the WORM refusal (no file of the
+    key changed), the degraded GET and heal of a retained version (A and
+    B), the quota's 409 on a PUT and an UploadPart (no kernel launch), and
+    the aged noncurrent sweep."""
+    size = 16 << 20
+    res = entry.s3_lock_quota_lifecycle(tmp_path, size, device=cuda,
+                                        small_size=4 << 20,
+                                        refused_size=8 << 20,
+                                        quota=20 << 20)
+    assert all(res["checks"].values()), res["checks"]
+    c = res["counters"]
+    for step in ("worm_put_v1", "worm_degraded_get", "worm_heal",
+                 "quota_put", "ilm_setup"):
+        assert c[step]["kernel_gf_launches"] > 0, step
+        assert c[step]["kernel_hash_launches"] > 0, step
+    for step in ("worm_delete_v1", "quota_refused_put", "quota_refused_part",
+                 "ilm_sweep"):
+        assert c[step]["kernel_gf_launches"] == 0, step
+        assert c[step]["kernel_hash_launches"] == 0, step
+    assert res["ilm_expired_total"] == 3

@@ -501,9 +501,9 @@ def _sequence(c: S3Client, clock: _Clock) -> tuple[list, dict]:
         body=b"<CORSConfiguration/>")
     rec("get bucket metrics rejected", "GET", "/dst", [("metrics", "")])
     rec("head bucket acl rejected", "HEAD", "/dst", [("acl", "")])
-    rec("get lifecycle not ported", "GET", "/dst", [("lifecycle", "")])
-    rec("get retention not ported", "GET", "/dst/copy",
-        [("retention", "")])
+    rec("get lifecycle none", "GET", "/dst", [("lifecycle", "")])
+    rec("get retention none", "GET", "/dst/copy", [("retention", "")])
+    rec("get replication not ported", "GET", "/dst", [("replication", "")])
 
     # Bucket policy and anonymous access (tests/test_s3_api.py:331, 648).
     rec("put public x", "PUT", "/dst/public/x", body=b"public bytes")
@@ -650,7 +650,7 @@ def runs(tmp_path_factory):
 
 # Requests of configurations outside the slice: minio_tpu serves them,
 # the port answers NotImplemented.
-NOT_PORTED = ("get lifecycle not ported", "get retention not ported")
+NOT_PORTED = ("get replication not ported",)
 
 
 def test_same_responses(runs):
@@ -727,7 +727,9 @@ def test_sequence_did_what_it_says(runs):
     assert code("put object acl missing") == "NoSuchKey"
     assert code("get bucket cors") == "NoSuchCORSConfiguration"
     assert code("put bucket cors rejected") == "NotImplemented"
-    assert code("get lifecycle not ported") == "NotImplemented"
+    assert code("get lifecycle none") == "NoSuchLifecycleConfiguration"
+    assert code("get retention none") == "NoSuchObjectLockConfiguration"
+    assert code("get replication not ported") == "NotImplemented"
     assert code("get policy none") == "NoSuchBucketPolicy"
     assert code("put policy malformed") == "MalformedXML"
     assert b"TRUE" in recs["policy status public"]["body"]
