@@ -147,8 +147,9 @@ Phases, each of which must pass (nothing is caught):
     server runs: the fresh-drive healer's loop reformats and sweeps it
     (seconds from the wipe, the sweep's own seconds, versions healed,
     part-file bytes rebuilt, the repair plane's STATS at 8.0 bytes read a
-    byte healed with no fallback, the pacer's grants, one a heal), every
-    file of d8 back. Two scanner cycles (its loop stopped): usage equal
+    byte healed with no fallback, the pacer's grants, one a heal, and
+    the window's heals by the thread that ran them), every file of d8
+    back. Two scanner cycles (its loop stopped): usage equal
     to the admin datausage walk, the second skipping through the update
     tracker every bucket the first's sampled heals (1 object in 512) did
     not touch, the admin usage snapshot over HTTP. Kernel A's
@@ -268,6 +269,37 @@ Phases, each of which must pass (nothing is caught):
     just before and read just after each step; the .minio.sys objects it
     wrote then checked as phase 3b checks 4j's. Prints each step's
     seconds and launches and {"lock_quota_lifecycle": ...};
+ 4p. remote tiers over HTTP (entry.s3_tiering): two Servers on the card
+    in this process, a hot one over 16 drive directories (one 12+4 set,
+    1 MiB blocks, compression on for .log) and a cold one over 16 others
+    holding the bucket coldstore, each with its S3 plane alone. The admin
+    add-tier of COLD (coldstore under the prefix tiered; list-tiers
+    without the secret key), three seeded objects (256 MiB + 12,345 B
+    plain, the same SSE-S3, 64 MiB of 4n's text compressed then sealed),
+    a ?lifecycle Transition after a day to COLD, and the scanner's
+    lifecycle step with now two days ahead: every object transitioned
+    (no hot part file left, every hot xl.meta keeping its version with
+    the tier markers, coldstore holding the stored sizes, no 64-byte run
+    of plaintext in either SSE copy, ilm_transitioned_total 3); each
+    object's GET and HEAD with x-amz-storage-class COLD and a 3 MiB range
+    from its middle, exact by SHA-256 (B on the cold server, D and F on
+    the hot); the plain object's remote copy lost on cold drives 0, 5, 12
+    and 15 and those drives offline, its GET exact (A rebuilds on the
+    cold server), then the copy healed there; POST ?restore (202, each
+    hot drive's part file equal to its own before the transition, the
+    GET with x-amz-restore); the scanner's step with now three days
+    ahead dropping the restored copy (ilm_restored_total 1, the GET from
+    the tier exact); an admin heal with remove=true keeping all three
+    tiered versions and rebuilding a lost hot xl.meta; remove-tier COLD
+    refused while the lifecycle names it. Counters zeroed just before
+    and read just after each step; then phase 3c (check_tier_kernels)
+    holds the kernels to their plain versions at the shapes known only
+    after the run: the cold server's reconstructions, the stored sizes
+    and .minio.sys objects of both servers, and C, D, E and F at every
+    package and chunk count 4p launched them with. Prints each step's
+    seconds, launches and the hot TierEngine's seconds by part (local
+    read, SigV4 hash, send, commit, fetch, restore write, inversion),
+    and {"tiering": ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
@@ -280,9 +312,9 @@ Phases, each of which must pass (nothing is caught):
     the bound and its launches in 4k; kernels E and F at 1, 128 and 4,097
     chunks of 4n's text against their byte bound, with their launches in
     4n) and print one JSON line {"kernels": [...]}, whose launches are
-    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l, 4m, 4n and 4o (by path
-    in "launches_by_path"; E's and F's those of 4n); every kernel must
-    have launched on the main paths;
+    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o and 4p (by
+    path in "launches_by_path"; E's and F's those of 4n); every kernel
+    must have launched on the main paths;
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -310,6 +342,7 @@ ADMISSION_SIZE = (64 << 20) + 12_345
 LQL_SMALL = 16 << 20     # phase 4o's versions, parts and small objects
 LQL_REFUSED = 64 << 20   # 4o's PUT and UploadPart past the quota
 LQL_QUOTA = 300 << 20    # 4o's hard quota
+TIER_TEXT_SIZE = 64 << 20  # 4p's compressed-then-sealed object
 INLINE_SIZE = 100 << 10
 # Phase 4e: multipart parts (minio-go's 16 MiB part size) and the small
 # objects' sizes.
@@ -430,12 +463,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def path_shard_lengths() -> list[int]:
     """The shard lengths the main paths give the kernels: a full block's,
     and the ragged last block's of each object or part that phases 4,
-    4b, 4c, 4d, 4e, 4f, 4i, 4k, 4l, 4m and 4o store (an inline or small
-    object is one short block; 4i's UploadPartCopy parts end in 7 B and
-    12,338 B; an encrypted object's stored size is its plaintext's plus
-    28 B a 64 KiB package; 4l's and 4o's refused writes are never
-    encoded; 4o's 16 MiB and 64 MiB objects and parts are whole
-    blocks)."""
+    4b, 4c, 4d, 4e, 4f, 4i, 4k, 4l, 4m, 4o and 4p store (an inline or
+    small object is one short block; 4i's UploadPartCopy parts end in 7 B
+    and 12,338 B; an encrypted object's stored size is its plaintext's
+    plus 28 B a 64 KiB package; 4l's and 4o's refused writes are never
+    encoded; 4o's 16 MiB and 64 MiB objects and parts are whole blocks;
+    4p's plain and SSE-S3 objects have 4k's sizes, on both servers, and
+    its compressed-then-sealed object's size is known after the run:
+    phase 3c checks it)."""
     from minio_tpu_torch.crypto.sse import encrypted_size
     from minio_tpu_torch.entry import part_copy_ranges
 
@@ -461,7 +496,9 @@ def path_reconstructions() -> list[tuple[tuple, tuple]]:
     15 hold for each object, through its distribution: the heal rebuilds
     them all, a degraded GET (4e's big objects, 4i's versions of ver/big
     and the copies' pulls from them, 4k's encrypted objects, 4m's plain
-    one, 4o's WORM key read by version) the data shards among them."""
+    one, 4o's WORM key read by version) the data shards among them.
+    4p's reconstructions run on its cold server, under a key that holds a
+    uuid: phase 3c checks them after the run."""
     from minio_tpu_torch.entry import (OBS_BUCKET, OBS_OBJECT, S3_BUCKET,
                                        S3_WIPED, SSE_MODES,
                                        lock_quota_lifecycle_keys,
@@ -720,6 +757,60 @@ def check_system_object_kernels(rng, errs: dict, sizes: dict) -> None:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"at the .minio.sys lengths: {bad}")
+
+
+def aes_phase3_counts() -> set:
+    """The package counts phase 3 launches kernels C and D with."""
+    from minio_tpu_torch.api.transforms import packages_per_launch
+
+    return {*AES_BATCHES, packages_per_launch("cuda"), 1, 16, 64,
+            len(AES_LENGTHS) * len(AES_AADS)}
+
+
+def check_tier_kernels(rng, errs: dict, res: dict, aes_counts: dict,
+                       s2_counts: dict) -> None:
+    """Phase 3c, after phase 4p: the shapes 4p gave the kernels that are
+    known only after its run, exact. Kernel A's reconstructions on the
+    cold server (the remote copy's key holds a uuid, and with it which
+    shards cold drives 0, 5, 12 and 15 hold) at B = 1 and 8 and every
+    shard length of the plain object; kernels A and B at the stored sizes
+    (the compressed-then-sealed object's depends on its text) and at the
+    .minio.sys objects' of both servers (check_system_object_kernels);
+    C and D at each package count, and E and F at each chunk count, that
+    4p launched them with and phase 3 did not."""
+    from minio_tpu_torch.ops import gf
+
+    lengths = sorted({SHARD, -(-(res["size"] % BLOCK) // K)} - {0})
+    shapes = [(b, K, ln) for ln in lengths for b in (1, BATCH)]
+    for unavailable, targets in res["cold_reconstructions"]:
+        present = [i for i in range(K + M) if i not in unavailable]
+        mat = gf.reconstruct_matrix(K, M, present, list(targets))
+        err = gf_matrix_err(rng, errs, mat, shapes)
+        log(f"gf_apply 4p cold reconstruct 12+4 {targets} from "
+            f"{present[:K]} at {shapes}: max_abs_err {err}")
+    sizes = dict(res["system_objects"])
+    sizes.update({f"stored {n}": v for n, v in res["stored_sizes"].items()})
+    check_system_object_kernels(rng, errs, sizes)
+    key = rng.bytes(32)
+    counts = {int(p) for name in ("aes_gcm_seal", "aes_gcm_open")
+              for p in aes_counts[name]} - aes_phase3_counts()
+    for p in sorted(counts):
+        lengths = [PACKAGE] * (p - 1) + [12_345]
+        aads = [struct.pack("<Q", i) for i in range(p)]
+        aes_case(key, aes_batch(rng, lengths, aads), f"4p batch {p}", errs)
+    chunks = {int(n) for name in ("s2_compress", "s2_decompress")
+              for n in s2_counts[name]} - set(S2_BATCHES)
+    if chunks:
+        pool = s2_pool(rng)
+        plain = s2_plain(pool)
+        for n in sorted(chunks):
+            s2_batch_case(pool, plain, n, errs)
+    log(f"4p's own counts: C/D at {sorted(counts)} packages, E/F at "
+        f"{sorted(chunks)} chunks (the rest phase 3 covers)")
+    bad = {k: v for k, v in errs.items() if v != 0}
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"at 4p's shapes: {bad}")
 
 
 def grouped_verify_case(rng, groups: int, n: int, s: int) -> int:
@@ -1234,6 +1325,33 @@ def _bytes_err(a: bytes, b: bytes) -> int:
     return int(np.abs(x - y).max())
 
 
+def s2_batch_case(pool: dict, plain: dict, n: int, errs: dict) -> None:
+    """Kernels E and F on a batch of n chunks of the pool against the
+    plain answers: every block, CRC and length of E, every raw byte and
+    status of F; the max abs differences kept in errs."""
+    names = s2_batch_names(pool, n)
+    rows, out, crcs, lens = s2_run_e(pool, names)
+    err = 0
+    for (_, _, o), name, crc, ln in zip(rows, names, crcs, lens):
+        block, pcrc = plain[name][0], plain[name][1]
+        err = max(err, abs(ln - len(block)), abs(crc - pcrc),
+                  _bytes_err(out[o:o + ln].tobytes(), block))
+    errs["s2_compress"] = max(errs["s2_compress"], err)
+    log(f"s2_compress {n} chunks: max_abs_err {err}")
+    frames = [plain[nm] for nm in names]
+    _, fout, status = s2_run_f([f[3] for f in frames],
+                               [f[2] for f in frames],
+                               [len(pool[nm]) for nm in names])
+    err, pos = 0, 0
+    for nm, st, f in zip(names, status, frames):
+        ln = len(pool[nm])
+        err = max(err, abs(st - f[5]),
+                  _bytes_err(fout[pos:pos + ln].tobytes(), f[4]))
+        pos += ln
+    errs["s2_decompress"] = max(errs["s2_decompress"], err)
+    log(f"s2_decompress {n} frames: max_abs_err {err}")
+
+
 def check_s2_kernels(rng, errs: dict) -> None:
     """Phase 3 of kernels E and F, exact: every block, CRC and length of
     E and every raw byte and status of F against the plain versions, at
@@ -1248,27 +1366,7 @@ def check_s2_kernels(rng, errs: dict) -> None:
         f"{time.perf_counter() - t0:.2f} s")
     errs["s2_compress"] = errs["s2_decompress"] = 0
     for n in S2_BATCHES:
-        names = s2_batch_names(pool, n)
-        rows, out, crcs, lens = s2_run_e(pool, names)
-        err = 0
-        for (_, _, o), name, crc, ln in zip(rows, names, crcs, lens):
-            block, pcrc = plain[name][0], plain[name][1]
-            err = max(err, abs(ln - len(block)), abs(crc - pcrc),
-                      _bytes_err(out[o:o + ln].tobytes(), block))
-        errs["s2_compress"] = max(errs["s2_compress"], err)
-        log(f"s2_compress {n} chunks: max_abs_err {err}")
-        frames = [plain[nm] for nm in names]
-        _, fout, status = s2_run_f([f[3] for f in frames],
-                                   [f[2] for f in frames],
-                                   [len(pool[nm]) for nm in names])
-        err, pos = 0, 0
-        for nm, st, f in zip(names, status, frames):
-            ln = len(pool[nm])
-            err = max(err, abs(st - f[5]),
-                      _bytes_err(fout[pos:pos + ln].tobytes(), f[4]))
-            pos += ln
-        errs["s2_decompress"] = max(errs["s2_decompress"], err)
-        log(f"s2_decompress {n} frames: max_abs_err {err}")
+        s2_batch_case(pool, plain, n, errs)
     # Tampered frames: a flipped CRC byte, a truncated block; a good frame
     # between them decodes.
     good = plain["text0"]
@@ -2497,6 +2595,85 @@ def run_lock_quota_lifecycle() -> tuple[dict, dict, dict]:
     return line, launches, res["system_objects"]
 
 
+# Phase 4p's steps: the kernels each must launch (on either server) and
+# those it must not. A in the transition and the degraded GET is the cold
+# server's (the hot one only reads); B in the tier GETs is the cold
+# server's, B in the restored GET the hot one's.
+TIER_STEPS = {
+    "tier_settings": ("C", ""), "tier_add": ("", "CDEF"),
+    "tier_put_plain": ("AB", "CDEF"), "tier_put_sse": ("ABC", "DEF"),
+    "tier_put_text": ("ABCE", "DF"), "tier_lifecycle": ("", "CDEF"),
+    "tier_transition": ("AB", "CDEF"), "tier_get": ("BDF", "ACE"),
+    "tier_range_get": ("BDF", "ACE"), "tier_degraded_get": ("AB", "CDEF"),
+    "tier_cold_heal": ("AB", "CDEF"), "tier_restore": ("AB", "CDEF"),
+    "tier_restored_get": ("B", "ACDEF"),
+    "tier_restore_expiry": ("", "ABCDEF"),
+    "tier_expired_get": ("B", "ACDEF"), "tier_heal": ("", "ABCDEF"),
+    "tier_get_after_heal": ("BDF", "ACE"),
+    "tier_remove_refused": ("", "ABCDEF")}
+
+
+def run_tiering() -> tuple[dict, dict, dict]:
+    """Phase 4p: entry.s3_tiering, a 12+4 server tiered to a second 12+4
+    server on the card, over HTTP. Returns its line, its launches by
+    kernel, and what phase 3c checks (the entry's result and C/D/E/F's
+    launches by package and chunk count)."""
+    from minio_tpu_torch.entry import s3_tiering
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_tiering(tmp, OBJECT_SIZE, device="cuda",
+                         text_size=TIER_TEXT_SIZE, seed=100)
+        launches = read_counts()
+        aes_counts = read_aes_shape_counts()
+        s2_counts = read_s2_shape_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"tiering checks failed: {failed}")
+    card = card_line()
+    per_step = {}
+    for name, (need, forbid) in TIER_STEPS.items():
+        c = res["counters"][name]
+        n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+             "C": c["kernel_seal_launches"], "D": c["kernel_open_launches"],
+             "E": c["kernel_compress_launches"],
+             "F": c["kernel_decompress_launches"]}
+        parts = res["tier_parts"].get(name, {})
+        per_step[name] = dict(n, seconds=res["seconds"][name],
+                              gf_by_shape=res["gf_by_shape"][name],
+                              tier_parts=parts)
+        if (not all(n[k] > 0 for k in need)
+                or any(n[k] for k in forbid)):
+            raise AssertionError(f"4p {name}: launches {n}, A by shape "
+                                 f"{res['gf_by_shape'][name]}, want "
+                                 f"{need or 'none'}, never {forbid}")
+        log(f"4p {name}: {res['seconds'][name]:.4f} s, launches A {n['A']} "
+            f"B {n['B']} C {n['C']} D {n['D']} E {n['E']} F {n['F']}, A by "
+            f"shape {res['gf_by_shape'][name]}, tier parts "
+            f"{ {k: round(v, 4) for k, v in parts.items()} } ({card})")
+    log(f"4p total {sum(res['seconds'].values()):.3f} s in its steps; "
+        f"stored sizes {res['stored_sizes']}; cold reconstructions "
+        f"{res['cold_reconstructions']}; heal {res['heal']}; C/D by "
+        f"packages {aes_counts}; E/F by chunks {s2_counts}")
+    line = {"card": card, "size": res["size"], "text_size": TIER_TEXT_SIZE,
+            "k": K, "m": M, "lost": res["lost"],
+            "range_size": res["range_size"],
+            "stored_sizes": res["stored_sizes"],
+            "remote_keys": res["remote_keys"],
+            "cold_reconstructions": res["cold_reconstructions"],
+            "ilm_transitioned_total": res["ilm_transitioned_total"],
+            "ilm_restored_total": res["ilm_restored_total"],
+            "heal": res["heal"], "seconds": res["seconds"],
+            "launches": per_step, "aes_launches_by_packages": aes_counts,
+            "s2_launches_by_chunks": s2_counts, "checks": res["checks"]}
+    return line, launches, {"res": res, "aes": aes_counts, "s2": s2_counts}
+
+
 def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     """Phase 5 for kernels E and F: CUDA events over calls at 1, 128 (a
     launch of the port's batch) and 4,097 chunks (the whole 4n object) of
@@ -2909,7 +3086,9 @@ def main() -> int:
         log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
 
     rng = np.random.default_rng(1234)
+    t0 = time.perf_counter()
     errs = check_kernels(rng)
+    log(f"kernel checks (phase 3) {time.perf_counter() - t0:.1f} s")
     log(f"heap: {len(gc.get_objects())} objects tracked by the collector "
         "before the main paths")
     settle_heap()
@@ -2955,6 +3134,10 @@ def main() -> int:
     lql_line, lql_launches, lql_system_objects = run_lock_quota_lifecycle()
     lql_line["phase_seconds"] = time.perf_counter() - t0
     log(f"lock/quota/lifecycle phase {lql_line['phase_seconds']:.1f} s")
+    t0 = time.perf_counter()
+    tier_line, tier_launches, tier_shapes = run_tiering()
+    tier_line["phase_seconds"] = time.perf_counter() - t0
+    log(f"tiering phase {tier_line['phase_seconds']:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
@@ -2965,21 +3148,26 @@ def main() -> int:
                       "admission": admission_launches[name],
                       "observability": obs_launches[name],
                       "config_compression": cfg_launches[name],
-                      "lock_quota_lifecycle": lql_launches[name]}
+                      "lock_quota_lifecycle": lql_launches[name],
+                      "tiering": tier_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
     by_path["s2_by_chunks"] = cfg_line["s2_launches_by_chunks"]
     gc.callbacks.remove(on_gc)
     check_system_object_kernels(rng, errs, lql_system_objects)
+    check_tier_kernels(rng, errs, tier_shapes["res"], tier_shapes["aes"],
+                       tier_shapes["s2"])
     log(f"collector passes over 20 ms in the main paths (generation, s): "
         f"{PAUSES}")
     log(f"hedge windows restarted after an oversleeping wait: {RESTARTS}")
     drivers_line["collector_pauses"] = PAUSES
     drivers_line["hedge_windows_restarted"] = RESTARTS
+    t0 = time.perf_counter()
     kernels = time_kernels(rng, by_path, errs)
     kernels += time_aes_kernels(rng, by_path, errs)
     kernels += time_s2_kernels(rng, by_path, errs)
+    log(f"kernel timings (phase 5) {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on the "
@@ -2996,6 +3184,7 @@ def main() -> int:
     print(json.dumps({"observability": obs_line}), flush=True)
     print(json.dumps({"config_compression": cfg_line}), flush=True)
     print(json.dumps({"lock_quota_lifecycle": lql_line}), flush=True)
+    print(json.dumps({"tiering": tier_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,14 @@ scoreboard), metrics (the Prometheus exposition, also behind the scrape
 routes), slow-requests (the span plane's exemplar store, GET and
 DELETE), the six config routes (cmd/admin-handlers-config-kv.go:
 get, set, del and help of a subsystem's KV set, the history list with
-its sealed entries opened, and restore) and the bucket quota's set and
-get (cmd/admin-bucket-handlers.go). The heal reads the `heal`
-subsystem: its I/O gate waits while more than `max_io` requests are in
-flight, and it pauses a hundredth of `max_sleep` after each object. The
-rest of the admin API is not ported: its routes answer NotImplemented.
+its sealed entries opened, and restore), the bucket quota's set and
+get (cmd/admin-bucket-handlers.go) and the remote tiers' add, list and
+remove (madmin's tier registry; a list never shows a secret key, and a
+tier that a bucket's lifecycle names is not removed). The heal reads
+the `heal` subsystem: its I/O gate waits while more than `max_io`
+requests are in flight, and it pauses a hundredth of `max_sleep` after
+each object. The rest of the admin API is not ported: its routes answer
+NotImplemented.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from ..background.healseq import (
     HealOverlap,
     make_io_gate,
 )
+from ..bucket.lifecycle import Lifecycle
 from ..config import HELP
 from ..crypto.kms import KMSError
 from ..iam.policy import Args
+from ..tier import META_TIER
 from ..utils import parse_duration_s
 from ..utils.errors import StorageError
 from .errors import S3Error
@@ -54,7 +59,10 @@ _ROUTES = {("GET", "datausage"): "data_usage_info",
            ("GET", "list-config-history-kv"): "list_config_history",
            ("PUT", "restore-config-history-kv"): "restore_config_history",
            ("PUT", "set-bucket-quota"): "set_bucket_quota",
-           ("GET", "get-bucket-quota"): "get_bucket_quota"}
+           ("GET", "get-bucket-quota"): "get_bucket_quota",
+           ("PUT", "add-tier"): "add_tier",
+           ("GET", "list-tiers"): "list_tiers",
+           ("DELETE", "remove-tier"): "remove_tier"}
 ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "usage_info": "admin:DataUsageInfo",
            "ioflow_report": "admin:ServerInfo",
@@ -71,7 +79,10 @@ ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "list_config_history": "admin:ConfigUpdate",
            "restore_config_history": "admin:ConfigUpdate",
            "set_bucket_quota": "admin:SetBucketQuota",
-           "get_bucket_quota": "admin:GetBucketQuota"}
+           "get_bucket_quota": "admin:GetBucketQuota",
+           "add_tier": "admin:SetTier",
+           "list_tiers": "admin:ListTier",
+           "remove_tier": "admin:SetTier"}
 # api keys read once, when the S3 server is built: a set of one of them
 # answers {"restart": true}.
 _RESTART_KEYS = {"requests_max", "requests_deadline"}
@@ -87,10 +98,12 @@ class AdminHandlers:
     is the server's ConfigSys (None: the config routes answer
     NotImplemented, the heal takes the subsystem's defaults).
     `bucket_meta` is the server's BucketMetadataSys, where the quota
-    routes keep a bucket's quota (None: they answer NotImplemented)."""
+    routes keep a bucket's quota (None: they answer NotImplemented).
+    `tiers` is the server's tier.TierConfigMgr (None: the tier routes
+    answer NotImplemented)."""
 
     def __init__(self, object_layer, iam, inflight, kms=None, metrics=None,
-                 config_sys=None, bucket_meta=None):
+                 config_sys=None, bucket_meta=None, tiers=None):
         self.ol = object_layer
         self.iam = iam
         self.inflight = inflight
@@ -98,6 +111,7 @@ class AdminHandlers:
         self.metrics = metrics
         self.config_sys = config_sys
         self.bm = bucket_meta
+        self.tiers = tiers
         self.heal_state = AllHealState()
         self.scanner = None
         self.collector = None
@@ -464,3 +478,68 @@ class AdminHandlers:
             return self._json({})
         return Response(200, {"Content-Type": "application/json"},
                         raw.encode())
+
+    # ---------- remote tiers (madmin's tier registry, behind the
+    # lifecycle's transitions) ----------
+
+    def _tier_user(self, tier_name: str) -> str | None:
+        """What names the tier: a bucket's lifecycle rule or a version
+        transitioned to it; None when nothing does."""
+        for b in self.ol.list_buckets():
+            if self.bm is not None:
+                lc = Lifecycle.parse(self.bm.get(b.name).lifecycle_xml or "",
+                                     best_effort=True)
+                if any(r.transition_tier.upper() == tier_name
+                       for r in lc.rules):
+                    return f"bucket {b.name!r} lifecycle configuration"
+            marker = vid_marker = ""
+            while True:
+                page = self.ol.list_object_versions(
+                    b.name, key_marker=marker, version_id_marker=vid_marker)
+                for v in page.versions:
+                    if v.user_defined.get(META_TIER, "").upper() == tier_name:
+                        return f"object {b.name}/{v.name}"
+                if not page.is_truncated:
+                    break
+                marker = page.next_key_marker
+                vid_marker = page.next_version_id_marker
+        return None
+
+    def add_tier(self, ctx) -> Response:
+        """PUT add-tier: {"name", "endpoint", "access_key", "secret_key",
+        "bucket", "prefix"}; the name is kept upper-case."""
+        if self.tiers is None:
+            raise S3Error("NotImplemented", "no tier manager")
+        try:
+            d = json.loads(ctx.body)
+            self.tiers.add(d.get("name", ""), d.get("endpoint", ""),
+                           d.get("access_key", ""), d.get("secret_key", ""),
+                           d.get("bucket", ""), d.get("prefix", ""))
+        except (ValueError, TypeError, AttributeError) as exc:
+            raise S3Error("InvalidArgument", f"bad tier: {exc}") from exc
+        except StorageError as exc:
+            raise S3Error("InvalidArgument", str(exc)) from exc
+        return self._json({"status": "ok"})
+
+    def list_tiers(self, ctx) -> Response:
+        if self.tiers is None:
+            raise S3Error("NotImplemented", "no tier manager")
+        return self._json(self.tiers.list())
+
+    def remove_tier(self, ctx) -> Response:
+        """DELETE remove-tier?name=: refused while a rule of a bucket's
+        lifecycle names the tier, or a version transitioned to it is
+        left: the tier's entry holds the only credentials that read it.
+        minio_tpu looks for the name as a substring of the lifecycle XML
+        alone (ROADMAP.md Queue 3)."""
+        if self.tiers is None:
+            raise S3Error("NotImplemented", "no tier manager")
+        name = ctx.qdict.get("name", "")
+        if not name:
+            raise S3Error("InvalidArgument", "name required")
+        user = self._tier_user(name.upper())
+        if user is not None:
+            raise S3Error("InvalidArgument",
+                          f"tier {name!r} is referenced by {user}")
+        self.tiers.remove(name)
+        return self._json({"status": "ok"})

@@ -76,6 +76,8 @@ API_ERRORS: dict[str, APIError] = {e.code: e for e in [
     _E("NoSuchObjectLockConfiguration", "The specified object does not have a ObjectLock configuration.", HTTPStatus.NOT_FOUND),
     _E("ObjectLockConfigurationNotFoundError", "Object Lock configuration does not exist for this bucket.", HTTPStatus.NOT_FOUND),
     _E("QuotaExceeded", "Bucket quota exceeded.", HTTPStatus.CONFLICT),
+    _E("InvalidObjectState", "The operation is not valid for the current state of the object.", HTTPStatus.FORBIDDEN),
+    _E("ServiceUnavailable", "The server is currently unavailable.", HTTPStatus.SERVICE_UNAVAILABLE),
 ]}
 
 
@@ -126,6 +128,7 @@ def from_object_error(exc: Exception) -> "S3Error":
         (oe.ErrBadDigest, "BadDigest"),
         (oe.ErrOperationTimedOut, "SlowDown"),
         (oe.ErrQuotaExceeded, "QuotaExceeded"),
+        (oe.ErrRemoteTier, "ServiceUnavailable"),
     ]
     for etype, code in mapping:
         if isinstance(exc, etype):

@@ -16,21 +16,24 @@ retention on PutObject, CopyObject and NewMultipartUpload, the lock
 headers, ?retention and ?legal-hold, and retention enforced on the
 single DELETE and on DeleteObjects; MinIO's cmd/bucket-object-lock.go),
 the hard bucket quota on PutObject, CopyObject (at the source's logical
-size) and UploadPart (cmd/bucket-quota.go), and the bucket's
-?lifecycle document, validated when written (the scanner applies it).
+size) and UploadPart (cmd/bucket-quota.go), the bucket's ?lifecycle
+document, validated when written (the scanner applies it), and remote
+tiers (cmd/bucket-lifecycle.go): a transitioned object's GET, whole or
+ranged, served from its tier through the inversion of the transforms,
+the tier's name as its storage class, and POST ?restore.
 
 Each handler takes the parsed request and returns a Response; the
 server has checked the signature and the action (a copy's source too)
-before. What the port does not serve yet (remote tiers, replication,
-events) is refused with NotImplemented, never served half: a bucket with
-such a configuration (a lifecycle rule with a Transition among them), an
-object whose bytes live on a tier, and a ?lifecycle document with a
-Transition. Two SSE cases that minio_tpu gets wrong are refused too: an
-encrypted multipart upload (minio_tpu stores its parts in plaintext)
+before. What the port does not serve yet (replication, events) is
+refused with NotImplemented, never served half: a bucket with such a
+configuration. Two SSE cases that minio_tpu gets wrong are refused too:
+an encrypted multipart upload (minio_tpu stores its parts in plaintext)
 and an UploadPartCopy from an encrypted source (minio_tpu copies the
 ciphertext into the part). An UploadPartCopy from a compressed source,
 where minio_tpu copies the compressed bytes into the part, copies the
-decoded range.
+decoded range, and a copy from a transitioned source with no restored
+copy, which minio_tpu reads from the freed shards, answers
+InvalidObjectState.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ from __future__ import annotations
 import base64
 import binascii
 import datetime
-import functools
 import io
 import json
 import re
@@ -48,6 +50,7 @@ import urllib.parse
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 
+from .. import tier
 from ..bucket import objectlock
 from ..bucket.lifecycle import Lifecycle, LifecycleError
 from ..bucket.quota import BucketQuotaSys
@@ -56,7 +59,11 @@ from ..erasure import registry
 from ..iam.policy import Policy
 from ..object.types import CompletePart, ObjectOptions
 from ..pipeline.admission import client_context, current_client, read_governor
-from ..utils.errors import ErrOperationTimedOut, StorageError
+from ..utils.errors import (
+    ErrInvalidArgument,
+    ErrOperationTimedOut,
+    StorageError,
+)
 from . import transforms
 from .errors import S3Error, from_object_error
 
@@ -72,20 +79,9 @@ _UNPORTED_BUCKET_CONFIG = ("notification_xml", "replication_xml")
 # The prefix of every SSE request header (SSE-S3, SSE-KMS and SSE-C):
 # the multipart calls refuse them.
 _SSE_HEADER_PREFIX = "x-amz-server-side-encryption"
-# Stored metadata of objects whose bytes live on a remote tier.
-_UNPORTED_OBJECT_META = ("x-mtpu-internal-transition-tier",)
-
-
-@functools.lru_cache(maxsize=256)
-def _holds_transition(lifecycle_xml: str) -> bool:
-    """Whether a stored lifecycle document has a Transition rule, read
-    as the scanner reads it (a rule that does not parse is dropped)."""
-    try:
-        rules = Lifecycle.parse(lifecycle_xml, best_effort=True).rules
-    except LifecycleError:
-        return False
-    return any(r.transition_tier or r.transition_days is not None
-               or r.transition_date is not None for r in rules)
+# A tiered object's stored bytes come back from the tier this much at a
+# time.
+_TIER_PIECE = 1 << 20
 
 
 def iso8601(ns: int) -> str:
@@ -336,19 +332,22 @@ class S3ApiHandlers:
     set or a restore applies at once) gives the compression filters and
     the storage classes' parity (None: no compression, the set's default
     parity for both classes). `quota` is the server's BucketQuotaSys
-    (None: one over a listing walk)."""
+    (None: one over a listing walk). `tier_engine` is the server's
+    tier.TierEngine (None: a transitioned object's GET answers
+    InvalidObjectState, ?restore NotImplemented)."""
 
     # A version's tags live in its metadata, url-encoded (UserTags).
     TAGS_META_KEY = "x-mtpu-internal-tags"
     MAX_TAGS = 10
 
     def __init__(self, object_layer, bucket_meta, sse_config=None,
-                 config_sys=None, quota=None):
+                 config_sys=None, quota=None, tier_engine=None):
         self.ol = object_layer
         self.bm = bucket_meta
         self.sse_config = sse_config
         self.config_sys = config_sys
         self.quota = quota or BucketQuotaSys(object_layer, bucket_meta)
+        self.tier_engine = tier_engine
 
     @property
     def config(self):
@@ -361,10 +360,6 @@ class S3ApiHandlers:
             if getattr(bmeta, f):
                 raise S3Error("NotImplemented",
                               f"bucket {bucket}: {f} is not ported")
-        if bmeta.lifecycle_xml and _holds_transition(bmeta.lifecycle_xml):
-            raise S3Error("NotImplemented",
-                          f"bucket {bucket}: lifecycle transition is not "
-                          "ported")
         # versionId "null" stays the literal, so that the object layer
         # sees a targeted request (a delete of the null version removes
         # it instead of writing a marker); the journal maps it to "".
@@ -703,9 +698,7 @@ class S3ApiHandlers:
     def bucket_lifecycle(self, ctx) -> Response:
         """?lifecycle: a PUT's rules are validated as they are written
         (ParseLifecycleConfig and Validate): XML that does not parse is
-        MalformedXML, a rule that does not validate InvalidArgument. A
-        valid document with a Transition is NotImplemented: the port has
-        no remote tiers."""
+        MalformedXML, a rule that does not validate InvalidArgument."""
         def validate():
             try:
                 lc = Lifecycle.parse(ctx.body.decode())
@@ -715,9 +708,6 @@ class S3ApiHandlers:
                 lc.validate()
             except LifecycleError as exc:
                 raise S3Error("InvalidArgument", str(exc)) from exc
-            if _holds_transition(ctx.body.decode()):
-                raise S3Error("NotImplemented",
-                              "lifecycle transition is not ported")
 
         return self._xml_subresource(
             ctx, "lifecycle_xml", "NoSuchLifecycleConfiguration",
@@ -1041,9 +1031,12 @@ class S3ApiHandlers:
             src_info = self.ol.get_object_info(sbucket, sobject, src_opts)
         except StorageError as exc:
             raise from_object_error(exc) from exc
-        for k in _UNPORTED_OBJECT_META:
-            if src_info.user_defined.get(k):
-                raise S3Error("NotImplemented", f"{sobject}: {k}")
+        if (tier.is_transitioned(src_info.user_defined)
+                and not tier.is_restored(src_info.user_defined)):
+            # The source's bytes live on its tier (MinIO answers so;
+            # minio_tpu reads the freed shards, ROADMAP.md Queue 3).
+            raise S3Error("InvalidObjectState",
+                          f"{sobject} is transitioned")
         self._copy_source_conditions(ctx, src_info)
         return sbucket, sobject, src_opts, src_info
 
@@ -1196,12 +1189,15 @@ class S3ApiHandlers:
         if oi.version_id and oi.version_id != "null":
             headers["x-amz-version-id"] = oi.version_id
         for k, v in oi.user_defined.items():
-            if k.startswith("x-amz-meta-") or k in objectlock.LOCK_META_KEYS:
+            if (k.startswith("x-amz-meta-") or k in objectlock.LOCK_META_KEYS
+                    or k == tier.META_RESTORE):
                 headers[k] = v
             elif k in _REMEMBERED_HEADERS and k != "content-type":
                 headers[k.title()] = v
-        if oi.user_defined.get("x-amz-storage-class",
-                               "STANDARD") != "STANDARD":
+        if tier.is_transitioned(oi.user_defined):
+            headers["x-amz-storage-class"] = oi.user_defined[tier.META_TIER]
+        elif oi.user_defined.get("x-amz-storage-class",
+                                 "STANDARD") != "STANDARD":
             headers["x-amz-storage-class"] = \
                 oi.user_defined["x-amz-storage-class"]
         ntags = len(urllib.parse.parse_qsl(
@@ -1221,9 +1217,6 @@ class S3ApiHandlers:
             raise from_object_error(exc) from exc
         if oi.delete_marker:
             raise S3Error("NoSuchKey", ctx.object)
-        for k in _UNPORTED_OBJECT_META:
-            if oi.user_defined.get(k):
-                raise S3Error("NotImplemented", f"{ctx.object}: {k}")
         return oi
 
     def get_object(self, ctx) -> Response:
@@ -1237,6 +1230,10 @@ class S3ApiHandlers:
                                                      oi.size)
         rng = parse_range(ctx.headers.get("range", ""), logical_size)
         offset, length = rng if rng else (0, logical_size)
+        if (tier.is_transitioned(oi.user_defined)
+                and not tier.is_restored(oi.user_defined)):
+            return self._get_tiered(ctx, oi, rng, offset, length,
+                                    logical_size)
         # The decode slot is taken inside the body stream, after the
         # status line, where a queue-full rejection could only sever the
         # connection: probe the read governor now and answer 503
@@ -1288,6 +1285,77 @@ class S3ApiHandlers:
                 f"bytes {offset}-{offset + length - 1}/{logical_size}")
             return Response(206, headers, body_stream=stream)
         return Response(200, headers, body_stream=stream)
+
+    def _get_tiered(self, ctx, oi, rng, offset: int, length: int,
+                    logical_size: int) -> Response:
+        """GET of a transitioned version with no live restored copy
+        (getTransitionedObjectReader): its stored bytes come back from
+        the tier whole and run through the decrypt -> decompress -> range
+        chain, whose keys (sealed in the local metadata, never on the
+        tier) are checked before the status line. A tier that fails
+        answers 503 ServiceUnavailable."""
+        if self.tier_engine is None:
+            raise S3Error("InvalidObjectState", "object is transitioned and "
+                          "no tier engine is configured")
+        try:
+            spool, tier_name = self.tier_engine.open_remote_spool(
+                oi.user_defined)
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        sink = _Sink()
+        try:
+            chain, closers, resp_extra = transforms.build_get_chain(
+                oi.user_defined, ctx.headers, self.sse_config, ctx.bucket,
+                ctx.object, sink, offset=offset, length=length,
+                device=self.ol.device)
+        except BaseException:
+            spool.close()
+            raise
+
+        def stream(dst):
+            sink.dst = dst
+            with spool, self.tier_engine.timed("invert"):
+                while True:
+                    piece = spool.read(_TIER_PIECE)
+                    if not piece:
+                        break
+                    chain.write(piece)
+                for c in closers:
+                    c.close()
+
+        headers = self._object_headers(ctx, oi)
+        headers.update(resp_extra)
+        headers["Content-Length"] = str(length)
+        headers["x-amz-storage-class"] = tier_name
+        if rng:
+            headers["Content-Range"] = (
+                f"bytes {offset}-{offset + length - 1}/{logical_size}")
+            return Response(206, headers, body_stream=stream)
+        return Response(200, headers, body_stream=stream)
+
+    def restore_object(self, ctx) -> Response:
+        """POST ?restore (PostRestoreObjectHandler): a temporary local
+        copy of a transitioned object for the request's Days (at least
+        1), 202; InvalidObjectState for an object that is not
+        transitioned."""
+        self._check_bucket(ctx.bucket)
+        if self.tier_engine is None:
+            raise S3Error("NotImplemented", "no tier engine configured")
+        days = 1
+        if ctx.body:
+            try:
+                for el in ET.fromstring(ctx.body).iter():
+                    if el.tag.endswith("Days"):
+                        days = max(1, int((el.text or "1").strip()))
+            except (ET.ParseError, ValueError) as exc:
+                raise S3Error("MalformedXML", str(exc)) from exc
+        try:
+            self.tier_engine.restore(ctx.bucket, ctx.object, days)
+        except ErrInvalidArgument as exc:
+            raise S3Error("InvalidObjectState", str(exc)) from exc
+        except StorageError as exc:
+            raise from_object_error(exc) from exc
+        return Response(202)
 
     def head_object(self, ctx) -> Response:
         self._check_bucket(ctx.bucket)

@@ -143,7 +143,7 @@ _MUTATING_SUBRESOURCE_ACTIONS = {
 # NotImplemented once the request is authenticated and authorized.
 _UNPORTED_ROUTES = frozenset({
     "listen_notification", "bucket_replication", "bucket_notification",
-    "select_object_content", "restore_object",
+    "select_object_content",
 })
 
 # The op class of each route, minio_tpu's: the heal pacer counts the disk
@@ -465,12 +465,15 @@ class S3Server:
     server its throttle and CORS origins; without it the config routes
     answer NotImplemented and the defaults hold. `quota` (a
     bucket.quota.BucketQuotaSys) admits writes under the buckets' hard
-    quotas; without it one over a listing walk does."""
+    quotas; without it one over a listing walk does. `tier_engine` (a
+    tier.TierEngine) serves transitioned objects and ?restore, and
+    `tiers` (its tier.TierConfigMgr) backs the admin tier routes;
+    without them those answer as the handlers and admin say."""
 
     def __init__(self, object_layer, iam: IAMSys, bucket_meta,
                  host: str = "127.0.0.1", port: int = 0, device="cuda",
                  sse_config=None, metrics=None, config_sys=None,
-                 quota=None):
+                 quota=None, tier_engine=None, tiers=None):
         self.device = resolve_device(device)
         if object_layer.device != self.device:
             raise ValueError(f"the object layer runs on "
@@ -479,14 +482,16 @@ class S3Server:
             raise ValueError(f"the SSE config runs on {sse_config.device}, "
                              f"not {self.device}")
         self.handlers = S3ApiHandlers(object_layer, bucket_meta, sse_config,
-                                      config_sys=config_sys, quota=quota)
+                                      config_sys=config_sys, quota=quota,
+                                      tier_engine=tier_engine)
         # Requests in flight, which a heal sequence yields to.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self.admin = AdminHandlers(
             object_layer, iam, lambda: self._inflight,
             kms=sse_config.kms if sse_config is not None else None,
-            metrics=metrics, config_sys=config_sys, bucket_meta=bucket_meta)
+            metrics=metrics, config_sys=config_sys, bucket_meta=bucket_meta,
+            tiers=tiers)
         self.iam = iam
         self.metrics = metrics
         kvs = config_sys.config.get("api") if config_sys is not None else {}
@@ -870,6 +875,16 @@ class S3Server:
             headers.setdefault("Content-Security-Policy",
                                "block-all-mixed-content")
             headers.setdefault("Server", "MinIO-TPU")
+            # The browser cache policy of the /minio/ paths
+            # (setBrowserCacheControlHandler): versioned assets cache
+            # for a year, everything else never.
+            if (ctx.method == "GET" and ctx.path.startswith("/minio/")
+                    and "Cache-Control" not in headers):
+                if (ctx.path.endswith(".js")
+                        or ctx.path == "/minio/favicon.ico"):
+                    headers["Cache-Control"] = "max-age=31536000"
+                else:
+                    headers["Cache-Control"] = "no-store"
             allow = self._cors_allow(ctx.headers.get("origin", ""))
             if allow:
                 headers.setdefault("Access-Control-Allow-Origin", allow)

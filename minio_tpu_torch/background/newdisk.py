@@ -15,6 +15,7 @@ import json
 import threading
 import time
 
+from ..bucket.metadata import META_BUCKET
 from ..object.sets import read_format, write_format
 from ..storage.local import SYSTEM_META_BUCKET
 from ..utils.errors import ErrCorruptedFormat, ErrUnformattedDisk, StorageError
@@ -142,6 +143,7 @@ class FreshDiskHealer:
         versions short; other sets' keys would multiply the I/O by the
         set count). Returns True when the sweep completed."""
         sets = self._owning_sets(es)
+        self._heal_system_volume(es)
         # list_buckets lists user buckets only: the system bucket
         # (.minio.sys) is not swept, as in minio_tpu.
         names = sorted(b.name for b in self.ol.list_buckets())
@@ -222,6 +224,25 @@ class FreshDiskHealer:
             return False
         self.healed_disks.append(tracker.endpoint)
         return True
+
+    @staticmethod
+    def _heal_system_volume(es) -> None:
+        """Make the system bucket's volume on the drives that lack it once
+        a drive of the set holds it, as MinIO makes the meta volumes on a
+        drive it formats. Without it every later write into .minio.sys
+        (the scanner's usage, the config, the bucket metadata) misses the
+        fresh drive and queues an MRF heal that cannot make the volume
+        either. (minio_tpu never makes it.) Its objects are still not
+        swept."""
+        for peer in es.disks:
+            if peer is None:
+                continue
+            try:
+                peer.stat_vol(META_BUCKET)
+            except (StorageError, OSError):
+                continue
+            es.heal_bucket(META_BUCKET)
+            return
 
     def _heal_versions(self, sets, es, bucket: str, key: str, vids: list,
                        tracker: HealingTracker) -> None:

@@ -14,9 +14,15 @@ NewerNoncurrentVersions are deleted, except a version under retention or
 legal hold, which MinIO keeps (evalActionFromLifecycle) and minio_tpu
 deletes; a delete marker left alone goes with ExpiredObjectDeleteMarker;
 and AbortIncompleteMultipartUpload aborts the bucket's stale uploads.
-Every deletion adds one to `ilm_expired_total`. Transitions to a remote
-tier are not ported: the S3 handlers refuse a bucket whose rules hold
-one.
+Every deletion adds one to `ilm_expired_total`.
+
+Tiers (tier.py, with the server's TierEngine): a current version that
+did not expire and whose Transition is due moves to the rule's tier
+(`ilm_transitioned_total`), and a transitioned version whose restored
+copy is past its expiry at the cycle's `now` drops back to metadata only
+(minio_tpu reads the wall clock there). A transition or expiry that
+fails is logged and tried again the next cycle; a write that raced the
+upload, or the listing an expiry was decided on, aborts it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from .. import tier
 from ..bucket import objectlock
 from ..bucket.lifecycle import Lifecycle, LifecycleError
 from ..object.types import ObjectOptions
@@ -141,7 +148,9 @@ class DataScanner:
     `bucket_meta` (a BucketMetadataSys; None: no rules) stores.
     `tracker` (a DataUpdateTracker) lets a cycle skip the buckets no
     write touched since the last. `metrics` receives the scanner_* and
-    ilm_expired_total series, `logger` the errors of a cycle."""
+    ilm_expired_total series, `logger` the errors of a cycle.
+    `tier_engine` (a tier.TierEngine; None: no Transition applies)
+    transitions and expires restored copies."""
 
     USAGE_PATH = "scanner/data-usage.json"
     META_BUCKET = ".minio.sys"
@@ -153,13 +162,14 @@ class DataScanner:
     def __init__(self, object_layer, bucket_meta=None,
                  heal_prob: int = HEAL_OBJECT_SELECT_PROB,
                  sleeper: DynamicSleeper | None = None, metrics=None,
-                 logger=None, tracker=None):
+                 logger=None, tracker=None, tier_engine=None):
         self.ol = object_layer
         self.bm = bucket_meta
         self.heal_prob = max(1, heal_prob)
         self.sleeper = sleeper or DynamicSleeper()
         self.metrics = metrics
         self.logger = logger
+        self.tier_engine = tier_engine
         self.usage = DataUsageInfo()
         self.tracker = tracker
         self.cycles_completed = 0
@@ -343,21 +353,40 @@ class DataScanner:
     def _apply_lifecycle(self, bucket: str, oi, rules, now_ns: int) -> bool:
         """Expire the current version `oi` if a rule says so, as an
         untargeted DELETE does in its bucket: a delete marker where
-        versioning is enabled, else the (null) version removed. True
-        when it expired."""
-        if not rules.expire_current(oi.name, oi.user_defined,
-                                    oi.mod_time_ns, now_ns / 1e9):
+        versioning is enabled, else the (null) version removed. One that
+        stays moves to its tier when a Transition is due, and a restored
+        copy past its expiry goes. True when it expired."""
+        now_s = now_ns / 1e9
+        if rules.expire_current(oi.name, oi.user_defined, oi.mod_time_ns,
+                                now_s):
+            bmeta = self.bm.get(bucket)
+            try:
+                self.ol.delete_object(bucket, oi.name, ObjectOptions(
+                    versioned=bmeta.versioning_enabled,
+                    version_suspended=bmeta.versioning_suspended))
+            except StorageError as exc:
+                self._log(exc, f"ilm:{bucket}")
+            else:
+                self._expired()
+                return True
+        if self.tier_engine is None:
             return False
-        bmeta = self.bm.get(bucket)
-        try:
-            self.ol.delete_object(bucket, oi.name, ObjectOptions(
-                versioned=bmeta.versioning_enabled,
-                version_suspended=bmeta.versioning_suspended))
-        except StorageError as exc:
-            self._log(exc, f"ilm:{bucket}")
+        if tier.is_transitioned(oi.user_defined):
+            try:
+                self.tier_engine.expire_restored(
+                    bucket, oi.name, oi.user_defined, now_s,
+                    mod_time_ns=oi.mod_time_ns)
+            except (StorageError, OSError) as exc:
+                self._log(exc, f"tier-expire:{bucket}")
             return False
-        self._expired()
-        return True
+        tier_name = rules.transition_tier_due(oi.name, oi.user_defined,
+                                              oi.mod_time_ns, now_s)
+        if tier_name:
+            try:
+                self.tier_engine.transition(bucket, oi.name, tier_name)
+            except (StorageError, OSError) as exc:
+                self._log(exc, f"tier:{bucket}")
+        return False
 
     def _versions_sweep(self, bucket: str, rules, now_ns: int) -> None:
         """Version-level lifecycle (applyVersionActions): delete the

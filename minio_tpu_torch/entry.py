@@ -33,7 +33,12 @@ restart that loads the config and throttles. `s3_lock_quota_lifecycle()`
 drives object lock, the hard bucket quota and lifecycle expiry over HTTP:
 WORM versions refused deletion, read degraded and healed, GOVERNANCE and
 legal hold, PUT and UploadPart refused by the quota, the quota reading
-the scanner's usage, and the scanner's lifecycle sweep.
+the scanner's usage, and the scanner's lifecycle sweep. `s3_tiering()`
+drives remote tiers over HTTP, a server tiered to a second one in the
+same process: the admin tier routes, the scanner's transition of a
+plain, an SSE-S3 and a compressed-then-sealed object, GETs whole and
+ranged through the tier, degraded on the cold server, a restore and its
+expiry, and a heal that keeps the tiered versions.
 """
 
 from __future__ import annotations
@@ -564,10 +569,12 @@ def s3_object_names(small_count: int) -> list[str]:
 
 
 def _heal_bucket(client: S3Client, bucket: str,
-                 timeout_s: float = 600.0) -> dict:
-    """Start an admin heal of `bucket` and poll it to its end."""
+                 timeout_s: float = 600.0, remove: bool = False) -> dict:
+    """Start an admin heal of `bucket` (with `remove`: dangling objects
+    deleted) and poll it to its end."""
     path = f"/minio/admin/v3/heal/{bucket}"
-    status, _, body = client.request("POST", path)
+    status, _, body = client.request(
+        "POST", path, [("remove", "true")] if remove else None)
     if status != 200:
         raise AssertionError(f"admin heal: {status} {body[:200]!r}")
     token = json.loads(body)["clientToken"]
@@ -1340,16 +1347,34 @@ def self_heal(root, size: int, device="cuda", big_count: int = 6,
             bk, max_keys=100000).versions) for bk in user)
         pace0 = healpace.pacer().snapshot()
         repair0 = repair.stats_snapshot()
+        # Every heal in the window by the thread that ran it: the sweep's
+        # loop, or the MRF drain, the monitor's reconnect drain and the
+        # scanner when their loops land in it.
+        window_heals: dict = {}
+        window_mu = threading.Lock()
+        heal_object = es.heal_object
+
+        def counted_heal(*args, **kwargs):
+            name = threading.current_thread().name
+            with window_mu:
+                window_heals[name] = window_heals.get(name, 0) + 1
+            return heal_object(*args, **kwargs)
+
+        es.heal_object = counted_heal
         _sync(dev)
         before = counters()
         t_wipe = time.monotonic()
-        _replace_drive(drive[SELF_HEAL_WIPED], root / wiped)
-        tracker = root / wiped / ".mtpu.sys" / "healing.json"
-        t_tracker = _wait_for(tracker.is_file, 30, "healing.json written")
-        endpoint = drive[SELF_HEAL_WIPED].endpoint()
-        t_healed = _wait_for(
-            lambda: endpoint in server.fresh_disk_healer.healed_disks, 120,
-            f"{wiped} healed")
+        try:
+            _replace_drive(drive[SELF_HEAL_WIPED], root / wiped)
+            tracker = root / wiped / ".mtpu.sys" / "healing.json"
+            t_tracker = _wait_for(tracker.is_file, 30,
+                                  "healing.json written")
+            endpoint = drive[SELF_HEAL_WIPED].endpoint()
+            t_healed = _wait_for(
+                lambda: endpoint in server.fresh_disk_healer.healed_disks,
+                120, f"{wiped} healed")
+        finally:
+            del es.heal_object
         _sync(dev)
         out["counters"]["sweep"] = _delta(before, counters())
         out["seconds"]["wipe_to_healed"] = t_healed - t_wipe
@@ -1373,6 +1398,7 @@ def self_heal(root, size: int, device="cuda", big_count: int = 6,
             "pacer_grants": pace1["grants_total"] - pace0["grants_total"],
             "pacer_deadline_grants": (pace1["deadline_grants_total"]
                                       - pace0["deadline_grants_total"]),
+            "heals_by_thread": dict(sorted(window_heals.items())),
         }
         # Every file back equal, but the versioned key's journal: a heal
         # writes each version's is-latest flag as it reads it, and the
@@ -2727,17 +2753,19 @@ def seeded_text(size: int, seed: int) -> bytes:
         :size].tobytes()
 
 
-def _sha_get(c: S3Client, key: str, headers=None) -> tuple[int, str, int]:
-    """GET `key` into a SHA-256: (status, hex digest, bytes)."""
+def _sha_get(c: S3Client, key: str, headers=None):
+    """GET `key` into a SHA-256: (status, hex digest, bytes, the
+    response's headers with lower-case names)."""
     h = hashlib.sha256()
-    n = [0]
+    status, got, n = c.get_stream(key, h.update, None, headers)
+    return status, h.hexdigest(), n, {k.lower(): v for k, v in got.items()}
 
-    def sink(piece):
-        h.update(piece)
-        n[0] += len(piece)
 
-    status, _, _ = c.get_stream(key, sink, None, headers)
-    return status, h.hexdigest(), n[0]
+def _scraped(client: S3Client, series: str) -> float | None:
+    """The value of the mtpu_`series` line of a cluster scrape."""
+    text = client.request("GET", "/minio/v2/metrics/cluster")[2].decode()
+    m = re.search(rf"^mtpu_{series}(?:\{{[^}}]*\}})? (\S+)$", text, re.M)
+    return float(m.group(1)) if m else None
 
 
 def _shape_delta(before: dict, after: dict) -> dict:
@@ -2843,14 +2871,14 @@ def config_compression(root, size: int, device="cuda", seed: int = 80,
             and fi.metadata.get(tfm.META_UNCOMPRESSED_SIZE) == str(size)
             and fi.size == int(fi.metadata[tfm.META_COMPRESSED_SIZE])
             and fi.size < size)
-        status, digest, n = step("get", lambda: _sha_get(
+        status, digest, n, _ = step("get", lambda: _sha_get(
             c, f"{b}/{CFG_TEXT}"))
         checks["get_sha256_ok"] = (status == 200 and n == size
                                    and digest == want[CFG_TEXT])
         first = size // 2 - range_size // 2
         last = first + range_size - 1
         out["range"] = [first, range_size]
-        status, digest, n = step("range_get", lambda: _sha_get(
+        status, digest, n, _ = step("range_get", lambda: _sha_get(
             c, f"{b}/{CFG_TEXT}", {"Range": f"bytes={first}-{last}"}))
         checks["range_get_sha256_ok"] = (
             status == 206 and n == range_size
@@ -2861,7 +2889,7 @@ def config_compression(root, size: int, device="cuda", seed: int = 80,
         for i in S3_WIPED:
             shutil.rmtree(root / f"d{i + 1}" / CFG_BUCKET / CFG_TEXT)
             raw[i].set_online(False)
-        status, digest, _ = step("degraded_get", lambda: _sha_get(
+        status, digest, _, _ = step("degraded_get", lambda: _sha_get(
             c, f"{b}/{CFG_TEXT}"))
         checks["degraded_get_sha256_ok"] = (status == 200
                                            and digest == want[CFG_TEXT])
@@ -2888,7 +2916,7 @@ def config_compression(root, size: int, device="cuda", seed: int = 80,
             == fi.metadata.get(tfm.META_COMPRESSED_SIZE)
             and fi.size == ssemod.encrypted_size(
                 int(fi.metadata[tfm.META_COMPRESSED_SIZE])))
-        status, digest, _ = step("sse_get", lambda: _sha_get(
+        status, digest, _, _ = step("sse_get", lambda: _sha_get(
             c, f"{b}/{CFG_SSE}"))
         checks["sse_get_sha256_ok"] = (status == 200
                                        and digest == want[CFG_TEXT])
@@ -2929,7 +2957,7 @@ def config_compression(root, size: int, device="cuda", seed: int = 80,
             and cfg.get("storage_class")["rrs"] == "EC:2"
             and server.s3._requests_sem is not None
             and server.s3._requests_deadline_s == 1.0)
-        status, digest, _ = step("get_after_restart", lambda: _sha_get(
+        status, digest, _, _ = step("get_after_restart", lambda: _sha_get(
             c, f"{b}/{CFG_TEXT}"))
         checks["get_after_restart_sha256_ok"] = (
             status == 200 and digest == want[CFG_TEXT])
@@ -3364,10 +3392,7 @@ def s3_lock_quota_lifecycle(root, size: int, device="cuda",
         step("ilm_scan", scanner.scan_cycle)
         left = [v.version_id for v in server.object_layer.list_object_versions(
             LQL_VERSIONS, max_keys=100).versions]
-        scrape = c.request("GET", "/minio/v2/metrics/cluster")[2].decode()
-        m = re.search(r"^mtpu_ilm_expired_total(?:\{[^}]*\})? (\S+)$",
-                      scrape, re.M)
-        out["ilm_expired_total"] = float(m.group(1)) if m else None
+        out["ilm_expired_total"] = _scraped(c, "ilm_expired_total")
         out["ilm_left_versions"] = left
         checks["ilm_logs_expired"] = (
             expired == [LQL_LOGS_KEY]
@@ -3386,5 +3411,335 @@ def s3_lock_quota_lifecycle(root, size: int, device="cuda",
         server.stop()
     out["system_objects"] = {f"write-{n}": size
                              for n, size in enumerate(sorted(system_sizes))}
+    out["checks"] = checks
+    return out
+
+
+# Remote tiers (phase 4p of chip_smoke.py)
+
+TIER_BUCKET, TIER_COLD_BUCKET = "tiered", "coldstore"
+TIER_NAME, TIER_PREFIX = "COLD", "tiered"
+TIER_PLAIN, TIER_SSE, TIER_TEXT = "plain.bin", "sse.bin", "text.log"
+TIER_LC = (b"<LifecycleConfiguration><Rule><ID>cold</ID><Status>Enabled"
+           b"</Status><Filter><Prefix></Prefix></Filter><Transition><Days>1"
+           b"</Days><StorageClass>COLD</StorageClass></Transition></Rule>"
+           b"</LifecycleConfiguration>")
+TIER_RANGE = 3 << 20
+TIER_AHEAD_NS = 2 * 86400 * 10 ** 9      # the transition sweep's "now"
+TIER_EXPIRY_AHEAD_NS = 3 * 86400 * 10 ** 9  # the restore expiry's
+TIER_PLAINTEXT_RUN = 64
+
+
+def _part_shas(root: Path, bucket: str, name: str, drives: int) -> dict:
+    """{drive: SHA-256} of every part file of the object (any data dir)."""
+    return {i: hashlib.sha256(p.read_bytes()).hexdigest()
+            for i in range(1, drives + 1)
+            for p in sorted((root / f"d{i}" / bucket / name).glob("*/part.*"))}
+
+
+def s3_tiering(root, size: int, device="cuda", text_size: int = 64 << 20,
+               drives: int = 16, parity: int = 4, lost=S3_WIPED,
+               range_size: int = TIER_RANGE, seed: int = 100) -> dict:
+    """Drive remote tiers over HTTP: a hot Server over `drives` fresh
+    drive directories under `root`/hot (one set, `parity` parity,
+    compression on for .log), tiered to a cold Server over `root`/cold
+    holding the bucket `coldstore`, both on `device` in this process and
+    each with its S3 plane alone:
+
+    1. `tier_settings` compression on; `tier_add` the admin add-tier of
+       COLD (the cold server's coldstore under the prefix `tiered`),
+       list-tiers showing it without its secret key;
+    2. `tier_put_plain`, `tier_put_sse`, `tier_put_text`: a `size`-byte
+       seeded object, the same bytes SSE-S3, and `text_size` bytes of
+       seeded_text as an SSE-S3 .log object (compressed, then sealed);
+    3. `tier_lifecycle`: a Transition after a day to COLD, stored;
+    4. `tier_transition`: the scanner's lifecycle step on each object
+       with `now` two days ahead: each transitioned, no part file left
+       on a hot drive, every hot xl.meta keeping the version with the
+       tier markers, coldstore holding three objects of the stored
+       sizes, neither SSE object's remote copy holding a run of 64 bytes
+       of its plaintext (at five offsets), ilm_transitioned_total 3;
+    5. `tier_get`, `tier_range_get`: each object's GET exact by SHA-256
+       with `x-amz-storage-class: COLD` (and its HEAD), and `range_size`
+       bytes from its middle exact;
+    6. `tier_degraded_get`: the plain object's remote copy lost on the
+       cold drives `lost` (0, 5, 12 and 15) and those drives offline,
+       its GET exact
+       (kernel A rebuilds on the cold server); `tier_cold_heal` the
+       drives back and the remote copy healed, its files equal to the
+       originals;
+    7. `tier_restore`: POST ?restore with Days 1 on the plain object,
+       202, each hot drive's part file equal to its own before the
+       transition; `tier_restored_get` its local GET exact with
+       x-amz-restore;
+    8. `tier_restore_expiry`: the scanner's step with `now` three days
+       ahead drops the restored copy (no part file left),
+       ilm_restored_total 1; `tier_expired_get` its GET from the tier
+       exact;
+    9. `tier_heal`: the plain object's xl.meta lost on hot drive 1, an
+       admin heal of the bucket with remove=true: all three versions
+       kept, the xl.meta back; `tier_get_after_heal` the three GETs
+       exact;
+    10. `tier_remove_refused`: remove-tier COLD answered InvalidArgument
+        while the lifecycle names it.
+
+    Returns each step's seconds and counter deltas, kernel A's launches
+    by shape in each step, the hot TierEngine's `seconds` by part in
+    each step (`tier_parts`), the stored sizes, the cold remote keys, the
+    reconstructions the cold server ran (unavailable and rebuilt shards),
+    the sizes of the .minio.sys objects both servers wrote, and the
+    checks."""
+    from . import tier as tiermod
+    from .api import transforms as tfm
+    from .object.metadata import hash_order
+    from .ops import rs_cuda
+
+    dev = resolve_device(device)
+    root = Path(root)
+    hot_root, cold_root = root / "hot", root / "cold"
+    k = drives - parity
+    out: dict = {"size": size, "text_size": text_size, "k": k, "m": parity,
+                 "lost": list(lost), "range_size": range_size,
+                 "seconds": {}, "counters": {}, "gf_by_shape": {},
+                 "tier_parts": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    rng = np.random.default_rng(seed)
+    plain = rng.bytes(size)
+    text = seeded_text(text_size, seed + 1)
+    bodies = {TIER_PLAIN: plain, TIER_SSE: plain, TIER_TEXT: text}
+    want = {n: hashlib.sha256(b).hexdigest() for n, b in bodies.items()}
+    names = list(bodies)
+    b = f"/{TIER_BUCKET}"
+    admin = "/minio/admin/v3"
+
+    def step(label, fn):
+        shapes = rs_cuda.LAUNCHES_BY_SHAPE.snapshot()
+        parts = dict(hot.tier_engine.seconds)
+        res = phase(label, fn)
+        out["gf_by_shape"][label] = _shape_delta(
+            shapes, rs_cuda.LAUNCHES_BY_SHAPE.snapshot())
+        spent = _shape_delta(parts, hot.tier_engine.seconds)
+        if spent:
+            out["tier_parts"][label] = spent
+        return res
+
+    system_sizes: set = set()
+
+    def server(path: Path):
+        srv = Server([str(path / f"d{{1...{drives}}}")], port=0,
+                     root_user=S3_ACCESS, root_password=S3_SECRET,
+                     default_parity=parity, device=dev)
+        put_object = srv.object_layer.put_object
+
+        def noting_put(bucket, name, reader, size, opts=None):
+            if bucket == ".minio.sys":
+                system_sizes.add(size)
+            return put_object(bucket, name, reader, size, opts)
+
+        srv.object_layer.put_object = noting_put
+        srv.s3.start()
+        return srv
+
+    def meta(i: int, name: str):
+        return LocalStorage(str(hot_root / f"d{i}"), device="cpu"
+                            ).read_version(TIER_BUCKET, name)
+
+    def parts_left(name: str) -> int:
+        return len(_part_shas(hot_root, TIER_BUCKET, name, drives))
+
+    def gets(headers_of=lambda name: None):
+        return {n: _sha_get(c, f"{b}/{n}", headers_of(n))
+                for n in names}
+
+    def exact(res: dict, status: int = 200, windows=None) -> bool:
+        return all(st == status and dg == (want[n] if windows is None
+                                           else windows[n][1])
+                   and h.get("x-amz-storage-class") == TIER_NAME
+                   for n, (st, dg, _, h) in res.items())
+
+    cold = server(cold_root)
+    hot = None
+    try:
+        hot = server(hot_root)
+        c = S3Client(hot.endpoint, S3_ACCESS, S3_SECRET)
+        cc = S3Client(cold.endpoint, S3_ACCESS, S3_SECRET)
+        checks["buckets_ok"] = [cc.request("PUT", f"/{TIER_COLD_BUCKET}")[0],
+                                c.request("PUT", b)[0]] == [200, 200]
+        st = step("tier_settings", lambda: c.request(
+            "PUT", f"{admin}/set-config-kv", body=CFG_SETTINGS[0])[0])
+        checks["settings_ok"] = st == 200
+        spec = {"name": TIER_NAME, "endpoint": cold.endpoint,
+                "access_key": S3_ACCESS, "secret_key": S3_SECRET,
+                "bucket": TIER_COLD_BUCKET, "prefix": TIER_PREFIX}
+
+        def add_tier():
+            st = c.request("PUT", f"{admin}/add-tier",
+                           body=json.dumps(spec).encode())[0]
+            _, _, listed = c.request("GET", f"{admin}/list-tiers")
+            return st, json.loads(listed)
+
+        st, listed = step("tier_add", add_tier)
+        checks["tier_added"] = st == 200 and listed == {TIER_NAME: {
+            k_: v for k_, v in spec.items()
+            if k_ not in ("name", "secret_key")}}
+
+        for label, name, headers in (
+                ("tier_put_plain", TIER_PLAIN, None),
+                ("tier_put_sse", TIER_SSE, sse_put_headers("sse-s3")),
+                ("tier_put_text", TIER_TEXT, sse_put_headers("sse-s3"))):
+            body = bodies[name]
+            st, _, _ = step(label, lambda: c.put_stream(
+                f"{b}/{name}", _PayloadReader(body), len(body), headers))
+            checks[f"{label}_ok"] = st == 200
+        stored = {n: meta(1, n).size for n in names}
+        out["stored_sizes"] = stored
+        fi = meta(1, TIER_TEXT)
+        checks["text_compressed_then_sealed"] = (
+            fi.metadata.get(tfm.META_COMPRESSION) == "s2"
+            and fi.metadata.get(ssemod.META_ALGORITHM) == ssemod.ALGO_SSES3)
+        before = {n: _part_shas(hot_root, TIER_BUCKET, n, drives)
+                  for n in names}
+        checks["parts_written"] = all(len(v) == drives
+                                      for v in before.values())
+
+        st = step("tier_lifecycle", lambda: c.request(
+            "PUT", b, [("lifecycle", "")], body=TIER_LC)[0])
+        checks["lifecycle_stored"] = st == 200
+
+        scanner = hot.scanner
+        rules = parse_lifecycle(TIER_LC.decode())
+
+        def sweep(ahead_ns: int):
+            now = time.time_ns() + ahead_ns
+            for oi in hot.object_layer.list_objects(
+                    TIER_BUCKET, max_keys=1000).objects:
+                scanner._apply_lifecycle(TIER_BUCKET, oi, rules, now)
+
+        step("tier_transition", lambda: sweep(TIER_AHEAD_NS))
+        metas = {n: [meta(i, n).metadata for i in range(1, drives + 1)]
+                 for n in names}
+        checks["transitioned"] = all(
+            tiermod.is_transitioned(m) and m.get(tiermod.META_TIER_KEY)
+            for ms in metas.values() for m in ms)
+        checks["no_hot_parts_left"] = all(parts_left(n) == 0 for n in names)
+        remote = {n: metas[n][0][tiermod.META_TIER_KEY] for n in names}
+        out["remote_keys"] = remote
+        listed = {o.name: o.size for o in cold.object_layer.list_objects(
+            TIER_COLD_BUCKET, max_keys=1000).objects}
+        checks["cold_holds_stored_sizes"] = listed == {
+            remote[n]: stored[n] for n in names}
+        checks["remote_keys_prefixed"] = all(
+            remote[n].startswith(f"{TIER_PREFIX}/{TIER_BUCKET}/{n}/")
+            for n in names)
+        for n in (TIER_SSE, TIER_TEXT):
+            raw = io.BytesIO()
+            cold.object_layer.get_object(TIER_COLD_BUCKET, remote[n], raw)
+            raw = raw.getvalue()
+            body = bodies[n]
+            offs = [0, len(body) // 4, len(body) // 2, 3 * len(body) // 4,
+                    len(body) - TIER_PLAINTEXT_RUN]
+            checks[f"{n}_remote_sealed"] = (
+                len(raw) == stored[n] and not any(
+                    body[o:o + TIER_PLAINTEXT_RUN] in raw for o in offs))
+            del raw
+        out["ilm_transitioned_total"] = _scraped(c, "ilm_transitioned_total")
+        checks["ilm_transitioned_total_3"] = (
+            out["ilm_transitioned_total"] == 3)
+
+        res = step("tier_get", gets)
+        heads = {n: c.request("HEAD", f"{b}/{n}")[1] for n in names}
+        checks["tier_get_exact"] = exact(res)
+        checks["tier_head_class"] = all(
+            {k_.lower(): v for k_, v in h.items()}.get("x-amz-storage-class")
+            == TIER_NAME for h in heads.values())
+        ranges = {}
+        for n in names:
+            first = len(bodies[n]) // 2 - range_size // 2
+            ranges[n] = (first, hashlib.sha256(
+                bodies[n][first:first + range_size]).hexdigest())
+        res = step("tier_range_get", lambda: gets(lambda n: {
+            "Range": f"bytes={ranges[n][0]}-"
+                     f"{ranges[n][0] + range_size - 1}"}))
+        checks["tier_range_get_exact"] = exact(res, 206, ranges) and all(
+            got == range_size for _, _, got, _ in res.values())
+
+        # The plain object's remote copy lost on four cold drives.
+        rkey = remote[TIER_PLAIN]
+        dist = hash_order(f"{TIER_COLD_BUCKET}/{rkey}", drives)
+        shards = sorted(dist[d] - 1 for d in lost)
+        out["cold_reconstructions"] = [[shards, shards],
+                                       [shards, [s for s in shards if s < k]]]
+        cold_files = _object_files(cold_root, TIER_COLD_BUCKET, rkey)
+        raw_disks = [unwrap(d) for d in cold.object_layer.pools[0].disks]
+        for i in lost:
+            shutil.rmtree(cold_root / f"d{i + 1}" / TIER_COLD_BUCKET / rkey)
+            raw_disks[i].set_online(False)
+        st, dg, _, h = step("tier_degraded_get", lambda: _sha_get(
+            c, f"{b}/{TIER_PLAIN}"))
+        checks["tier_degraded_get_exact"] = (st == 200
+                                             and dg == want[TIER_PLAIN])
+        for i in lost:
+            raw_disks[i].set_online(True)
+        healed = step("tier_cold_heal", lambda: cold.object_layer.heal_object(
+            TIER_COLD_BUCKET, rkey))
+        checks["cold_healed_identical"] = (
+            len(healed["healed"]) == len(lost)
+            and _object_files(cold_root, TIER_COLD_BUCKET, rkey)
+            == cold_files)
+
+        st, _, body = step("tier_restore", lambda: c.request(
+            "POST", f"{b}/{TIER_PLAIN}", [("restore", "")],
+            body=b"<RestoreRequest><Days>1</Days></RestoreRequest>"))
+        checks["restore_202"] = st == 202
+        checks["restored_parts_equal"] = (
+            _part_shas(hot_root, TIER_BUCKET, TIER_PLAIN, drives)
+            == before[TIER_PLAIN])
+        st, dg, _, h = step("tier_restored_get", lambda: _sha_get(
+            c, f"{b}/{TIER_PLAIN}"))
+        checks["restored_get_exact"] = (
+            st == 200 and dg == want[TIER_PLAIN]
+            and 'ongoing-request="false"' in h.get("x-amz-restore", ""))
+
+        step("tier_restore_expiry", lambda: sweep(TIER_EXPIRY_AHEAD_NS))
+        checks["restore_expired"] = (
+            parts_left(TIER_PLAIN) == 0
+            and tiermod.META_RESTORE not in meta(1, TIER_PLAIN).metadata)
+        out["ilm_restored_total"] = _scraped(c, "ilm_restored_total")
+        checks["ilm_restored_total_1"] = out["ilm_restored_total"] == 1
+        st, dg, _, h = step("tier_expired_get", lambda: _sha_get(
+            c, f"{b}/{TIER_PLAIN}"))
+        checks["expired_get_exact"] = (
+            st == 200 and dg == want[TIER_PLAIN]
+            and h.get("x-amz-storage-class") == TIER_NAME)
+
+        xl = hot_root / "d1" / TIER_BUCKET / TIER_PLAIN / "xl.meta"
+        xl_before = xl.read_bytes()
+        xl.unlink()
+        state = step("tier_heal", lambda: _heal_bucket(c, TIER_BUCKET,
+                                                       remove=True))
+        out["heal"] = {k_: state[k_] for k_ in ("Summary", "NumScanned",
+                                                "NumHealed", "NumFailed")}
+        checks["heal_ok"] = (state["Summary"] == "finished"
+                             and state["NumFailed"] == 0)
+        checks["heal_kept_versions"] = all(
+            tiermod.is_transitioned(meta(i, n).metadata)
+            for n in names for i in range(1, drives + 1))
+        checks["heal_rebuilt_xl_meta"] = (xl.is_file()
+                                          and xl.read_bytes() == xl_before)
+        res = step("tier_get_after_heal", gets)
+        checks["get_after_heal_exact"] = exact(res)
+
+        st, _, body = step("tier_remove_refused", lambda: c.request(
+            "DELETE", f"{admin}/remove-tier", [("name", TIER_NAME)]))
+        checks["remove_refused"] = (
+            st == 400 and b"<Code>InvalidArgument</Code>" in body
+            and hot.tiers.get(TIER_NAME) is not None)
+    finally:
+        if hot is not None:
+            hot.stop()
+        cold.stop()
+    out["system_objects"] = {f"write-{n}": s
+                             for n, s in enumerate(sorted(system_sizes))}
     out["checks"] = checks
     return out

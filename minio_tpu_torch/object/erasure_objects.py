@@ -28,6 +28,7 @@ import threading
 import time
 from contextlib import ExitStack, contextmanager
 
+from .. import tier
 from ..erasure import registry, repair
 from ..erasure.bitrot import (
     DIGEST_SIZE,
@@ -51,6 +52,7 @@ from ..utils.errors import (
     ErrDiskNotFound,
     ErrDiskOpTimeout,
     ErrErasureReadQuorum,
+    ErrErasureWriteQuorum,
     ErrFileCorrupt,
     ErrFileNotFound,
     ErrFileVersionNotFound,
@@ -803,6 +805,138 @@ class ErasureObjects(MultipartMixin):
         return new_mod_time
 
     # ------------------------------------------------------------------
+    # tier primitives (transitionObject, RestoreTransitionedObject,
+    # cmd/bucket-lifecycle.go): tier.TierEngine moves the stored bytes to
+    # and from the tier; these two rewrite the local state.
+
+    @staticmethod
+    def _check_unchanged(fi, bucket: str, object_: str, what: str,
+                         expected_mod_time_ns: int | None,
+                         expected_meta: dict | None) -> None:
+        """Abort a tier commit whose version changed since the tier
+        engine read it: another mod time, or a key of `expected_meta`
+        holding another value (None: the key must be absent)."""
+        changed = (expected_mod_time_ns is not None
+                   and fi.mod_time_ns != expected_mod_time_ns)
+        for k, v in (expected_meta or {}).items():
+            changed = changed or fi.metadata.get(k) != v
+        if changed:
+            raise ErrInvalidArgument(f"{bucket}/{object_} changed during "
+                                     f"{what}")
+
+    def transition_object(self, bucket: str, object_: str, version_id: str,
+                          updates: dict,
+                          expected_mod_time_ns: int | None = None,
+                          expected_meta: dict | None = None) -> None:
+        """Free the version's local shard data and keep its xl.meta with
+        `updates` merged in (a None value deletes the key).
+
+        `expected_mod_time_ns` and `expected_meta` guard the tier
+        engine's work, which ran without the lock (the upload of a
+        transition, the listing an expiry was decided on): a version
+        that changed meanwhile aborts the commit. The metadata commits
+        before the parts go, so a crash between the two leaves orphaned
+        part files, never a version whose data is gone with no tier
+        pointer. A commit below the version's write quorum is rolled
+        back on the drives that took it, drops no part and raises
+        ErrErasureWriteQuorum; minio_tpu drops the parts of every drive
+        that committed (ROADMAP.md Queue 3)."""
+        with self._locked(bucket, object_, writer=True):
+            fi, fis, _ = self._read_quorum_file_info(bucket, object_,
+                                                     version_id,
+                                                     read_data=True)
+            self._check_unchanged(fi, bucket, object_, "transition",
+                                  expected_mod_time_ns, expected_meta)
+            new_meta = dict(fi.metadata)
+            for k, v in updates.items():
+                if v is None:
+                    new_meta.pop(k, None)
+                else:
+                    new_meta[k] = v
+            committed = [False] * len(self.disks)
+
+            def write_meta(i, metadata):
+                m = FileInfo.from_dict(fis[i].to_dict())
+                m.volume, m.name = bucket, object_
+                if metadata is not None:
+                    m.metadata = dict(metadata)
+                    m.data = {}
+                self.disks[i].update_metadata(bucket, object_, m)
+
+            def commit_meta(i):
+                if self.disks[i] is None or fis[i] is None:
+                    return
+                try:
+                    write_meta(i, new_meta)
+                    committed[i] = True
+                except (StorageError, OSError):
+                    pass  # best effort a disk; heal brings it in line
+
+            def roll_back(i):
+                if committed[i]:
+                    try:
+                        write_meta(i, None)  # the version as it was read
+                    except (StorageError, OSError):
+                        pass  # heal brings it in line
+
+            def drop_parts(i):
+                disk, meta = self.disks[i], fis[i]
+                if (disk is None or meta is None or not committed[i]
+                        or not meta.data_dir):
+                    return
+                for part in meta.parts:
+                    try:
+                        disk.delete(bucket, f"{object_}/{meta.data_dir}/"
+                                            f"part.{part.number}")
+                    except (StorageError, OSError):
+                        pass  # already gone, or the disk is
+
+            fanout(commit_meta, len(self.disks))
+            data, parity = fi.erasure.data_blocks, fi.erasure.parity_blocks
+            write_quorum = data + (1 if data == parity else 0)
+            if sum(committed) < write_quorum:
+                fanout(roll_back, len(self.disks))
+                raise ErrErasureWriteQuorum(
+                    f"{bucket}/{object_}: transition committed on "
+                    f"{sum(committed)} of {write_quorum} drives")
+            fanout(drop_parts, len(self.disks))
+
+    def restore_object(self, bucket: str, object_: str, version_id: str,
+                       reader, size: int, updates: dict,
+                       expected_mod_time_ns: int | None = None,
+                       expected_meta: dict | None = None) -> None:
+        """Write the version's stored bytes back locally (the temporary
+        restore of a transitioned version), keeping its metadata, mod
+        time, version id and ETag, with `updates` merged in.
+
+        `expected_mod_time_ns` and `expected_meta` guard the fetch from
+        the tier, which ran without the lock: a version that changed
+        meanwhile (a PUT of the key) aborts the restore, where minio_tpu
+        writes the tier's bytes under the new version's metadata
+        (ROADMAP.md Queue 3). minio_tpu also drops the ETag and lets the
+        write compute the MD5 of the stored bytes, which gives a
+        multipart object another ETag than its PUT's; the port writes
+        the version's own back in the same locked section."""
+        with self._locked(bucket, object_, writer=True):
+            fi, _, _ = self._read_quorum_file_info(bucket, object_,
+                                                   version_id)
+            self._check_unchanged(fi, bucket, object_, "restore",
+                                  expected_mod_time_ns, expected_meta)
+            meta = dict(fi.metadata)
+            meta.update(updates)
+            etag = meta.pop("etag", "")
+            oi = self._put_object(bucket, object_, reader, size,
+                                  ObjectOptions(
+                                      version_id=version_id or "",
+                                      versioned=bool(version_id),
+                                      user_defined=meta,
+                                      mod_time_ns=fi.mod_time_ns))
+            if etag and oi.etag != etag:
+                self._update_object_metadata(bucket, object_, version_id,
+                                             {"etag": etag}, False)
+        ioflow.logical(oi.size)
+
+    # ------------------------------------------------------------------
     # heal (healObject, cmd/erasure-healing.go)
 
     def heal_object(self, bucket: str, object_: str, version_id: str = "",
@@ -833,6 +967,13 @@ class ErasureObjects(MultipartMixin):
         ref_fi = next(fi for fi in valid
                       if fi.mod_time_ns == mt and fi.data_dir == dd)
         data_blocks = ref_fi.erasure.data_blocks
+        # A transitioned version with no restored copy has no local part
+        # by design: its xl.meta, the only pointer to the tier's copy, is
+        # all there is to heal (FileInfo.IsRemote in disksWithAllParts).
+        # minio_tpu checks its parts, finds none, and deletes it as
+        # dangling (ROADMAP.md Queue 3).
+        remote = (tier.is_transitioned(ref_fi.metadata)
+                  and tier.META_RESTORE not in ref_fi.metadata)
 
         # A disk is available when its version agrees and its part files
         # exist at their framed size (disksWithAllParts); a flipped byte
@@ -855,7 +996,7 @@ class ErasureObjects(MultipartMixin):
                 absent += 1
                 continue
             try:
-                if not fi.deleted:
+                if not fi.deleted and not remote:
                     self.disks[i].check_parts(bucket, object_, fi)
             except (ErrFileNotFound, ErrFileCorrupt):
                 absent += 1
@@ -902,7 +1043,7 @@ class ErasureObjects(MultipartMixin):
         inline = bool(ref_fi.data)
         healed_inline: dict[int, dict[int, bytes]] = {s: {}
                                                       for s in stale_shards}
-        if not ref_fi.deleted:
+        if not ref_fi.deleted and not remote:
             # Rebuild with the codec and block size the object was
             # written with.
             erasure = self._object_erasure(
@@ -996,7 +1137,7 @@ class ErasureObjects(MultipartMixin):
             fi.erasure.index = s + 1
             fi.data = healed_inline[s] if inline else {}
             try:
-                if inline or ref_fi.deleted:
+                if inline or ref_fi.deleted or remote:
                     disk.write_metadata(bucket, object_, fi)
                 else:
                     disk.rename_data(SYSTEM_META_BUCKET,

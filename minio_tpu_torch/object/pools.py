@@ -249,6 +249,34 @@ class ErasureServerPools:
                 last_exc = exc
         raise last_exc or ErrObjectNotFound(f"{bucket}/{object_}")
 
+    def transition_object(self, bucket, object_, version_id, updates,
+                          **guard):
+        """`guard`: expected_mod_time_ns and expected_meta, as
+        ErasureObjects.transition_object takes them."""
+        last_exc = None
+        for pool in self.pools:
+            try:
+                out = pool.transition_object(bucket, object_, version_id,
+                                             updates, **guard)
+                self._bump_gen(bucket)
+                return out
+            except (ErrObjectNotFound, ErrVersionNotFound) as exc:
+                last_exc = exc
+        raise last_exc or ErrObjectNotFound(f"{bucket}/{object_}")
+
+    def restore_object(self, bucket, object_, version_id, reader, size,
+                       updates, **guard):
+        last_exc = None
+        for pool in self.pools:
+            try:
+                out = pool.restore_object(bucket, object_, version_id,
+                                          reader, size, updates, **guard)
+                self._bump_gen(bucket)
+                return out
+            except (ErrObjectNotFound, ErrVersionNotFound) as exc:
+                last_exc = exc
+        raise last_exc or ErrObjectNotFound(f"{bucket}/{object_}")
+
     # --- listing (cmd/erasure-server-pool.go:876,
     # cmd/metacache-server-pool.go:59-239) ---
 

@@ -218,6 +218,16 @@ class ErasureSets:
         return self.get_hashed_set(object_).update_object_metadata(
             bucket, object_, version_id, updates, replace_user_meta)
 
+    def transition_object(self, bucket, object_, version_id, updates,
+                          **guard):
+        return self.get_hashed_set(object_).transition_object(
+            bucket, object_, version_id, updates, **guard)
+
+    def restore_object(self, bucket, object_, version_id, reader, size,
+                       updates, **guard):
+        return self.get_hashed_set(object_).restore_object(
+            bucket, object_, version_id, reader, size, updates, **guard)
+
     def heal_object(self, bucket, object_, version_id="",
                     remove_dangling=False):
         return self.get_hashed_set(object_).heal_object(

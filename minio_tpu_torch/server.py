@@ -12,10 +12,13 @@ minio_tpu/server.py:208-211 and :302-310 do), the S3 server with its SSE key
 material (the SSE-S3 master key and a LocalKMS whose key-name registry
 persists under .minio.sys, minio_tpu's _build_kms without KES) and the
 config, the bucket quotas (a BucketQuotaSys over the scanner's usage
-snapshot), and the background services that keep the sets healthy (the
-MRF drain, the disk monitor, fresh-drive back-fill, the data scanner
-with its update tracker, which applies the buckets' lifecycle rules;
-MinIO's initAutoHeal and initDataScanner). The metrics registry and the
+snapshot), the remote tiers (a TierConfigMgr persisted under
+.minio.sys/config/tiers.json, loaded at start, and the TierEngine that
+the S3 handlers and the scanner share), and the background services that
+keep the sets healthy (the MRF drain, the disk monitor, fresh-drive
+back-fill, the data scanner with its update tracker, which applies the
+buckets' lifecycle rules, transitions included; MinIO's initAutoHeal and
+initDataScanner). The metrics registry and the
 logger come up first, as in minio_tpu:
 every subsystem's hook is set to it, every drive's wrapper counts its
 ops into it, and a MetricsCollector over the object layer, the scanner
@@ -82,6 +85,7 @@ from .pipeline import metrics as pipeline_metrics
 from .storage.diskcheck import DiskHealth, MetricsDisk, configure_robustness
 from .storage.fileinfo import new_uuid
 from .storage.local import LocalStorage
+from .tier import TierConfigMgr, TierEngine
 from .utils import ellipses, fanout
 from .utils.device import resolve_device
 from .utils.errors import StorageError
@@ -320,9 +324,15 @@ class Server:
         self.mrf = MRFHealer(self.object_layer)
         self.update_tracker = DataUpdateTracker(self.object_layer)
         self.object_layer.update_tracker = self.update_tracker
+        # The remote tiers and the transition engine (transitionState).
+        self.tiers = TierConfigMgr(self.object_layer)
+        self.tier_engine = TierEngine(self.object_layer, self.tiers,
+                                      metrics=self.metrics,
+                                      logger=self.logger)
         self.scanner = DataScanner(self.object_layer, self.bucket_meta,
                                    metrics=self.metrics, logger=self.logger,
-                                   tracker=self.update_tracker)
+                                   tracker=self.update_tracker,
+                                   tier_engine=self.tier_engine)
         # Disk liveness: offline detection, and the MRF drained on a
         # reconnect (monitorAndConnectEndpoints).
         self.disk_monitor = DiskMonitor(self.object_layer,
@@ -344,7 +354,8 @@ class Server:
         self.s3 = S3Server(self.object_layer, self.iam, self.bucket_meta,
                            host=address, port=port, device=self.device,
                            sse_config=self.sse_config, metrics=self.metrics,
-                           config_sys=self.config_sys, quota=self.quota)
+                           config_sys=self.config_sys, quota=self.quota,
+                           tier_engine=self.tier_engine, tiers=self.tiers)
         self.s3.admin.scanner = self.scanner
         # The scrape-time collector over the live subsystems.
         self.s3.admin.collector = MetricsCollector(
@@ -413,6 +424,9 @@ class Server:
         self.mrf.start()
         self.disk_monitor.start()
         self.fresh_disk_healer.start()
+        # The tiers gate the reads of transitioned objects: loaded
+        # before any request, the scanner's own or a client's.
+        self.tiers.load()
         self.update_tracker.load()
         self.scanner.start()
         self.s3.start()

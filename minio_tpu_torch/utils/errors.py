@@ -127,6 +127,11 @@ class ErrQuotaExceeded(StorageError):
     cmd/bucket-quota.go)."""
 
 
+class ErrRemoteTier(StorageError):
+    """A remote tier unreachable or its blob missing (the tiering error
+    paths of cmd/bucket-lifecycle.go): a retriable 503."""
+
+
 class RSError(Exception):
     """Base class for Reed-Solomon codec errors (klauspost/reedsolomon)."""
 

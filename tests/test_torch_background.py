@@ -15,10 +15,11 @@ BLOCK_SIZE_V2 = 12 * 4096 with MTPU_INLINE_THRESHOLD = 4096 (the port's
 plain HighwayHash is a Python loop over 32-byte packets).
 
 Faults of minio_tpu, recorded in ROADMAP Queue 3, are held here: the
-port fixes three (an MRF pass during an outage drops the entry; a heal
+port fixes four (an MRF pass during an outage drops the entry; a heal
 with remove_dangling deletes an object that pulled drives put under
-read quorum; the fresh-drive sweep never makes a bucket's volume) and
-copies one (the sweep skips the system bucket).
+read quorum; the fresh-drive sweep never makes a bucket's volume, nor
+the system bucket's) and copies one (the sweep skips the system
+bucket's objects).
 """
 
 import hashlib
@@ -719,6 +720,38 @@ def test_system_meta_bucket_healed(env, tmp_path, pkg):
         disks[0]._online = True
 
 
+@pytest.mark.parametrize("pkg", PKGS)
+def test_system_writes_reach_a_healed_drive(env, tmp_path, pkg):
+    """minio_tpu's fault, fixed in the port: its sweep never makes the
+    system bucket's volume on the fresh drive, so every later write into
+    .minio.sys (the scanner's usage, each cycle) misses that drive and
+    queues an MRF heal, which cannot make the volume either. The port
+    makes the volume when it sweeps, as MinIO makes the meta volumes on a
+    drive it formats: the write lands on all four drives."""
+    m = MODS[pkg]
+    disks, sets, ol = _layer(pkg, tmp_path)
+    ol.make_bucket(".minio.sys")
+    _wipe(pkg, tmp_path, disks, 2)
+    assert m.newdisk.FreshDiskHealer(ol).check_once() == ["d2"]
+    es = sets.sets[0]
+    body = b'{"usage": 1}'
+    for _ in range(2):
+        ol.put_object(".minio.sys", "scanner/data-usage.json",
+                      io.BytesIO(body), len(body))
+    meta = tmp_path / "d2" / ".minio.sys" / "scanner" / "data-usage.json"
+    if pkg == PORT:
+        assert (meta / "xl.meta").is_file()
+        assert es.mrf_stats()["pending"] == 0
+    else:
+        assert not (tmp_path / "d2" / ".minio.sys").exists()
+        assert es.drain_mrf() == [(".minio.sys", "scanner/data-usage.json",
+                                   "")] * 2
+        es.heal_object(".minio.sys", "scanner/data-usage.json")
+        assert not (tmp_path / "d2" / ".minio.sys").exists()
+    assert ol.get_object_bytes(".minio.sys",
+                               "scanner/data-usage.json") == body
+
+
 def _fresh_set(pkg, ol, clock):
     """A bucket whose first key has part files (so minio_tpu's sweep makes
     the bucket's directory before it needs it), an inline object, and a
@@ -1054,7 +1087,7 @@ def test_self_heal_rehearsal(tmp_path, monkeypatch):
     res = entry.self_heal(tmp_path, 30_001, device="cpu", big_count=2,
                           msr_count=1, small_count=8,
                           small_sizes=(100, 1025, 3000, 700))
-    assert all(res["checks"].values()), res["checks"]
+    assert all(res["checks"].values()), (res["checks"], res["sweep"])
     assert res["sweep"]["versions_healed"] == 2 + 1 + 8 + 2 + 3
     assert res["sweep"]["pacer_grants"] == res["sweep"]["versions_healed"]
     for name in ("mrf_drain", "sweep"):

@@ -797,3 +797,28 @@ def test_lock_quota_lifecycle_on_card(cuda, tmp_path):
         assert c[step]["kernel_gf_launches"] == 0, step
         assert c[step]["kernel_hash_launches"] == 0, step
     assert res["ilm_expired_total"] == 3
+
+
+def test_tiering_on_card(cuda, tmp_path):
+    """Phase 4p on a 4+4 hot and cold pair at 8 MiB: transitioned, read
+    back whole and ranged through the tier (B on the cold server, D and
+    F on the hot), degraded on the cold server (A), restored (A and B)
+    and dropped back to the tier; the heal keeps the tiered versions."""
+    res = entry.s3_tiering(tmp_path, 8 << 20, device=cuda,
+                           text_size=2 << 20, drives=8, parity=4,
+                           lost=(0, 3, 4, 7), range_size=1 << 20)
+    assert all(res["checks"].values()), res["checks"]
+    c = res["counters"]
+    for step in ("tier_transition", "tier_degraded_get", "tier_restore"):
+        assert c[step]["kernel_gf_launches"] > 0, step
+        assert c[step]["kernel_hash_launches"] > 0, step
+    for step in ("tier_get", "tier_range_get"):
+        assert c[step]["kernel_gf_launches"] == 0, step
+        assert c[step]["kernel_hash_launches"] > 0, step
+        assert c[step]["kernel_open_launches"] > 0, step
+        assert c[step]["kernel_decompress_launches"] > 0, step
+    for step in ("tier_restore_expiry", "tier_heal", "tier_remove_refused"):
+        assert not any(c[step][f"kernel_{k}_launches"] for k in (
+            "gf", "hash", "seal", "open", "compress", "decompress")), step
+    assert res["ilm_transitioned_total"] == 3
+    assert res["ilm_restored_total"] == 1

@@ -43,6 +43,15 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
+def test_tier_modules_are_listed():
+    """The remote tiers' modules are the port's own copies, among the
+    files the two checks above walk."""
+    for rel in ("minio_tpu_torch/tier.py",
+                "minio_tpu_torch/replication/__init__.py",
+                "minio_tpu_torch/replication/client.py"):
+        assert REPO / rel in PORT_FILES, rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_no_jax_or_minio_tpu_imports(path):
@@ -62,6 +71,7 @@ def test_fresh_interpreter_loads_neither():
         "import sys, minio_tpu_torch.entry, minio_tpu_torch.erasure.streaming\n"
         "import minio_tpu_torch.object.sets, minio_tpu_torch.storage.local\n"
         "import minio_tpu_torch.server, minio_tpu_torch.cli\n"
+        "import minio_tpu_torch.tier, minio_tpu_torch.replication.client\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'minio_tpu')]\n"
         "assert not bad, bad\n"

@@ -13,9 +13,9 @@ time.time().
 
 Where the port differs from minio_tpu on purpose (ROADMAP.md Queue 3),
 the case asserts each side: the governance bypass needs the caller's
-s3:BypassGovernanceRetention on the port, and a lifecycle document with
-a Transition, or a bucket that stores one, is refused (the port has no
-remote tiers).
+s3:BypassGovernanceRetention on the port. A lifecycle document with a
+Transition is stored and its bucket served on both (the tiers themselves
+are held in tests/test_torch_tiering.py).
 """
 
 import json
@@ -428,9 +428,9 @@ def test_governance_bypass_needs_the_permission(env, tmp_path, granted):
 
 
 def test_transition_rules_are_refused(env, tmp_path):
-    """A ?lifecycle document with a Transition is NotImplemented on the
-    port (no remote tiers) where minio_tpu stores it, and a bucket whose
-    stored lifecycle holds one is not served; an invalid Transition is
+    """A ?lifecycle document with a Transition is stored on both packages
+    and its bucket served (the port has remote tiers now; the name stays
+    so no test is lost), and a Transition without a StorageClass is
     InvalidArgument on both."""
     answers = {}
 
@@ -438,19 +438,18 @@ def test_transition_rules_are_refused(env, tmp_path):
         assert rec("PUT", "/tier")[0] == 200
         no_class = TRANSITION_LC.replace(b"<StorageClass>COLD</StorageClass>",
                                          b"")
-        st, _, body = rec("PUT", "/tier", [("lifecycle", "")], body=no_class)
-        assert st == 400 and b"StorageClass" in body
+        bad = rec("PUT", "/tier", [("lifecycle", "")], body=no_class)
         put = rec("PUT", "/tier", [("lifecycle", "")], body=TRANSITION_LC)
-        # The stored document, as minio_tpu would leave it on the drives.
-        srv.handlers.bm.update("tier", "lifecycle_xml",
-                               TRANSITION_LC.decode())
         obj = rec("PUT", "/tier/old/x", body=b"cold")
+        stored = rec("GET", "/tier", [("lifecycle", "")])
         answers[pkg] = [(r[0], _record(r).get("error", {}).get("Code"))
-                        for r in (put, obj)]
+                        for r in (bad, put, obj)]
+        answers[pkg].append(stored[2] == TRANSITION_LC)
 
+    runs = {}
     for pkg in (JAX, PORT):
         with pytest.MonkeyPatch.context() as mp:
-            _run(pkg, tmp_path / pkg, mp, case)
-    assert answers[JAX] == [(200, None), (200, None)]
-    assert answers[PORT] == [(501, b"NotImplemented"),
-                             (501, b"NotImplemented")]
+            runs[pkg] = _run(pkg, tmp_path / pkg, mp, case)
+    assert answers[PORT] == answers[JAX] == [
+        (400, b"InvalidArgument"), (200, None), (200, None), True]
+    assert runs[PORT]["log"] == runs[JAX]["log"]
