@@ -217,10 +217,10 @@ Phases, each of which must pass (nothing is caught):
     the four part files and xl.meta the heal wrote. Prints each step's
     seconds and launches, each tree's seconds by span kind, the ledger's
     bytes by op class and direction, the scraped series and the health
-    codes; then the span plane's cost: phases 4e and 4k with the plane
-    armed and disarmed (MTPU_TRACE unset / 0), on then off (4e with 64
-    small objects), each call's seconds, each run from a fresh heal
-    pacer. Prints {"observability": ...};
+    codes; then the span plane's cost: phase 4e with the plane armed and
+    disarmed (MTPU_TRACE unset / 0), on then off, with 64 small objects,
+    each call's seconds, each run from a fresh heal pacer. Prints
+    {"observability": ...};
  4n. the config subsystem and compression over HTTP
     (entry.config_compression): a Server over 16 drive directories (one
     12+4 set, 1 MiB blocks), its S3 plane alone: `compression enable=on
@@ -300,6 +300,38 @@ Phases, each of which must pass (nothing is caught):
     seconds, launches and the hot TierEngine's seconds by part (local
     read, SigV4 hash, send, commit, fetch, restore write, inversion),
     and {"tiering": ...};
+ 4q. identity over HTTP (entry.s3_identity): a Server over 16 drive
+    directories (one 12+4 set, 1 MiB blocks), its S3 plane alone, with
+    identity_openid (an HS256 secret and the JWKS of an RSA key made
+    here from a seed, Python integers) and identity_ldap (a toy LDAP
+    directory in this process) in the environment. The root adds the
+    canned policy idp-rw (PutObject, GetObject, ListBucket on bucket
+    idp), the user alice and the mappings of alice and ldap:bob over the
+    admin routes, each a .minio.sys PUT (A, B); list-users shows alice
+    with idp-rw. Alice PUTs 256 MiB + 12,345 B to idp (A, B) and GETs it
+    exact (B); her PUT to idp-other is answered 403 with no launch and
+    no drive file changed. AssumeRole by alice with a session policy of
+    s3:GetObject alone: the temporary credential's GET with its token
+    exact (B), its PUT 403, its GET without the token 403
+    InvalidTokenId. AssumeRoleWithWebIdentity with an HS256 and an RS256
+    token (policy=idp-rw); the RS256 credential's SSE-S3 PUT (A, B, C)
+    and GET (B, D) exact. AssumeRoleWithLDAPIdentity for bob (a wrong
+    password 403); the object lost on drives 0, 5, 12 and 15 and those
+    drives offline, bob's degraded GET exact (A, B). A service account
+    of alice's made in process: its 3 MiB ranged GET exact, its PUT
+    outside idp 403. Form uploads of 16 MiB signed by alice answered 201
+    and 204 (A, B), each GET exact; a form breaking its starts-with
+    condition 403 with no launch. The IAM blobs lost on the same four
+    drives, the server built again with them offline: the IAM loads
+    from the degraded blobs (A), alice's and the service account's keys
+    answer, every STS credential is gone; the drives back, the admin
+    heal of idp and the IAM blobs' heals leave every healed file equal
+    by SHA-256. Counters zeroed just before and read just after each
+    step; then phase 3d (check_identity_kernels) holds kernel A to its
+    plain version at the object's and each IAM blob's reconstructions,
+    A and B at the .minio.sys objects' shard lengths, C and D at any
+    package count phase 3 did not cover. Prints each step's seconds and
+    launches and {"identity": ...};
  5. time each kernel at the main shapes with CUDA events (kernel B cold
     at the PUT shape [128, 87382] and L2-warm at the GET shape
     [8, 87382], in ns per packet too, and its grouped verify at a fetch
@@ -312,9 +344,9 @@ Phases, each of which must pass (nothing is caught):
     the bound and its launches in 4k; kernels E and F at 1, 128 and 4,097
     chunks of 4n's text against their byte bound, with their launches in
     4n) and print one JSON line {"kernels": [...]}, whose launches are
-    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o and 4p (by
-    path in "launches_by_path"; E's and F's those of 4n); every kernel
-    must have launched on the main paths;
+    those of phases 4, 4c, 4e, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o, 4p and 4q
+    (by path in "launches_by_path"; E's and F's those of 4n); every
+    kernel must have launched on the main paths;
  6. print the device JSON as the last line.
 
 It exits non-zero without a result when no CUDA card is available.
@@ -343,6 +375,7 @@ LQL_SMALL = 16 << 20     # phase 4o's versions, parts and small objects
 LQL_REFUSED = 64 << 20   # 4o's PUT and UploadPart past the quota
 LQL_QUOTA = 300 << 20    # 4o's hard quota
 TIER_TEXT_SIZE = 64 << 20  # 4p's compressed-then-sealed object
+IDP_POST_SIZE = 16 << 20   # 4q's form uploads
 INLINE_SIZE = 100 << 10
 # Phase 4e: multipart parts (minio-go's 16 MiB part size) and the small
 # objects' sizes.
@@ -722,25 +755,39 @@ def check_self_heal_kernels(rng, errs: dict) -> None:
                 f"max_abs_err {err}")
 
 
+def codec_lengths(erasure, sizes, full: bool = True) -> list[int]:
+    """The shard lengths objects of `sizes` bytes give the kernels under
+    `erasure`'s codec, rounded to its sub-packetization: each last
+    block's, and a full block's unless `full` is false."""
+    lengths = {erasure.chunk_size(s % BLOCK) for s in sizes if s % BLOCK}
+    if full:
+        lengths |= {erasure.chunk_size(min(s, BLOCK)) for s in sizes}
+    return sorted(lengths - {0})
+
+
 def check_system_object_kernels(rng, errs: dict, sizes: dict) -> None:
     """Phase 3b, after phase 4j: the objects the server wrote under
     .minio.sys (the scanner's usage, the update tracker's filter, bucket
-    metadata) have sizes known only after the run. Kernel A's encode
-    under dense-gf8 and cauchy-xor, and kernel B's hash and grouped
+    metadata, IAM blobs) have sizes known only after the run. Kernel A's
+    encode under each codec the server may pick (dense-gf8, cauchy-xor,
+    msr-pm in its sub-shard view), and kernel B's hash and grouped
     verify, at their shard lengths, exact."""
     from minio_tpu_torch.erasure import registry
     from minio_tpu_torch.erasure.codec import cached_erasure
     from minio_tpu_torch.ops import highwayhash_torch as hh
 
-    erasure = cached_erasure(K, M, BLOCK, "dense-gf8", "cuda")
-    lengths = sorted({erasure.chunk_size(size % BLOCK) for size in
-                      sizes.values() if size % BLOCK} - {0})
-    for codec in SELF_HEAL_CODECS[:2]:
+    lengths = set()
+    for codec in SELF_HEAL_CODECS:
+        erasure = cached_erasure(K, M, BLOCK, codec, "cuda")
+        a = erasure.subshards
+        code_lengths = codec_lengths(erasure, sizes.values(), full=False)
+        lengths.update(code_lengths)
         mat = registry.get(codec).parity_matrix(K, M)
-        err = gf_matrix_err(rng, errs, mat, [(1, K, ln) for ln in lengths])
+        err = gf_matrix_err(rng, errs, mat,
+                            [(1, K * a, ln // a) for ln in code_lengths])
         log(f"gf_apply {codec} encode at the .minio.sys objects' shard "
-            f"lengths {lengths} ({sizes}): max_abs_err {err}")
-    for ln in lengths:
+            f"lengths {code_lengths} ({sizes}): max_abs_err {err}")
+    for ln in sorted(lengths):
         x = rand((K + M, ln), rng)
         got = hh.hash256_batch(x)
         want = hh._hash256_plain(x, hh.MAGIC_KEY)
@@ -759,6 +806,29 @@ def check_system_object_kernels(rng, errs: dict, sizes: dict) -> None:
                              f"at the .minio.sys lengths: {bad}")
 
 
+def reconstruct_errs(rng, errs: dict, unavailable, targets, sizes,
+                     batches, label: str) -> None:
+    """Kernel A against its plain version at the reconstruction of
+    `targets` from the first K shards not `unavailable`, under each
+    codec the server may pick (its auto choice is a probe of the process,
+    and a phase's objects take whichever won), at the shard lengths of
+    objects of `sizes` bytes, B in `batches`."""
+    from minio_tpu_torch.erasure import registry
+    from minio_tpu_torch.erasure.codec import cached_erasure
+
+    present = [i for i in range(K + M) if i not in unavailable]
+    for codec in SELF_HEAL_CODECS:
+        erasure = cached_erasure(K, M, BLOCK, codec, "cuda")
+        a = erasure.subshards
+        shapes = [(b, K * a, ln // a) for ln in codec_lengths(erasure, sizes)
+                  for b in batches]
+        mat = registry.get(codec).reconstruct_matrix(K, M, present,
+                                                     list(targets))
+        err = gf_matrix_err(rng, errs, mat, shapes)
+        log(f"gf_apply {label} {codec} reconstruct 12+4 {list(targets)} "
+            f"from {present[:K]} at {shapes}: max_abs_err {err}")
+
+
 def aes_phase3_counts() -> set:
     """The package counts phase 3 launches kernels C and D with."""
     from minio_tpu_torch.api.transforms import packages_per_launch
@@ -773,21 +843,15 @@ def check_tier_kernels(rng, errs: dict, res: dict, aes_counts: dict,
     known only after its run, exact. Kernel A's reconstructions on the
     cold server (the remote copy's key holds a uuid, and with it which
     shards cold drives 0, 5, 12 and 15 hold) at B = 1 and 8 and every
-    shard length of the plain object; kernels A and B at the stored sizes
+    shard length of the plain object, under each codec
+    (reconstruct_errs); kernels A and B at the stored sizes
     (the compressed-then-sealed object's depends on its text) and at the
     .minio.sys objects' of both servers (check_system_object_kernels);
     C and D at each package count, and E and F at each chunk count, that
     4p launched them with and phase 3 did not."""
-    from minio_tpu_torch.ops import gf
-
-    lengths = sorted({SHARD, -(-(res["size"] % BLOCK) // K)} - {0})
-    shapes = [(b, K, ln) for ln in lengths for b in (1, BATCH)]
     for unavailable, targets in res["cold_reconstructions"]:
-        present = [i for i in range(K + M) if i not in unavailable]
-        mat = gf.reconstruct_matrix(K, M, present, list(targets))
-        err = gf_matrix_err(rng, errs, mat, shapes)
-        log(f"gf_apply 4p cold reconstruct 12+4 {targets} from "
-            f"{present[:K]} at {shapes}: max_abs_err {err}")
+        reconstruct_errs(rng, errs, unavailable, targets, [res["size"]],
+                         (1, BATCH), "4p cold")
     sizes = dict(res["system_objects"])
     sizes.update({f"stored {n}": v for n, v in res["stored_sizes"].items()})
     check_system_object_kernels(rng, errs, sizes)
@@ -2333,24 +2397,22 @@ def run_admission() -> tuple[dict, dict]:
 OBS_STEPS = {"make_bucket": None, "put": "AB", "get": "B",
              "degraded_get": "AB", "heal": "AB", "sse_put": "ABC",
              "sse_get": "BD"}
-# The span plane's cost: each of 4e and 4k armed, then disarmed; 4e's
-# runs with 64 small objects, not 256, and one run of each mode, not two,
-# to keep the smoke inside its time.
+# The span plane's cost: phase 4e armed, then disarmed, with 64 small
+# objects, not 256, one run of each mode, to keep the smoke inside its
+# time (4k's pair is cut: a second server phase adds time, not a mode).
 PLANE_RUNS = (("on", None), ("off", "0"))
 PLANE_SMALL_COUNT = 64
 
 
-def plane_calls() -> dict:
-    """Phase 4m's cost runs: 4e's and 4k's entry points as their phases
-    call them, 4e at PLANE_SMALL_COUNT small objects."""
-    from minio_tpu_torch.entry import s3_put_get_heal, s3_sse
+def plane_call(d: str) -> dict:
+    """Phase 4m's cost run: 4e's entry point as its phase calls it, at
+    PLANE_SMALL_COUNT small objects."""
+    from minio_tpu_torch.entry import s3_put_get_heal
 
-    return {"4e": lambda d: s3_put_get_heal(
-                d, OBJECT_SIZE, device="cuda", part_size=MP_PART,
-                parts=MP_PARTS, last_part=MP_LAST,
-                small_count=PLANE_SMALL_COUNT, small_sizes=SMALL_SIZES,
-                page=100, concurrent=4, seed=4),
-            "4k": lambda d: s3_sse(d, OBJECT_SIZE, device="cuda", seed=50)}
+    return s3_put_get_heal(
+        d, OBJECT_SIZE, device="cuda", part_size=MP_PART, parts=MP_PARTS,
+        last_part=MP_LAST, small_count=PLANE_SMALL_COUNT,
+        small_sizes=SMALL_SIZES, page=100, concurrent=4, seed=4)
 
 
 def run_observability() -> tuple[dict, dict]:
@@ -2418,46 +2480,35 @@ def run_observability() -> tuple[dict, dict]:
 
 
 def plane_cost() -> dict:
-    """Phase 4m's cost of the span plane: phases 4e and 4k (plane_calls)
-    with the plane armed (MTPU_TRACE unset) and disarmed (MTPU_TRACE=0),
-    on then off (PLANE_RUNS); each call's seconds, whole. Each run starts with a
+    """Phase 4m's cost of the span plane: phase 4e (plane_call) with the
+    plane armed (MTPU_TRACE unset) and disarmed (MTPU_TRACE=0), on then
+    off (PLANE_RUNS); each call's seconds, whole. Each run starts with a
     fresh heal pacer, as phase 4l leaves it: the pacer's latency window
     is the process's, and a window an earlier run left slow would make
     every heal of the next wait its deadline."""
     from minio_tpu_torch.background import healpace
     from minio_tpu_torch.entry import env_vars
 
-    calls = plane_calls()
     card = card_line()
     runs = []
-    for ph in ("4e", "4k"):
-        for mode, value in PLANE_RUNS:
-            data_root = ROOT / ".smoke_data"
-            data_root.mkdir(exist_ok=True)
-            tmp = tempfile.mkdtemp(dir=data_root)
-            healpace.reset()
-            try:
-                with env_vars(MTPU_TRACE=value):
-                    t0 = time.perf_counter()
-                    res = calls[ph](tmp)
-                    sec = time.perf_counter() - t0
-            finally:
-                shutil.rmtree(data_root, ignore_errors=True)
-            failed = [k for k, ok in res["checks"].items() if ok is not True]
-            if failed:
-                raise AssertionError(f"4m plane {mode} {ph}: {failed}")
-            runs.append({"phase": ph, "plane": mode, "seconds": sec})
-            log(f"4m plane {mode} {ph}: {sec:.3f} s ({card})")
-    summary = {}
-    for ph in ("4e", "4k"):
-        for mode in ("on", "off"):
-            secs = [r["seconds"] for r in runs
-                    if r["phase"] == ph and r["plane"] == mode]
-            summary[f"{ph}:{mode}"] = {"mean": sum(secs) / len(secs),
-                                       "min": min(secs), "max": max(secs)}
-        log(f"4m plane {ph}: on {summary[ph + ':on']}, off "
-            f"{summary[ph + ':off']} ({card})")
-    return {"card": card, "runs": runs, "summary": summary}
+    for mode, value in PLANE_RUNS:
+        data_root = ROOT / ".smoke_data"
+        data_root.mkdir(exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=data_root)
+        healpace.reset()
+        try:
+            with env_vars(MTPU_TRACE=value):
+                t0 = time.perf_counter()
+                res = plane_call(tmp)
+                sec = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(data_root, ignore_errors=True)
+        failed = [k for k, ok in res["checks"].items() if ok is not True]
+        if failed:
+            raise AssertionError(f"4m plane {mode} 4e: {failed}")
+        runs.append({"phase": "4e", "plane": mode, "seconds": sec})
+        log(f"4m plane {mode} 4e: {sec:.3f} s ({card})")
+    return {"card": card, "runs": runs}
 
 
 # Phase 4n's steps: the kernels each must launch and those it must not
@@ -2672,6 +2723,117 @@ def run_tiering() -> tuple[dict, dict, dict]:
             "launches": per_step, "aes_launches_by_packages": aes_counts,
             "s2_launches_by_chunks": s2_counts, "checks": res["checks"]}
     return line, launches, {"res": res, "aes": aes_counts, "s2": s2_counts}
+
+
+# Phase 4q's steps: the kernels each must launch and those it must not.
+# An IAM write is a .minio.sys PUT (A, B); an STS call, a refusal and a
+# listing of users launch nothing. `restart` builds a Server, whose
+# warm-up runs every kernel: only the degraded IAM load's A is checked
+# there, and `iam_reload` reads the degraded blobs again alone.
+IDENTITY_STEPS = {
+    "idp_add_policy": ("AB", "CDEF"), "idp_add_user": ("AB", "CDEF"),
+    "idp_map": ("AB", "CDEF"), "idp_list_users": ("", "ABCDEF"),
+    "alice_put": ("AB", "CDEF"), "alice_get": ("B", "ACDEF"),
+    "alice_put_denied": ("", "ABCDEF"), "assume_role": ("", "ABCDEF"),
+    "sts_get": ("B", "ACDEF"), "sts_put_denied": ("", "ABCDEF"),
+    "sts_get_no_token": ("", "ABCDEF"),
+    "web_identity_hs256": ("", "ABCDEF"),
+    "web_identity_rs256": ("", "ABCDEF"), "web_sse_put": ("ABC", "DEF"),
+    "web_sse_get": ("BD", "ACEF"), "ldap_assume": ("", "ABCDEF"),
+    "ldap_wrong_password": ("", "ABCDEF"),
+    "ldap_degraded_get": ("AB", "CDEF"), "service_account": ("AB", "CDEF"),
+    "sa_range_get": ("AB", "CDEF"), "sa_put_denied": ("", "ABCDEF"),
+    "post_201": ("AB", "CDEF"), "post_204": ("AB", "CDEF"),
+    "post_get": ("B", "ACDEF"), "post_refused": ("", "ABCDEF"),
+    "restart": ("A", ""), "iam_reload": ("AB", "CDEF"),
+    "after_restart": ("", "ABCDEF"), "heal_bucket": ("AB", "CDEF"),
+    "heal_iam": ("AB", "CDEF")}
+
+
+def run_identity() -> tuple[dict, dict, dict]:
+    """Phase 4q: entry.s3_identity, IAM users, policies, service
+    accounts, STS and POST policy uploads on a Server over HTTP. Returns
+    its line, its launches by kernel, and what phase 3d checks (the
+    entry's result and C/D's launches by package count)."""
+    from minio_tpu_torch.entry import s3_identity
+
+    data_root = ROOT / ".smoke_data"
+    data_root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=data_root)
+    try:
+        reset_counts()
+        res = s3_identity(tmp, OBJECT_SIZE, device="cuda",
+                          post_size=IDP_POST_SIZE, seed=110)
+        launches = read_counts()
+        aes_counts = read_aes_shape_counts()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    failed = [k for k, ok in res["checks"].items() if ok is not True]
+    if failed:
+        raise AssertionError(f"identity checks failed: {failed}")
+    card = card_line()
+    per_step = {}
+    for name, (need, forbid) in IDENTITY_STEPS.items():
+        c = res["counters"][name]
+        n = {"A": c["kernel_gf_launches"], "B": c["kernel_hash_launches"],
+             "C": c["kernel_seal_launches"], "D": c["kernel_open_launches"],
+             "E": c["kernel_compress_launches"],
+             "F": c["kernel_decompress_launches"]}
+        per_step[name] = dict(n, seconds=res["seconds"][name],
+                              gf_by_shape=res["gf_by_shape"][name])
+        if (not all(n[k] > 0 for k in need)
+                or any(n[k] for k in forbid)):
+            raise AssertionError(f"4q {name}: launches {n}, A by shape "
+                                 f"{res['gf_by_shape'][name]}, want "
+                                 f"{need or 'none'}, never {forbid}")
+        log(f"4q {name}: {res['seconds'][name]:.4f} s, launches A {n['A']} "
+            f"B {n['B']} C {n['C']} D {n['D']} E {n['E']} F {n['F']}, A by "
+            f"shape {res['gf_by_shape'][name]} ({card})")
+    log(f"4q total {sum(res['seconds'].values()):.3f} s in its steps; IAM "
+        f"blobs {res['iam_blobs']}; their reconstructions "
+        f"{res['iam_reconstructions']}; the object's "
+        f"{res['object_reconstructions']}; C/D by packages {aes_counts}")
+    line = {"card": card, "size": res["size"], "post_size": IDP_POST_SIZE,
+            "k": K, "m": M, "lost": res["lost"],
+            "range_size": res["range_size"], "iam_blobs": res["iam_blobs"],
+            "iam_reconstructions": res["iam_reconstructions"],
+            "object_reconstructions": res["object_reconstructions"],
+            "seconds": res["seconds"], "launches": per_step,
+            "aes_launches_by_packages": aes_counts, "checks": res["checks"]}
+    return line, launches, {"res": res, "aes": aes_counts}
+
+
+def check_identity_kernels(rng, errs: dict, res: dict,
+                           aes_counts: dict) -> None:
+    """Phase 3d, after phase 4q: the shapes 4q gave the kernels that are
+    known only after its run, exact. Kernel A's reconstructions of the
+    object in bucket idp (which shards drives 0, 5, 12 and 15 hold
+    follows from its key) at B = 1 and 8 and both of its shard lengths,
+    and of each IAM blob at its own shard length (the degraded load and
+    the heal), under each codec (reconstruct_errs); kernels A and B at
+    the shard lengths of every .minio.sys
+    object the servers wrote (check_system_object_kernels); C and D at
+    each package count 4q launched them with and phase 3 did not."""
+    for unavailable, targets in res["object_reconstructions"]:
+        reconstruct_errs(rng, errs, unavailable, targets, [res["size"]],
+                         (1, BATCH), "4q object")
+    for unavailable, targets, size in res["iam_reconstructions"]:
+        reconstruct_errs(rng, errs, unavailable, targets, [size], (1,),
+                         f"4q IAM blob of {size} B")
+    check_system_object_kernels(rng, errs, res["system_objects"])
+    key = rng.bytes(32)
+    counts = {int(p) for name in ("aes_gcm_seal", "aes_gcm_open")
+              for p in aes_counts[name]} - aes_phase3_counts()
+    for p in sorted(counts):
+        lengths = [PACKAGE] * (p - 1) + [12_345]
+        aads = [struct.pack("<Q", i) for i in range(p)]
+        aes_case(key, aes_batch(rng, lengths, aads), f"4q batch {p}", errs)
+    log(f"4q's own counts: C/D at {sorted(counts)} packages (the rest "
+        f"phase 3 covers)")
+    bad = {k: v for k, v in errs.items() if v != 0}
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"at 4q's shapes: {bad}")
 
 
 def time_s2_kernels(rng, launches: dict, errs: dict) -> list[dict]:
@@ -3138,6 +3300,10 @@ def main() -> int:
     tier_line, tier_launches, tier_shapes = run_tiering()
     tier_line["phase_seconds"] = time.perf_counter() - t0
     log(f"tiering phase {tier_line['phase_seconds']:.1f} s")
+    t0 = time.perf_counter()
+    idp_line, idp_launches, idp_shapes = run_identity()
+    idp_line["phase_seconds"] = time.perf_counter() - t0
+    log(f"identity phase {idp_line['phase_seconds']:.1f} s")
     by_path = {name: {"put_get_heal": launches[name],
                       "object_layer": object_launches[name],
                       "s3_plane": s3_launches[name],
@@ -3149,7 +3315,8 @@ def main() -> int:
                       "observability": obs_launches[name],
                       "config_compression": cfg_launches[name],
                       "lock_quota_lifecycle": lql_launches[name],
-                      "tiering": tier_launches[name]}
+                      "tiering": tier_launches[name],
+                      "identity": idp_launches[name]}
                for name in launches}
     by_path["gf_by_shape"] = heal_line["gf_apply_by_shape"]
     by_path["aes_by_packages"] = sse_line["aes_launches_by_packages"]
@@ -3158,6 +3325,7 @@ def main() -> int:
     check_system_object_kernels(rng, errs, lql_system_objects)
     check_tier_kernels(rng, errs, tier_shapes["res"], tier_shapes["aes"],
                        tier_shapes["s2"])
+    check_identity_kernels(rng, errs, idp_shapes["res"], idp_shapes["aes"])
     log(f"collector passes over 20 ms in the main paths (generation, s): "
         f"{PAUSES}")
     log(f"hedge windows restarted after an oversleeping wait: {RESTARTS}")
@@ -3185,6 +3353,7 @@ def main() -> int:
     print(json.dumps({"config_compression": cfg_line}), flush=True)
     print(json.dumps({"lock_quota_lifecycle": lql_line}), flush=True)
     print(json.dumps({"tiering": tier_line}), flush=True)
+    print(json.dumps({"identity": idp_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

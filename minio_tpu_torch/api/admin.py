@@ -8,9 +8,13 @@ routes), slow-requests (the span plane's exemplar store, GET and
 DELETE), the six config routes (cmd/admin-handlers-config-kv.go:
 get, set, del and help of a subsystem's KV set, the history list with
 its sealed entries opened, and restore), the bucket quota's set and
-get (cmd/admin-bucket-handlers.go) and the remote tiers' add, list and
+get (cmd/admin-bucket-handlers.go), the remote tiers' add, list and
 remove (madmin's tier registry; a list never shows a secret key, and a
-tier that a bucket's lifecycle names is not removed). The heal reads
+tier that a bucket's lifecycle names is not removed), the users (list,
+add, remove, enable or disable; cmd/admin-handlers-users.go; add-user
+takes the secret in a clear JSON body, as minio_tpu does, where madmin
+seals it), the canned policies (list, add, remove), a user's or group's
+policy mapping, and the account info. The heal reads
 the `heal` subsystem: its I/O gate waits while more than `max_io`
 requests are in flight, and it pauses a hundredth of `max_sleep` after
 each object. The rest of the admin API is not ported: its routes answer
@@ -32,7 +36,7 @@ from ..background.healseq import (
 from ..bucket.lifecycle import Lifecycle
 from ..config import HELP
 from ..crypto.kms import KMSError
-from ..iam.policy import Args
+from ..iam.policy import Args, Policy
 from ..tier import META_TIER
 from ..utils import parse_duration_s
 from ..utils.errors import StorageError
@@ -62,7 +66,16 @@ _ROUTES = {("GET", "datausage"): "data_usage_info",
            ("GET", "get-bucket-quota"): "get_bucket_quota",
            ("PUT", "add-tier"): "add_tier",
            ("GET", "list-tiers"): "list_tiers",
-           ("DELETE", "remove-tier"): "remove_tier"}
+           ("DELETE", "remove-tier"): "remove_tier",
+           ("GET", "list-users"): "list_users",
+           ("PUT", "add-user"): "add_user",
+           ("DELETE", "remove-user"): "remove_user",
+           ("PUT", "set-user-status"): "set_user_status",
+           ("GET", "list-canned-policies"): "list_policies",
+           ("PUT", "add-canned-policy"): "add_policy",
+           ("DELETE", "remove-canned-policy"): "remove_policy",
+           ("PUT", "set-user-or-group-policy"): "set_policy_mapping",
+           ("GET", "accountinfo"): "account_info"}
 ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "usage_info": "admin:DataUsageInfo",
            "ioflow_report": "admin:ServerInfo",
@@ -82,7 +95,16 @@ ACTIONS = {"data_usage_info": "admin:DataUsageInfo",
            "get_bucket_quota": "admin:GetBucketQuota",
            "add_tier": "admin:SetTier",
            "list_tiers": "admin:ListTier",
-           "remove_tier": "admin:SetTier"}
+           "remove_tier": "admin:SetTier",
+           "list_users": "admin:ListUsers",
+           "add_user": "admin:CreateUser",
+           "remove_user": "admin:DeleteUser",
+           "set_user_status": "admin:EnableUser",
+           "list_policies": "admin:ListUserPolicies",
+           "add_policy": "admin:CreatePolicy",
+           "remove_policy": "admin:DeletePolicy",
+           "set_policy_mapping": "admin:AttachUserOrGroupPolicy",
+           "account_info": "admin:AccountInfo"}
 # api keys read once, when the S3 server is built: a set of one of them
 # answers {"restart": true}.
 _RESTART_KEYS = {"requests_max", "requests_deadline"}
@@ -543,3 +565,68 @@ class AdminHandlers:
                           f"tier {name!r} is referenced by {user}")
         self.tiers.remove(name)
         return self._json({"status": "ok"})
+
+    # --- users and policies (cmd/admin-handlers-users.go) ---
+
+    def list_users(self, ctx) -> Response:
+        return self._json({
+            ak: {"status": c.status,
+                 "policyName": ",".join(self.iam.user_policy.get(ak, []))}
+            for ak, c in self.iam.list_users().items()})
+
+    def add_user(self, ctx) -> Response:
+        ak = ctx.qdict.get("accessKey", "")
+        if not ak:
+            raise S3Error("InvalidArgument", "accessKey required")
+        body = json.loads(ctx.body or b"{}")
+        self.iam.add_user(ak, body.get("secretKey", ""),
+                          body.get("status", "on"))
+        return self._json({})
+
+    def remove_user(self, ctx) -> Response:
+        self.iam.delete_user(ctx.qdict.get("accessKey", ""))
+        return self._json({})
+
+    def set_user_status(self, ctx) -> Response:
+        try:
+            self.iam.set_user_status(ctx.qdict.get("accessKey", ""),
+                                     ctx.qdict.get("status", "on"))
+        except KeyError as exc:
+            raise S3Error("InvalidArgument", f"no such user {exc}") from exc
+        return self._json({})
+
+    def list_policies(self, ctx) -> Response:
+        return self._json({name: p.to_dict()
+                           for name, p in self.iam.policies.items()})
+
+    def add_policy(self, ctx) -> Response:
+        name = ctx.qdict.get("name", "")
+        if not name:
+            raise S3Error("InvalidArgument", "name required")
+        try:
+            self.iam.set_policy(name, Policy.parse(ctx.body))
+        except (ValueError, KeyError) as exc:
+            raise S3Error("MalformedXML", str(exc)) from exc
+        return self._json({})
+
+    def remove_policy(self, ctx) -> Response:
+        self.iam.delete_policy(ctx.qdict.get("name", ""))
+        return self._json({})
+
+    def set_policy_mapping(self, ctx) -> Response:
+        user_or_group = ctx.qdict.get("userOrGroup", "")
+        policy_name = ctx.qdict.get("policyName", "")
+        is_group = ctx.qdict.get("isGroup", "false") == "true"
+        if not user_or_group:
+            raise S3Error("InvalidArgument", "userOrGroup required")
+        names = [p for p in policy_name.split(",") if p]
+        self.iam.attach_policy(user_or_group, names, is_group)
+        return self._json({})
+
+    def account_info(self, ctx) -> Response:
+        """GET /minio/admin/v3/accountinfo: the user buckets, each with
+        its creation time."""
+        buckets = [{"name": b.name, "createdNs": b.created_ns}
+                   for b in self.ol.list_buckets()
+                   if not b.name.startswith(".")]
+        return self._json({"accountName": "minio-tpu", "buckets": buckets})

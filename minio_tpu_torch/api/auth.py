@@ -1,14 +1,22 @@
 """Request authentication and authorization, the port's copy of
 minio_tpu/api/auth.py (MinIO's cmd/auth-handler.go checkRequestAuthType):
 classify the auth type (anonymous, SigV2, SigV4, presigned, streaming),
-verify the signature against the IAM credentials, and allow the action.
-
-Only the root credential exists: the root may do every action. An
+verify the signature against the IAM credentials (the root, users,
+service accounts and temporary credentials), and allow the action. An
 anonymous request, or one the IAM refuses, is let through only by the
 bucket's policy, as minio_tpu does.
+
+A temporary (STS) credential is accepted only with its session token,
+X-Amz-Security-Token in a header or the query, and a static one only
+without a token, as MinIO's checkClaimsFromToken (cmd/auth-handler.go)
+answers; minio_tpu reads no token at all (ROADMAP.md Queue 3). An
+expired temporary credential is an unknown key, InvalidAccessKeyId, as
+in minio_tpu (MinIO answers ExpiredToken).
 """
 
 from __future__ import annotations
+
+import hmac
 
 from ..iam.policy import Args
 from ..iam.store import IAMSys
@@ -60,6 +68,30 @@ class AuthResult:
         return self.auth == AUTH_ANONYMOUS
 
 
+SECURITY_TOKEN = "X-Amz-Security-Token"
+
+
+def session_token(headers: dict, query: dict) -> str:
+    """The request's session token: the header, else the query
+    parameter (getSessionToken)."""
+    for k, v in headers.items():
+        if k.lower() == SECURITY_TOKEN.lower() and v:
+            return v
+    return query.get(SECURITY_TOKEN, "")
+
+
+def check_session_token(cred, token: str) -> None:
+    """checkClaimsFromToken: a temporary credential needs its own token
+    (compared in constant time), a static one none; else InvalidTokenId.
+    A service account carries no token."""
+    if cred.is_temp():
+        if not hmac.compare_digest(token.encode(),
+                                   cred.session_token.encode()):
+            raise S3Error("InvalidTokenId", "session token")
+    elif token:
+        raise S3Error("InvalidTokenId", "a static key sent a session token")
+
+
 def authenticate(iam: IAMSys, method: str, path: str,
                  query: list[tuple[str, str]], headers: dict) -> AuthResult:
     """Verify the request's signature. Raises S3Error on failure."""
@@ -74,6 +106,7 @@ def authenticate(iam: IAMSys, method: str, path: str,
         cred = iam.get_credentials(access_key)
         if cred is None:
             raise S3Error("InvalidAccessKeyId", access_key)
+        check_session_token(cred, session_token(headers, qdict))
         return cred.secret_key
 
     try:

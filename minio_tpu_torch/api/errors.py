@@ -23,11 +23,13 @@ API_ERRORS: dict[str, APIError] = {e.code: e for e in [
     _E("AccessDenied", "Access Denied.", HTTPStatus.FORBIDDEN),
     _E("BadDigest", "The Content-Md5 you specified did not match what we received.", HTTPStatus.BAD_REQUEST),
     _E("EntityTooLarge", "Your proposed upload exceeds the maximum allowed object size.", HTTPStatus.BAD_REQUEST),
+    _E("EntityTooSmall", "Your proposed upload is smaller than the minimum allowed object size.", HTTPStatus.BAD_REQUEST),
     _E("ExpiredPresignRequest", "Request has expired.", HTTPStatus.FORBIDDEN),
     _E("IncompleteBody", "You did not provide the number of bytes specified by the Content-Length HTTP header.", HTTPStatus.BAD_REQUEST),
     _E("InternalError", "We encountered an internal error, please try again.", HTTPStatus.INTERNAL_SERVER_ERROR),
     _E("InvalidAccessKeyId", "The Access Key Id you provided does not exist in our records.", HTTPStatus.FORBIDDEN),
     _E("InvalidArgument", "Invalid Argument.", HTTPStatus.BAD_REQUEST),
+    _E("InvalidTokenId", "The security token included in the request is invalid", HTTPStatus.FORBIDDEN),
     _E("InvalidStorageClass", "The storage class you specified is not "
        "valid.", HTTPStatus.BAD_REQUEST),
     _E("InvalidBucketName", "The specified bucket is not valid.", HTTPStatus.BAD_REQUEST),
@@ -37,6 +39,7 @@ API_ERRORS: dict[str, APIError] = {e.code: e for e in [
     _E("InvalidRange", "The requested range is not satisfiable.", HTTPStatus.REQUESTED_RANGE_NOT_SATISFIABLE),
     _E("InvalidRequest", "Invalid Request.", HTTPStatus.BAD_REQUEST),
     _E("MalformedDate", "Invalid date format in request.", HTTPStatus.BAD_REQUEST),
+    _E("MalformedPOSTRequest", "The body of your POST request is not well-formed multipart/form-data.", HTTPStatus.BAD_REQUEST),
     _E("MalformedXML", "The XML you provided was not well-formed or did not validate against our published schema.", HTTPStatus.BAD_REQUEST),
     _E("MethodNotAllowed", "The specified method is not allowed against this resource.", HTTPStatus.METHOD_NOT_ALLOWED),
     _E("MissingContentLength", "You must provide the Content-Length HTTP header.", HTTPStatus.LENGTH_REQUIRED),

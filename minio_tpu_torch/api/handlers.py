@@ -41,6 +41,10 @@ from __future__ import annotations
 import base64
 import binascii
 import datetime
+import email
+import email.policy
+import hashlib
+import hmac
 import io
 import json
 import re
@@ -56,7 +60,7 @@ from ..bucket.lifecycle import Lifecycle, LifecycleError
 from ..bucket.quota import BucketQuotaSys
 from ..crypto import sse as ssemod
 from ..erasure import registry
-from ..iam.policy import Policy
+from ..iam.policy import Args, Policy
 from ..object.types import CompletePart, ObjectOptions
 from ..pipeline.admission import client_context, current_client, read_governor
 from ..utils.errors import (
@@ -64,7 +68,8 @@ from ..utils.errors import (
     ErrOperationTimedOut,
     StorageError,
 )
-from . import transforms
+from . import sign, transforms
+from .auth import check_session_token
 from .errors import S3Error, from_object_error
 
 MAX_OBJECT_SIZE = 5 * 1024 ** 4         # 5 TiB
@@ -76,6 +81,8 @@ MAX_KEY_LENGTH = 1024
 # Bucket configurations whose effect on the data path is not ported: a
 # bucket that has one is not served.
 _UNPORTED_BUCKET_CONFIG = ("notification_xml", "replication_xml")
+# The user metadata that marks an incoming replica.
+REPLICA_META = "x-amz-meta-mtpu-replication"
 # The prefix of every SSE request header (SSE-S3, SSE-KMS and SSE-C):
 # the multipart calls refuse them.
 _SSE_HEADER_PREFIX = "x-amz-server-side-encryption"
@@ -334,15 +341,19 @@ class S3ApiHandlers:
     parity for both classes). `quota` is the server's BucketQuotaSys
     (None: one over a listing walk). `tier_engine` is the server's
     tier.TierEngine (None: a transitioned object's GET answers
-    InvalidObjectState, ?restore NotImplemented)."""
+    InvalidObjectState, ?restore NotImplemented). `iam` is the server's
+    IAMSys, which a POST policy's signer and the replica marker's
+    s3:ReplicateObject are checked against (None: a form upload answers
+    NotImplemented, the marker is refused but under a bucket policy)."""
 
     # A version's tags live in its metadata, url-encoded (UserTags).
     TAGS_META_KEY = "x-mtpu-internal-tags"
     MAX_TAGS = 10
 
     def __init__(self, object_layer, bucket_meta, sse_config=None,
-                 config_sys=None, quota=None, tier_engine=None):
+                 config_sys=None, quota=None, tier_engine=None, iam=None):
         self.ol = object_layer
+        self.iam = iam
         self.bm = bucket_meta
         self.sse_config = sse_config
         self.config_sys = config_sys
@@ -994,6 +1005,11 @@ class S3ApiHandlers:
         self._apply_codec(ctx, opts)
         self._apply_object_lock(ctx, opts)
         self._check_quota(ctx.bucket, size)
+        if opts.user_defined.get(REPLICA_META) == "replica":
+            # The replica marker would stop a re-replication, so it takes
+            # s3:ReplicateObject, checked here for every way in (SigV4 and
+            # POST policy), as minio_tpu does.
+            self._check_replicate(ctx)
         reader, resp_extra = ctx.body_reader, {}
         want_md5_hex = _parse_content_md5(ctx.headers)
         if transforms.transforms_active(ctx.headers, self.config,
@@ -1019,6 +1035,104 @@ class S3ApiHandlers:
         if oi.version_id and oi.version_id != "null":
             headers["x-amz-version-id"] = oi.version_id
         return Response(200, headers)
+
+    def _check_replicate(self, ctx) -> None:
+        account = getattr(ctx, "access_key", "") or ""
+        args = Args(account=account, action="s3:ReplicateObject",
+                    bucket=ctx.bucket, object=ctx.object)
+        bucket_policy = self.bm.get(ctx.bucket).policy()
+        if not ((account and self.iam is not None
+                 and self.iam.is_allowed(args))
+                or (bucket_policy is not None
+                    and bucket_policy.is_allowed(args))):
+            raise S3Error("AccessDenied",
+                          "replica marker requires s3:ReplicateObject")
+
+    # --- POST policy uploads (PostPolicyBucketHandler,
+    # cmd/bucket-handlers.go, and cmd/postpolicyform.go) ---
+
+    # A form's body is parsed whole before its file is known, so its
+    # size is capped: larger objects take PUT or multipart.
+    MAX_POST_POLICY_BODY = 64 << 20
+
+    def post_policy_object(self, ctx) -> Response:
+        """A browser form upload, POST multipart/form-data to the bucket.
+        The form's x-amz-credential and x-amz-signature sign its policy
+        with the signer's IAM secret (the string to sign is the policy);
+        a temporary signer's form carries its x-amz-security-token; the
+        policy's expiration and conditions hold against the fields; the
+        signer may s3:PutObject through the IAM or the bucket policy;
+        then the file goes through put_object. Answers 204, or 201 with a
+        PostResponse when success_action_status says so."""
+        if self.iam is None:
+            raise S3Error("NotImplemented", "POST policy without an IAM")
+        self._check_bucket(ctx.bucket)
+        if (ctx.content_length or 0) > self.MAX_POST_POLICY_BODY:
+            raise S3Error("EntityTooLarge",
+                          f"POST form bodies are capped at "
+                          f"{self.MAX_POST_POLICY_BODY} bytes")
+        fields, file_data, filename = _parse_multipart_form(
+            ctx.headers.get("content-type", ""), ctx.body)
+        policy_b64 = fields.get("policy", "")
+        if not policy_b64:
+            raise S3Error("MalformedPOSTRequest", "missing policy")
+        cred_str = fields.get("x-amz-credential", "")
+        sig = fields.get("x-amz-signature", "")
+        if not cred_str or not sig:
+            raise S3Error("AccessDenied", "missing POST signature fields")
+        try:
+            cred = sign.V4Credential(cred_str)
+        except sign.SignError as exc:
+            raise S3Error("InvalidArgument",
+                          f"bad x-amz-credential: {exc}") from exc
+        creds = self.iam.get_credentials(cred.access_key)
+        if creds is None:
+            raise S3Error("InvalidAccessKeyId", cred.access_key)
+        check_session_token(creds, fields.get("x-amz-security-token", ""))
+        key = sign.signing_key(creds.secret_key, cred.date, cred.region,
+                               cred.service)
+        want = hmac.new(key, policy_b64.encode(), hashlib.sha256).hexdigest()
+        if not hmac.compare_digest(want, sig):
+            raise S3Error("SignatureDoesNotMatch", "POST policy")
+        _check_post_policy(policy_b64, fields, len(file_data), ctx.bucket)
+        key_tmpl = fields.get("key", "")
+        if not key_tmpl:
+            raise S3Error("InvalidArgument", "missing key field")
+        object_ = key_tmpl.replace("${filename}", filename)
+        if not valid_object_name(object_):
+            raise S3Error("InvalidArgument", f"bad key {object_!r}")
+        # The signer is authorized as on the SigV4 plane: the IAM, else
+        # the bucket policy.
+        args = Args(account=cred.access_key, action="s3:PutObject",
+                    bucket=ctx.bucket, object=object_)
+        bucket_policy = self.bm.get(ctx.bucket).policy()
+        if not (self.iam.is_allowed(args)
+                or (bucket_policy is not None
+                    and bucket_policy.is_allowed(args))):
+            raise S3Error("AccessDenied", "PutObject")
+        from .server import RequestContext
+
+        headers = {k: v for k, v in fields.items()
+                   if k.startswith("x-amz-meta-") or k == "content-type"}
+        sub = RequestContext("PUT", f"/{ctx.bucket}/{object_}", [], headers,
+                             io.BytesIO(file_data), len(file_data))
+        sub.access_key = cred.access_key
+        # The form branches off before the dispatch's admission identity
+        # is set: the encode slot is charged to the signer here.
+        with client_context(cred.access_key or "anonymous",
+                            bucket=ctx.bucket or ""):
+            resp = self.put_object(sub)
+        if fields.get("success_action_status", "204") == "201":
+            root = ET.Element("PostResponse")
+            ET.SubElement(root, "Bucket").text = ctx.bucket
+            ET.SubElement(root, "Key").text = object_
+            ET.SubElement(root, "ETag").text = resp.headers.get("ETag", "")
+            out = Response.xml(root)
+            out.status = 201
+            out.headers.update({k: v for k, v in resp.headers.items()
+                                if k != "ETag"})
+            return out
+        return Response(204, dict(resp.headers))
 
     # --- CopyObject (CopyObjectHandler, cmd/object-handlers.go) ---
 
@@ -1816,3 +1930,112 @@ class S3ApiHandlers:
             ET.SubElement(u, "Key").text = enc(mp.object)
             ET.SubElement(u, "UploadId").text = mp.upload_id
         return Response.xml(root)
+
+
+class PostPolicyError(S3Error):
+    """A POST policy whose expiration or conditions the form fails."""
+
+
+def _parse_multipart_form(content_type: str, body: bytes):
+    """multipart/form-data -> (fields, the file's bytes, its filename);
+    the field names lower-cased."""
+    raw = (f"Content-Type: {content_type}\r\nMIME-Version: 1.0\r\n\r\n"
+           .encode() + body)
+    msg = email.message_from_bytes(raw, policy=email.policy.HTTP)
+    if not msg.is_multipart():
+        raise S3Error("MalformedPOSTRequest", "not multipart/form-data")
+    fields: dict[str, str] = {}
+    file_data: bytes | None = None
+    filename = ""
+    for part in msg.iter_parts():
+        name = part.get_param("name", header="content-disposition")
+        if not name:
+            continue
+        payload = part.get_payload(decode=True) or b""
+        if name == "file":
+            file_data = payload
+            filename = part.get_filename() or ""
+        else:
+            fields[name.lower()] = payload.decode("utf-8", "replace").strip()
+    if file_data is None:
+        raise S3Error("MalformedPOSTRequest", "missing file field")
+    return fields, file_data, filename
+
+
+# Form fields no condition has to cover (the AWS POST policy rule).
+_POST_EXEMPT_FIELDS = frozenset({
+    "policy", "x-amz-signature", "x-amz-algorithm", "x-amz-credential",
+    "x-amz-date", "x-amz-security-token", "bucket", "success_action_status",
+    "success_action_redirect"})
+
+
+def _check_post_policy(policy_b64: str, fields: dict, size: int,
+                       bucket: str) -> None:
+    """The policy document's expiration (a naive time is UTC) and its
+    conditions against the form's fields (checkPostPolicy): exact
+    matches, eq, starts-with and content-length-range; every field but
+    the exempt ones must be covered by a condition, so no metadata rides
+    past the signer."""
+    try:
+        doc = json.loads(base64.b64decode(policy_b64))
+    except Exception as exc:  # noqa: BLE001 - any undecodable document
+        raise S3Error("MalformedPOSTRequest", "bad policy") from exc
+    exp = doc.get("expiration", "")
+    try:
+        when = datetime.datetime.fromisoformat(
+            str(exp).replace("Z", "+00:00"))
+    except (ValueError, TypeError) as exc:
+        raise S3Error("MalformedPOSTRequest", "bad expiration") from exc
+    if when.tzinfo is None:
+        when = when.replace(tzinfo=datetime.timezone.utc)
+    if when < datetime.datetime.now(datetime.timezone.utc):
+        raise PostPolicyError("AccessDenied", "policy expired")
+    # The URL names the bucket: the conditions see it, whatever bucket
+    # field the form carries (MinIO overwrites the form's; minio_tpu
+    # keeps it, so a form signed for one bucket stores into another;
+    # ROADMAP.md Queue 3).
+    fields = dict(fields)
+    fields["bucket"] = bucket
+    covered: set[str] = set()
+    try:
+        for cond in doc.get("conditions", []):
+            if isinstance(cond, dict):
+                for k, v in cond.items():
+                    k = str(k).lower().lstrip("$")
+                    covered.add(k)
+                    if k in ("policy", "x-amz-signature", "file"):
+                        continue
+                    if fields.get(k, "") != str(v):
+                        raise PostPolicyError(
+                            "AccessDenied", f"policy condition failed: {k}")
+            elif isinstance(cond, list) and len(cond) == 3:
+                op, key, val = str(cond[0]).lower(), str(cond[1]), cond[2]
+                if op == "content-length-range":
+                    lo, hi = int(cond[1]), int(cond[2])
+                    if not lo <= size <= hi:
+                        raise PostPolicyError(
+                            "EntityTooLarge" if size > hi
+                            else "EntityTooSmall",
+                            f"{size} outside [{lo},{hi}]")
+                    continue
+                k = key.lower().lstrip("$")
+                covered.add(k)
+                have = fields.get(k, "")
+                if op == "eq" and have != str(val):
+                    raise PostPolicyError(
+                        "AccessDenied", f"policy eq condition failed: {k}")
+                if op == "starts-with" and not have.startswith(str(val)):
+                    raise PostPolicyError(
+                        "AccessDenied", f"policy starts-with failed: {k}")
+            else:
+                raise S3Error("MalformedPOSTRequest",
+                              "unsupported condition shape")
+    except S3Error:
+        raise
+    except Exception as exc:  # noqa: BLE001 - malformed document shapes
+        raise S3Error("MalformedPOSTRequest",
+                      f"bad policy conditions: {exc}") from exc
+    for k in fields:
+        if k not in _POST_EXEMPT_FIELDS and k not in covered:
+            raise PostPolicyError("AccessDenied",
+                                  f"form field {k!r} not covered by policy")

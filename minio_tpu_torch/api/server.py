@@ -19,17 +19,21 @@ and tagging, the canned bucket answers and ACLs, ListObjects v1 and v2,
 ListObjectVersions, Put/Copy/Get/Head/DeleteObject with server-side
 encryption, the bucket's ?encryption, ?lifecycle and ?object-lock
 documents, an object's ?retention and ?legal-hold, DeleteObjects, object
-tagging, the multipart calls with UploadPartCopy, the admin heal, usage,
-KMS, ioflow, metrics, slow-requests and bucket quota routes, the
-health probes
+tagging, the multipart calls with UploadPartCopy, browser form uploads
+signed by a POST policy, the STS plane (a form POST to "/": AssumeRole
+signed, the web identity, client grants and LDAP actions unsigned), the
+admin heal, usage, KMS, ioflow, metrics, slow-requests, bucket quota,
+tier, user, policy and account routes, the health probes
 /minio/health/{live,ready,cluster} (unauthenticated) and the Prometheus
 scrapes /minio/v2/metrics/{cluster,node} and /minio/prometheus/metrics
 (SigV4, admin:Prometheus), and the six admin config routes. A copy is
 authorized twice: the write on its destination, and s3:GetObject on its
 source. The x-amz-bypass-governance-retention header counts only for a
 caller who may take s3:BypassGovernanceRetention on the object, as in
-MinIO (minio_tpu reads the header alone). Every other route, and the
-rest of the /minio/ namespace, answers NotImplemented.
+MinIO (minio_tpu reads the header alone). Bucket notification,
+replication, S3 Select, the rest of the admin API (server and storage
+info, locks, trace, service, profiling, logs, health info) and the rest
+of the /minio/ namespace answer NotImplemented.
 
 With a ConfigSys, the `api` subsystem sets two things when the server is
 built (a change takes a restart, as the set-config-kv answer says): the
@@ -70,6 +74,7 @@ from .handlers import (
     parse_copy_source,
     valid_object_name,
 )
+from .sts import FEDERATED_ACTIONS, handle_sts, is_sts_request, sts_form
 
 # Buckets the S3 data plane never serves: the internal metadata buckets
 # and the "minio" route namespace (isMinioReservedBucket).
@@ -173,7 +178,7 @@ _SCRAPE_PATHS = frozenset({"/minio/v2/metrics/cluster",
 
 # Error codes counted as auth failures.
 _AUTH_FAILURES = frozenset({"AccessDenied", "SignatureDoesNotMatch",
-                            "InvalidAccessKeyId"})
+                            "InvalidAccessKeyId", "InvalidTokenId"})
 
 
 # S3 header limits (setRequestHeaderSizeLimitHandler): 8 KiB of headers,
@@ -483,7 +488,7 @@ class S3Server:
                              f"not {self.device}")
         self.handlers = S3ApiHandlers(object_layer, bucket_meta, sse_config,
                                       config_sys=config_sys, quota=quota,
-                                      tier_engine=tier_engine)
+                                      tier_engine=tier_engine, iam=iam)
         # Requests in flight, which a heal sequence yields to.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
@@ -703,8 +708,20 @@ class S3Server:
         if ctx.path == "/crossdomain.xml" or ctx.path.startswith("/minio/"):
             # The console and the rest of the minio route namespace.
             raise S3Error("NotImplemented", ctx.path)
-        if ctx.method == "POST" and not ctx.bucket:
-            raise S3Error("NotImplemented", "STS")
+        # The STS plane (registerSTSRouter, cmd/sts-handlers.go:71): a
+        # form POST to "/". The federated actions are unsigned (the token,
+        # or the directory's bind, is the credential); AssumeRole needs a
+        # signature. The branch is on the parsed Action.
+        if is_sts_request(ctx):
+            if sts_form(ctx).get("Action") in FEDERATED_ACTIONS:
+                return handle_sts(ctx, self.iam, "",
+                                  config=self.handlers.config)
+            auth_result = authenticate(self.iam, ctx.method, ctx.path,
+                                       ctx.query, ctx.raw_headers)
+            if auth_result.is_anonymous:
+                raise S3Error("AccessDenied", "STS requires signature")
+            return handle_sts(ctx, self.iam, auth_result.access_key,
+                              config=self.handlers.config)
         # One guard for every data-plane route: internal buckets are
         # unreachable, and no handler sees a "." or ".." segment.
         if ctx.bucket:
@@ -729,8 +746,9 @@ class S3Server:
                 raise S3Error("SlowDown", "request limit reached")
             ctx.held_request_slot = True
         if name == "post_policy_object":
-            # Signed by a form policy, not SigV4: not ported.
-            raise S3Error("NotImplemented", name)
+            # Signed by the form's policy, not by SigV4: the handler checks
+            # the signature and the conditions (authTypePostPolicy).
+            return self.handlers.post_policy_object(ctx)
         auth_result = authenticate(self.iam, ctx.method, ctx.path, ctx.query,
                                    ctx.raw_headers)
         action = _ACTIONS.get(name, "s3:*")
@@ -741,6 +759,7 @@ class S3Server:
             bucket_policy = self.handlers.bm.get(ctx.bucket).policy()
         authorize(self.iam, bucket_policy, auth_result, action, ctx.bucket,
                   ctx.object)
+        ctx.access_key = auth_result.access_key
 
         def may_bypass_governance(object_: str) -> bool:
             try:

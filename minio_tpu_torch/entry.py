@@ -38,7 +38,13 @@ drives remote tiers over HTTP, a server tiered to a second one in the
 same process: the admin tier routes, the scanner's transition of a
 plain, an SSE-S3 and a compressed-then-sealed object, GETs whole and
 ranged through the tier, degraded on the cold server, a restore and its
-expiry, and a heal that keeps the tiered versions.
+expiry, and a heal that keeps the tiered versions. `s3_identity()` drives
+identity over HTTP: users, policies and their mappings over the admin
+routes, AssumeRole with a session policy, web identity with HS256 and
+RS256 tokens, LDAP, a service account, POST policy uploads, refusals,
+and a restart that loads the IAM from degraded blobs; its test doubles
+(`rsa_keypair`, `jwt_hs256`, `jwt_rs256`, `ToyLDAPServer`) serve the CPU
+tests too.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import hashlib
+import hmac
 import io
 import json
 import os
@@ -74,7 +81,6 @@ from .api.client import S3Client
 from .api.handlers import copy_reads_snapshot
 from .background import healpace
 from .background.scanner import parse_lifecycle
-from .iam.store import Credentials, IAMSys
 from .object import erasure_objects
 from .object.sets import ErasureSets
 from .object.types import ObjectOptions
@@ -1897,35 +1903,17 @@ class StallingDrive:
         return call
 
 
-class _Accounts(IAMSys):
-    """The root credential and more keys with the root's rights: the
-    port's IAM holds the root alone (users and policies are not ported),
-    and the phase needs two clients."""
-
-    def __init__(self, root_access: str, root_secret: str, others: dict):
-        super().__init__(root_access, root_secret)
-        self.others = {ak: Credentials(ak, sk) for ak, sk in others.items()}
-
-    def get_credentials(self, access_key: str):
-        return (self.others.get(access_key)
-                or super().get_credentials(access_key))
-
-    def is_allowed(self, args) -> bool:
-        return args.account in self.others or super().is_allowed(args)
-
-
 class _AdmissionServer(Server):
     """The phase's server: the drive at index ADMISSION_STALLED is a
     StallingDrive under the health wrapper, put there before the server's
     first op (the wrapper caches each method at its first call), and the
-    IAM knows a second key."""
+    phase's second client is an IAM user with the readwrite policy."""
 
     def __init__(self, *args, **kwargs):
         self.stall = None
         super().__init__(*args, **kwargs)
-        self.iam = self.s3.iam = self.s3.admin.iam = _Accounts(
-            self.root_user, self.root_password,
-            {ADMISSION_QUIET: ADMISSION_QUIET_SECRET})
+        self.iam.add_user(ADMISSION_QUIET, ADMISSION_QUIET_SECRET)
+        self.iam.attach_policy(ADMISSION_QUIET, ["readwrite"])
 
     def _wrap_disk(self, raw, ep: str):
         if Path(ep).name == f"d{ADMISSION_STALLED + 1}":
@@ -3741,5 +3729,577 @@ def s3_tiering(root, size: int, device="cuda", text_size: int = 64 << 20,
         cold.stop()
     out["system_objects"] = {f"write-{n}": s
                              for n, s in enumerate(sorted(system_sizes))}
+    out["checks"] = checks
+    return out
+
+
+# --- identity: test doubles for phase 4q and the CPU tests ---------------
+
+def _is_probable_prime(n: int, rng, rounds: int = 40) -> bool:
+    """Miller-Rabin with `rounds` bases drawn from `rng`."""
+    if n < 4:
+        return n in (2, 3)
+    if not n & 1:
+        return False
+    d, r = n - 1, 0
+    while not d & 1:
+        d >>= 1
+        r += 1
+    for _ in range(rounds):
+        x = pow(rng.randrange(2, n - 1), d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(r - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def rsa_keypair(seed: int, bits: int = 2048, e: int = 65537) -> dict:
+    """An RSA key {n, e, d} made with Python integers: two primes of
+    bits/2 bits from a seeded Miller-Rabin search. A test double for an
+    identity provider's signing key, never a key to keep."""
+    import random
+
+    rng = random.Random(seed)
+    half = bits // 2
+    while True:
+        primes = []
+        while len(primes) < 2:
+            c = rng.getrandbits(half) | (3 << (half - 2)) | 1
+            if (c - 1) % e and _is_probable_prime(c, rng):
+                primes.append(c)
+        p, q = primes
+        n = p * q
+        if p != q and n.bit_length() == bits:
+            return {"n": n, "e": e, "d": pow(e, -1, (p - 1) * (q - 1))}
+
+
+def _b64url(data: bytes) -> str:
+    return base64.urlsafe_b64encode(data).rstrip(b"=").decode()
+
+
+def jwks_of(key: dict, kid: str) -> str:
+    """The public half of `key` as a JWKS document."""
+    k = (key["n"].bit_length() + 7) // 8
+    return json.dumps({"keys": [{
+        "kty": "RSA", "kid": kid, "alg": "RS256", "use": "sig",
+        "n": _b64url(key["n"].to_bytes(k, "big")),
+        "e": _b64url(key["e"].to_bytes(3, "big"))}]})
+
+
+def jwt_hs256(claims: dict, secret: str) -> str:
+    """An HS256 JSON web token of `claims`."""
+    head = _b64url(json.dumps({"alg": "HS256", "typ": "JWT"}).encode())
+    body = _b64url(json.dumps(claims).encode())
+    sig = hmac.new(secret.encode(), f"{head}.{body}".encode(),
+                       hashlib.sha256).digest()
+    return f"{head}.{body}.{_b64url(sig)}"
+
+
+def jwt_rs256(claims: dict, key: dict, kid: str) -> str:
+    """An RS256 JSON web token of `claims` signed with `key`
+    (RSASSA-PKCS1-v1_5 with SHA-256)."""
+    from .api.sts import pkcs1v15_sha256
+
+    head = _b64url(json.dumps({"alg": "RS256", "typ": "JWT",
+                               "kid": kid}).encode())
+    body = _b64url(json.dumps(claims).encode())
+    k = (key["n"].bit_length() + 7) // 8
+    em = pkcs1v15_sha256(f"{head}.{body}".encode(), k)
+    sig = pow(int.from_bytes(em, "big"), key["d"], key["n"])
+    return f"{head}.{body}.{_b64url(sig.to_bytes(k, 'big'))}"
+
+
+class ToyLDAPServer:
+    """A directory that answers LDAPv3 simple binds against `users`
+    ({dn: password}) on a localhost port: a test double for the
+    identity_ldap server, one thread, one bind a connection."""
+
+    def __init__(self, users: dict):
+        import socket
+
+        self.users = users
+        self.binds = 0
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.addr = f"127.0.0.1:{self.sock.getsockname()[1]}"
+        self._thread = threading.Thread(target=self._serve, daemon=True,
+                                        name="mtpu-toy-ldap")
+        self._thread.start()
+
+    def _serve(self) -> None:
+        from .utils.ldap import LDAPError, _ber, _ber_int, _parse_tlv
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            with conn:
+                try:
+                    data = conn.recv(4096)
+                    _, msg, _ = _parse_tlv(data, 0)
+                    _, mid, off = _parse_tlv(msg, 0)
+                    tag, op, _ = _parse_tlv(msg, off)
+                    if tag != 0x60:
+                        continue  # not a BindRequest
+                    _, _ver, o2 = _parse_tlv(op, 0)
+                    _, dn, o3 = _parse_tlv(op, o2)
+                    _, pw, _ = _parse_tlv(op, o3)
+                except (LDAPError, OSError):
+                    continue
+                self.binds += 1
+                ok = self.users.get(dn.decode()) == pw.decode()
+                body = (bytes([0x0A, 0x01, 0 if ok else 49])
+                        + _ber(0x04, b"") + _ber(0x04, b""))
+                try:
+                    conn.sendall(_ber(0x30, _ber_int(int.from_bytes(
+                        mid, "big")) + _ber(0x61, body)))
+                except OSError:
+                    continue
+
+    def stop(self) -> None:
+        self.sock.close()
+        self._thread.join(timeout=5)
+
+
+IDP_BUCKET = "idp"
+IDP_OTHER_BUCKET = "idp-other"
+IDP_POLICY = "idp-rw"
+IDP_POLICY_DOC = json.dumps({"Version": "2012-10-17", "Statement": [{
+    "Effect": "Allow",
+    "Action": ["s3:PutObject", "s3:GetObject", "s3:ListBucket"],
+    "Resource": [f"arn:aws:s3:::{IDP_BUCKET}",
+                 f"arn:aws:s3:::{IDP_BUCKET}/*"]}]})
+IDP_SESSION_POLICY = json.dumps({"Version": "2012-10-17", "Statement": [{
+    "Effect": "Allow", "Action": ["s3:GetObject"],
+    "Resource": [f"arn:aws:s3:::{IDP_BUCKET}/*"]}]})
+IDP_ALICE, IDP_ALICE_SECRET = "alice", "alice-secret-key-0001"
+IDP_LDAP_USER, IDP_LDAP_PASSWORD = "bob", "bob-directory-password"
+IDP_LDAP_BASE_DN = "dc=smoke,dc=org"
+IDP_HMAC_SECRET = "smoke-oidc-shared-secret"
+IDP_CLIENT_ID = "smoke-app"
+IDP_KID = "smoke-rsa-1"
+IDP_OBJECT = "big.bin"
+IDP_SSE_OBJECT = "sealed.bin"
+IDP_RANGE = 3 << 20
+STS_NS = "{https://sts.amazonaws.com/doc/2011-06-15/}"
+
+
+def sts_credentials(body: bytes) -> dict:
+    """AccessKeyId, SecretAccessKey, SessionToken and Expiration of an
+    STS answer."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(body)
+    return {t: root.findtext(f".//{STS_NS}{t}")
+            for t in ("AccessKeyId", "SecretAccessKey", "SessionToken",
+                      "Expiration")}
+
+
+def _iam_files(root: Path, drives: int) -> dict:
+    """SHA-256 of every file under .minio.sys/config/iam on the drives."""
+    return {str(p.relative_to(root)): hashlib.sha256(
+        p.read_bytes()).hexdigest()
+        for i in range(1, drives + 1)
+        for p in sorted((root / f"d{i}" / ".minio.sys" / "config" /
+                         "iam").rglob("*"))
+        if p.is_file()}
+
+
+class _OutageServer(Server):
+    """A Server whose drives at the indices `offline` are down from its
+    first op (the raw drive set offline under the wrapper)."""
+
+    def __init__(self, *args, offline=(), **kwargs):
+        self.offline_raw = []
+        self._offline = {f"d{i + 1}" for i in offline}
+        super().__init__(*args, **kwargs)
+
+    def _wrap_disk(self, raw, ep: str):
+        if Path(ep).name in self._offline:
+            raw.set_online(False)
+            self.offline_raw.append(raw)
+        return super()._wrap_disk(raw, ep)
+
+    def bring_back(self) -> None:
+        """The offline drives back, each with its format's disk id."""
+        from .object.sets import read_format
+
+        for raw in self.offline_raw:
+            raw.set_online(True)
+            raw.set_disk_id(read_format(raw)["xl"]["this"])
+
+
+def s3_identity(root, size: int, device="cuda", post_size: int = 16 << 20,
+                drives: int = 16, parity: int = 4, lost=S3_WIPED,
+                range_size: int = IDP_RANGE, seed: int = 110) -> dict:
+    """Drive identity over HTTP: a Server over `drives` fresh drive
+    directories under `root` (one set, `parity` parity) on `device`, its
+    S3 plane alone, with identity_openid (an HS256 secret and the JWKS of
+    an RSA key made from `seed`) and identity_ldap (a ToyLDAPServer in
+    this process) set in the environment:
+
+    1. the root, over the admin routes: `idp_add_policy` the canned
+       policy idp-rw (PutObject, GetObject and ListBucket on the bucket
+       idp), `idp_add_user` the user alice, `idp_map` idp-rw mapped to
+       alice and to ldap:bob (each a .minio.sys PUT), `idp_list_users`
+       alice listed with idp-rw;
+    2. alice: `alice_put` a `size`-byte seeded object to idp,
+       `alice_get` it exact by SHA-256, `alice_put_denied` a PUT to
+       idp-other answered 403 from its headers, no drive file changed;
+    3. `assume_role` by alice with a session policy of s3:GetObject
+       alone: `sts_get` the temporary credential's GET exact with its
+       X-Amz-Security-Token, `sts_put_denied` its PUT 403,
+       `sts_get_no_token` its GET without the token 403 InvalidTokenId;
+    4. `web_identity_hs256` and `web_identity_rs256`:
+       AssumeRoleWithWebIdentity with each token (policy=idp-rw), the
+       HS256 credential's HEAD 200 and its PUT to idp-other 403;
+       `web_sse_put` the RS256 credential's SSE-S3 PUT of the same bytes,
+       `web_sse_get` its GET exact;
+    5. `ldap_assume` AssumeRoleWithLDAPIdentity for bob,
+       `ldap_wrong_password` 403; the object lost on the drives `lost`
+       and those drives offline, `ldap_degraded_get` bob's GET exact;
+       the drives back;
+    6. `service_account`: IAMSys.new_service_account("alice") in this
+       process (no admin route makes one), `sa_range_get` its GET of
+       `range_size` bytes from the object's middle exact,
+       `sa_put_denied` its PUT to idp-other 403;
+    7. `post_201` and `post_204`: form uploads of `post_size` bytes
+       signed by alice (success_action_status 201, then the default),
+       each GET exact (`post_get`), `post_refused` a form whose key
+       breaks its starts-with condition 403;
+    8. the IAM blobs lost on the drives `lost`, the server stopped and
+       built again with those drives offline (`restart`: the IAM loads
+       from the degraded blobs), `iam_reload` the store read again,
+       `after_restart` alice's and the service account's keys answering
+       and every STS credential gone (InvalidAccessKeyId); the drives
+       back, `heal_bucket` the admin heal of idp and `heal_iam` each IAM
+       blob healed through the object layer (the admin heal takes user
+       buckets), every healed file equal by SHA-256 to its original.
+
+    Returns each step's seconds and counter deltas, kernel A's launches
+    by shape in each step, the sizes of the .minio.sys objects the
+    servers wrote, the reconstructions the object's degraded reads and
+    heal take and those of the IAM blobs (unavailable and rebuilt
+    shards; a blob's with its size), and the checks."""
+    from .object.metadata import hash_order
+    from .ops import rs_cuda
+
+    dev = resolve_device(device)
+    root = Path(root)
+    k = drives - parity
+    out: dict = {"size": size, "post_size": post_size, "k": k, "m": parity,
+                 "lost": list(lost), "range_size": range_size,
+                 "seconds": {}, "counters": {}, "gf_by_shape": {}}
+    phase = _phases(dev, out)
+    checks: dict = {}
+    rng = np.random.default_rng(seed)
+    payload = rng.bytes(size)
+    form_body = rng.bytes(post_size)
+    want = hashlib.sha256(payload).hexdigest()
+    key = rsa_keypair(seed)
+    admin = "/minio/admin/v3"
+    b, other = f"/{IDP_BUCKET}", f"/{IDP_OTHER_BUCKET}"
+    system_sizes: set = set()
+    iam_sizes: dict = {}
+
+    def step(label, fn):
+        shapes = rs_cuda.LAUNCHES_BY_SHAPE.snapshot()
+        res = phase(label, fn)
+        out["gf_by_shape"][label] = _shape_delta(
+            shapes, rs_cuda.LAUNCHES_BY_SHAPE.snapshot())
+        return res
+
+    def server(offline=()):
+        srv = _OutageServer([str(root / f"d{{1...{drives}}}")], port=0,
+                            root_user=S3_ACCESS, root_password=S3_SECRET,
+                            default_parity=parity, device=dev,
+                            offline=offline)
+        put_object = srv.object_layer.put_object
+
+        def noting_put(bucket, name, reader, size_, opts=None):
+            if bucket == ".minio.sys":
+                system_sizes.add(size_)
+                if name.startswith("config/iam/"):
+                    iam_sizes[name] = size_
+            return put_object(bucket, name, reader, size_, opts)
+
+        srv.object_layer.put_object = noting_put
+        srv.s3.start()
+        return srv
+
+    def tokens(claims_policy: str = IDP_POLICY) -> dict:
+        claims = {"sub": "carol@idp", "aud": IDP_CLIENT_ID,
+                  "exp": int(time.time()) + 3600, "policy": claims_policy}
+        return {"HS256": jwt_hs256(claims, IDP_HMAC_SECRET),
+                "RS256": jwt_rs256(claims, key, IDP_KID)}
+
+    def status_code(resp) -> tuple[int, str]:
+        m = re.search(rb"<Code>(.*?)</Code>", resp[2])
+        return resp[0], m.group(1).decode() if m else ""
+
+    ldap = ToyLDAPServer({f"uid={IDP_LDAP_USER},{IDP_LDAP_BASE_DN}":
+                          IDP_LDAP_PASSWORD})
+    env = {"MTPU_IDENTITY_OPENID_HMAC_SECRET": IDP_HMAC_SECRET,
+           "MTPU_IDENTITY_OPENID_JWKS": jwks_of(key, IDP_KID),
+           "MTPU_IDENTITY_OPENID_CLIENT_ID": IDP_CLIENT_ID,
+           "MTPU_IDENTITY_LDAP_SERVER_ADDR": ldap.addr,
+           "MTPU_IDENTITY_LDAP_USER_DN_SEARCH_BASE_DN": IDP_LDAP_BASE_DN}
+    srv = None
+    try:
+        with env_vars(**env):
+            srv = server()
+            c = S3Client(srv.endpoint, S3_ACCESS, S3_SECRET)
+            checks["buckets_ok"] = [c.request("PUT", b)[0],
+                                    c.request("PUT", other)[0]] == [200, 200]
+
+            # 1. The root sets up alice and the policy.
+            st = step("idp_add_policy", lambda: c.request(
+                "PUT", f"{admin}/add-canned-policy", [("name", IDP_POLICY)],
+                body=IDP_POLICY_DOC.encode())[0])
+            checks["policy_added"] = st == 200
+            st = step("idp_add_user", lambda: c.request(
+                "PUT", f"{admin}/add-user", [("accessKey", IDP_ALICE)],
+                body=json.dumps({"secretKey": IDP_ALICE_SECRET,
+                                 "status": "on"}).encode())[0])
+            checks["user_added"] = st == 200
+            st = step("idp_map", lambda: [c.request(
+                "PUT", f"{admin}/set-user-or-group-policy",
+                [("userOrGroup", who), ("policyName", IDP_POLICY),
+                 ("isGroup", "false")])[0]
+                for who in (IDP_ALICE, f"ldap:{IDP_LDAP_USER}")])
+            checks["policy_mapped"] = st == [200, 200]
+            st, _, body = step("idp_list_users", lambda: c.request(
+                "GET", f"{admin}/list-users"))
+            checks["alice_listed"] = st == 200 and json.loads(body) == {
+                IDP_ALICE: {"status": "on", "policyName": IDP_POLICY}}
+
+            # 2. Alice writes and reads in idp, and only there.
+            alice = S3Client(srv.endpoint, IDP_ALICE, IDP_ALICE_SECRET)
+            st, _, _ = step("alice_put", lambda: alice.put_stream(
+                f"{b}/{IDP_OBJECT}", _PayloadReader(payload), size))
+            checks["alice_put_ok"] = st == 200
+            st, dg, _, _ = step("alice_get", lambda: _sha_get(
+                alice, f"{b}/{IDP_OBJECT}"))
+            checks["alice_get_exact"] = st == 200 and dg == want
+            before = _drive_stat(root)
+            resp = step("alice_put_denied", lambda: alice.put_refused(
+                f"{other}/{IDP_OBJECT}", size))
+            checks["alice_put_denied_403"] = (
+                status_code(resp) == (403, "AccessDenied")
+                and _drive_stat(root) == before)
+
+            # 3. A temporary credential narrowed by a session policy.
+            st, _, body = step("assume_role", lambda: alice.sts({
+                "Action": "AssumeRole", "Version": "2011-06-15",
+                "DurationSeconds": "900", "Policy": IDP_SESSION_POLICY}))
+            role = sts_credentials(body) if st == 200 else {}
+            checks["assume_role_ok"] = st == 200 and all(role.values())
+            temp = S3Client(srv.endpoint, role.get("AccessKeyId", ""),
+                            role.get("SecretAccessKey", ""),
+                            session_token=role.get("SessionToken", ""))
+            st, dg, _, _ = step("sts_get", lambda: _sha_get(
+                temp, f"{b}/{IDP_OBJECT}"))
+            checks["sts_get_exact"] = st == 200 and dg == want
+            resp = step("sts_put_denied", lambda: temp.put_refused(
+                f"{b}/narrowed.bin", post_size))
+            checks["sts_put_denied_403"] = status_code(resp) == (
+                403, "AccessDenied")
+            tokenless = S3Client(srv.endpoint, temp.access_key,
+                                 temp.secret_key)
+            resp = step("sts_get_no_token", lambda: tokenless.request(
+                "GET", f"{b}/{IDP_OBJECT}"))
+            checks["sts_get_no_token_403"] = status_code(resp) == (
+                403, "InvalidTokenId")
+
+            # 4. Web identity: an HS256 and an RS256 token.
+            web = {}
+            for alg, token in tokens().items():
+                st, _, body = step(f"web_identity_{alg.lower()}",
+                                   lambda: c.sts({
+                                       "Action": "AssumeRoleWithWebIdentity",
+                                       "Version": "2011-06-15",
+                                       "WebIdentityToken": token,
+                                       "DurationSeconds": "3600"},
+                                       signed=False))
+                got = sts_credentials(body) if st == 200 else {}
+                checks[f"web_identity_{alg.lower()}_ok"] = (
+                    st == 200 and all(got.values()))
+                web[alg] = S3Client(srv.endpoint,
+                                    got.get("AccessKeyId", ""),
+                                    got.get("SecretAccessKey", ""),
+                                    session_token=got.get("SessionToken",
+                                                          ""))
+            checks["web_hs256_head_ok"] = web["HS256"].request(
+                "HEAD", f"{b}/{IDP_OBJECT}")[0] == 200
+            checks["web_hs256_put_elsewhere_403"] = status_code(
+                web["HS256"].put_refused(f"{other}/x", post_size)) == (
+                    403, "AccessDenied")
+            st, _, _ = step("web_sse_put", lambda: web["RS256"].put_stream(
+                f"{b}/{IDP_SSE_OBJECT}", _PayloadReader(payload), size,
+                sse_put_headers("sse-s3")))
+            checks["web_sse_put_ok"] = st == 200
+            st, dg, _, h = step("web_sse_get", lambda: _sha_get(
+                web["RS256"], f"{b}/{IDP_SSE_OBJECT}"))
+            checks["web_sse_get_exact"] = (
+                st == 200 and dg == want
+                and h.get(ssemod.HDR_SSE.lower()) == "AES256")
+
+            # 5. LDAP: bob's directory bind, then a degraded GET.
+            form = {"Action": "AssumeRoleWithLDAPIdentity",
+                    "Version": "2011-06-15", "LDAPUsername": IDP_LDAP_USER}
+            st, _, body = step("ldap_assume", lambda: c.sts(
+                dict(form, LDAPPassword=IDP_LDAP_PASSWORD), signed=False))
+            got = sts_credentials(body) if st == 200 else {}
+            checks["ldap_assume_ok"] = st == 200 and all(got.values())
+            bob = S3Client(srv.endpoint, got.get("AccessKeyId", ""),
+                           got.get("SecretAccessKey", ""),
+                           session_token=got.get("SessionToken", ""))
+            resp = step("ldap_wrong_password", lambda: c.sts(
+                dict(form, LDAPPassword="not-" + IDP_LDAP_PASSWORD),
+                signed=False))
+            checks["ldap_wrong_password_403"] = status_code(resp) == (
+                403, "AccessDenied")
+            originals = _object_files(root, IDP_BUCKET, IDP_OBJECT)
+            dist = hash_order(f"{IDP_BUCKET}/{IDP_OBJECT}", drives)
+            shards = sorted(dist[d] - 1 for d in lost)
+            # The heal rebuilds every lost shard, a read the data ones.
+            targets = [shards, [s_ for s_ in shards if s_ < k]]
+            out["object_reconstructions"] = [
+                [shards, t] for i, t in enumerate(targets)
+                if t not in targets[:i]]
+            raw_disks = [unwrap(d) for d in srv.object_layer.pools[0].disks]
+            for i in lost:
+                shutil.rmtree(root / f"d{i + 1}" / IDP_BUCKET / IDP_OBJECT)
+                raw_disks[i].set_online(False)
+            st, dg, _, _ = step("ldap_degraded_get", lambda: _sha_get(
+                bob, f"{b}/{IDP_OBJECT}"))
+            checks["ldap_degraded_get_exact"] = st == 200 and dg == want
+            for i in lost:
+                raw_disks[i].set_online(True)
+
+            # 6. A service account of alice's, made in this process.
+            sa = step("service_account",
+                      lambda: srv.iam.new_service_account(IDP_ALICE))
+            sac = S3Client(srv.endpoint, sa.access_key, sa.secret_key)
+            first = size // 2 - range_size // 2
+            st, dg, n, _ = step("sa_range_get", lambda: _sha_get(
+                sac, f"{b}/{IDP_OBJECT}", {
+                    "Range": f"bytes={first}-{first + range_size - 1}"}))
+            checks["sa_range_get_exact"] = (
+                st == 206 and n == range_size and dg == hashlib.sha256(
+                    payload[first:first + range_size]).hexdigest())
+            resp = step("sa_put_denied", lambda: sac.put_refused(
+                f"{other}/x", post_size))
+            checks["sa_put_denied_403"] = status_code(resp) == (
+                403, "AccessDenied")
+
+            # 7. Browser form uploads signed by alice.
+            conds = [["starts-with", "$key", "forms/"],
+                     ["content-length-range", 1, post_size],
+                     ["eq", "$success_action_status", "201"]]
+            fields = alice.post_policy_fields(IDP_BUCKET, conds)
+            fields.update(key="forms/${filename}",
+                          success_action_status="201")
+            st, _, body = step("post_201", lambda: alice.post_form(
+                IDP_BUCKET, fields, form_body, "form-201.bin"))
+            checks["post_201"] = (st == 201 and
+                                  b"<Key>forms/form-201.bin</Key>" in body)
+            fields = alice.post_policy_fields(IDP_BUCKET, conds[:2])
+            fields["key"] = "forms/${filename}"
+            st, _, _ = step("post_204", lambda: alice.post_form(
+                IDP_BUCKET, fields, form_body, "form-204.bin"))
+            checks["post_204"] = st == 204
+            form_want = hashlib.sha256(form_body).hexdigest()
+            res = step("post_get", lambda: [
+                _sha_get(alice, f"{b}/forms/{n}")[:2]
+                for n in ("form-201.bin", "form-204.bin")])
+            checks["post_get_exact"] = res == [(200, form_want)] * 2
+            fields = alice.post_policy_fields(IDP_BUCKET, conds[:2])
+            fields["key"] = "elsewhere/${filename}"
+            before = _drive_stat(root)
+            resp = step("post_refused", lambda: alice.post_form(
+                IDP_BUCKET, fields, form_body[:1 << 20], "refused.bin"))
+            checks["post_refused_403"] = (
+                status_code(resp) == (403, "AccessDenied")
+                and _drive_stat(root) == before)
+
+            # 8. The IAM blobs lost on four drives; a restart with those
+            # drives offline loads the IAM from the rest.
+            sts_clients = [temp, bob, web["HS256"], web["RS256"]]
+            iam_before = _iam_files(root, drives)
+
+            def persisted(iam) -> tuple:
+                return (sorted(iam.users), {
+                    k_: v for k_, v in iam.user_policy.items()
+                    if k_ not in iam.sts}, IDP_POLICY in iam.policies)
+
+            state_before = persisted(srv.iam)
+            srv.stop()
+            srv = None
+            for i in lost:
+                shutil.rmtree(root / f"d{i + 1}" / ".minio.sys" / "config"
+                              / "iam")
+            srv = step("restart", lambda: server(offline=lost))
+            c = S3Client(srv.endpoint, S3_ACCESS, S3_SECRET)
+            checks["iam_loaded_degraded"] = (
+                persisted(srv.iam) == state_before and not srv.iam.sts)
+            step("iam_reload", srv.iam.reload)
+            checks["iam_reloaded_degraded"] = (
+                persisted(srv.iam) == state_before)
+
+            def after_restart():
+                alice_again = S3Client(srv.endpoint, IDP_ALICE,
+                                       IDP_ALICE_SECRET)
+                sa_again = S3Client(srv.endpoint, sa.access_key,
+                                    sa.secret_key)
+                heads = [cl.request("HEAD", f"{b}/{IDP_OBJECT}")[0]
+                         for cl in (alice_again, sa_again)]
+                gone = [status_code(S3Client(
+                    srv.endpoint, cl.access_key, cl.secret_key,
+                    session_token=cl.session_token).request(
+                        "GET", f"{b}/{IDP_OBJECT}")) for cl in sts_clients]
+                return heads, gone
+
+            heads, gone = step("after_restart", after_restart)
+            checks["keys_answer_after_restart"] = heads == [200, 200]
+            checks["sts_gone_after_restart"] = gone == [
+                (403, "InvalidAccessKeyId")] * len(sts_clients)
+            srv.bring_back()
+            state = step("heal_bucket", lambda: _heal_bucket(c, IDP_BUCKET))
+            checks["heal_bucket_ok"] = (state["Summary"] == "finished"
+                                        and state["NumFailed"] == 0)
+            checks["object_healed_identical"] = (
+                _object_files(root, IDP_BUCKET, IDP_OBJECT) == originals)
+            # The admin heal takes user buckets only: the IAM blobs heal
+            # through the object layer, as the MRF drain heals them.
+            healed = step("heal_iam", lambda: [
+                srv.object_layer.heal_object(".minio.sys", name)
+                for name in sorted(iam_sizes)])
+            checks["heal_iam_ok"] = all(
+                len(h["healed"]) == len(lost) for h in healed)
+            checks["iam_healed_identical"] = (
+                _iam_files(root, drives) == iam_before)
+    finally:
+        if srv is not None:
+            srv.stop()
+        ldap.stop()
+    out["system_objects"] = {f"write-{n}": s
+                             for n, s in enumerate(sorted(system_sizes))}
+    recon = set()
+    for name, s in iam_sizes.items():
+        dist = hash_order(f".minio.sys/{name}", drives)
+        shards = tuple(sorted(dist[d] - 1 for d in lost))
+        recon.add((shards, shards, s))
+        recon.add((shards, tuple(x for x in shards if x < k), s))
+    out["iam_reconstructions"] = [[list(u), list(t), s]
+                                  for u, t, s in sorted(recon)]
+    out["iam_blobs"] = dict(sorted(iam_sizes.items()))
     out["checks"] = checks
     return out

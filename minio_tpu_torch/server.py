@@ -8,7 +8,10 @@ credential, the bucket metadata, the config subsystem (a ConfigSys
 sealed under the root secret and loaded from .minio.sys/config; the
 `drive` subsystem's deadlines applied from the environment before the
 drives are wrapped and again once the stored config is loaded, as
-minio_tpu/server.py:208-211 and :302-310 do), the S3 server with its SSE key
+minio_tpu/server.py:208-211 and :302-310 do), the IAM (users, groups,
+policies and service accounts stored as .minio.sys/config/iam/ objects,
+or in etcd when MTPU_ETCD_ENDPOINTS names endpoints, with a watch that
+reloads it; minio_tpu/server.py:274-297), the S3 server with its SSE key
 material (the SSE-S3 master key and a LocalKMS whose key-name registry
 persists under .minio.sys, minio_tpu's _build_kms without KES) and the
 config, the bucket quotas (a BucketQuotaSys over the scanner's usage
@@ -72,7 +75,8 @@ from .erasure.streaming import (
     encode_stream,
     prefill_blocks_pool,
 )
-from .iam.store import IAMSys
+from .iam.etcd import EtcdIAMBackend, EtcdKV
+from .iam.store import IAMSys, ObjectStoreBackend
 from .object import erasure_objects, metadata
 from .object.pools import ErasureServerPools
 from .object.sets import ErasureSets, read_format
@@ -309,7 +313,25 @@ class Server:
         self.object_layer = ErasureServerPools(pools, device=self.device)
         if self.device.type == "cuda":
             self._warm()
-        self.iam = IAMSys(self.root_user, self.root_password)
+        # The IAM store: etcd when MTPU_ETCD_ENDPOINTS (the env form of
+        # the `etcd` subsystem) names endpoints, else the object layer.
+        # The env alone decides, before the stored config loads, as
+        # MinIO reads etcd's env ahead of initAllSubsystems.
+        etcd_kvs = Config().get("etcd")
+        self._iam_watcher = None
+        if (etcd_kvs.get("endpoints", "") or "").strip():
+            iam_store = EtcdIAMBackend(
+                EtcdKV(etcd_kvs["endpoints"].split(",")),
+                etcd_kvs.get("path_prefix", ""))
+        else:
+            iam_store = ObjectStoreBackend(self.object_layer)
+        self.iam = IAMSys(self.root_user, self.root_password,
+                          store=iam_store)
+        self.iam.load()
+        if isinstance(iam_store, EtcdIAMBackend):
+            # Any server's IAM write reloads this one within the watch's
+            # latency.
+            self._iam_watcher = iam_store.start_watch(self.iam.reload)
         self.bucket_meta = BucketMetadataSys(self.object_layer)
         # The config, sealed under the root secret (one launch of kernel D
         # to load it on the card); the env still wins inside Config.get.
@@ -438,6 +460,8 @@ class Server:
         self.mrf.stop()
         self.disk_monitor.stop()
         self.fresh_disk_healer.stop()
+        if self._iam_watcher is not None:
+            self._iam_watcher.stop()
         self.object_layer.close()
 
     @property

@@ -822,3 +822,24 @@ def test_tiering_on_card(cuda, tmp_path):
             "gf", "hash", "seal", "open", "compress", "decompress")), step
     assert res["ilm_transitioned_total"] == 3
     assert res["ilm_restored_total"] == 1
+
+
+def test_identity_on_card(cuda, tmp_path):
+    """Phase 4q on a 12+4 set at 16 MiB: IAM writes as .minio.sys PUTs (A
+    and B), a user's, a temporary credential's, a web identity's SSE-S3
+    and an LDAP identity's requests, form uploads, refusals with no
+    launch, and a restart that loads the IAM from degraded blobs (A)."""
+    res = entry.s3_identity(tmp_path, 16 << 20, device=cuda,
+                            post_size=4 << 20, range_size=1 << 20)
+    assert all(res["checks"].values()), res["checks"]
+    c = res["counters"]
+    for step in ("idp_add_user", "alice_put", "ldap_degraded_get",
+                 "post_201", "iam_reload", "heal_iam"):
+        assert c[step]["kernel_gf_launches"] > 0, step
+        assert c[step]["kernel_hash_launches"] > 0, step
+    assert c["web_sse_put"]["kernel_seal_launches"] > 0
+    assert c["web_sse_get"]["kernel_open_launches"] > 0
+    for step in ("alice_put_denied", "assume_role", "sts_get_no_token",
+                 "web_identity_rs256", "post_refused", "after_restart"):
+        assert not any(c[step][f"kernel_{k}_launches"] for k in (
+            "gf", "hash", "seal", "open", "compress", "decompress")), step

@@ -554,15 +554,33 @@ def test_http_entry_points_raise_without_a_card(tmp_path):
         f"c{i}" for i in range(4)]  # nothing ran on the CPU instead
 
 
+# Codes the port answers where minio_tpu answers otherwise (ROADMAP.md
+# Queue 3, PR 19): MinIO's own entries (cmd/api-errors.go). minio_tpu has
+# none of them: it reads no session token (ErrInvalidToken), and it
+# raises MalformedPOSTRequest without a table entry, which answers 500.
+MINIO_ONLY_ERRORS = {
+    "InvalidTokenId": ("The security token included in the request is "
+                       "invalid", 403),
+    "MalformedPOSTRequest": ("The body of your POST request is not "
+                             "well-formed multipart/form-data.", 400),
+}
+
+
 def test_error_table_is_minio_tpus():
     """Every error code the port's server can answer has minio_tpu's
-    status and description, and every code it raises is in its table."""
+    status and description (MinIO's, for the codes minio_tpu lacks and
+    the port answers on purpose), and every code it raises is in its
+    table."""
     import re as _re
 
     from minio_tpu.api.errors import API_ERRORS as JAX_API_ERRORS
     from minio_tpu_torch.api.errors import API_ERRORS
 
+    assert not set(MINIO_ONLY_ERRORS) & set(JAX_API_ERRORS)
     for code, err in API_ERRORS.items():
+        if code in MINIO_ONLY_ERRORS:
+            assert (err.description, err.status) == MINIO_ONLY_ERRORS[code]
+            continue
         want = JAX_API_ERRORS[code]
         assert (err.code, err.description, err.status) == \
             (want.code, want.description, want.status)
